@@ -1,0 +1,14 @@
+"""llama3.2-1b [dense] — 16L d=2048 32H (kv 8) ff=8192 vocab=128256.
+[hf:meta-llama/Llama-3.2-1B; unverified]"""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3.2-1b", family="dense",
+    n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8, head_dim=64,
+    d_ff=8192, vocab_size=128256, rope_theta=500_000.0,
+    mlp_act="silu", tie_embeddings=True,
+)
+
+SMOKE = CONFIG.scaled(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=256)
