@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # needs one CUDA card
 
 Builds both hand-written kernels from ``src/repro_torch/csrc`` and runs
-five phases, each printing one JSON line:
+these phases, each printing one JSON line:
 
 1. env — GPU name and power limit, torch/CUDA versions, kernel build time.
 2. kv_quant — the kernel against its plain PyTorch version at the serving
@@ -14,14 +14,28 @@ five phases, each printing one JSON line:
    rtol 1e-4 on the normalized output, m and l), pruned walk bitwise equal
    to the full walk, times, bound, and scaled_dot_product_attention over
    the same tokens dequantized to bf16 as a yardstick.
-4. serve — the port's Engine at full llama2-7b width (random bf16 weights
-   from a seed), PAPER_POLICY, 8 greedy requests in two admission waves on
-   4 slots; asserts every request finishes, launch counts, zero plain-
-   version calls, and cuda-vs-reference backend logits on one step.
+4. decode_attn_pooled — the kernel's block-table mode (DESIGN.md §9) at
+   the serve shape (4 slots x 256 pool blocks of 16 tokens, a seeded
+   permutation of physical blocks, two slots sharing entries) against its
+   plain version (same tolerance), bitwise equal to the striped kernel
+   over the gathered planes at the same tile, pruned walk bitwise equal
+   to the full walk; times, bound, and SDPA over the gathered tokens.
+5. serve — the port's Engine at full llama2-7b width (random bf16 weights
+   from a seed), PAPER_POLICY, max_len 4229 (a packed region of 4096
+   tokens = 256 pool blocks of 16), 8 greedy requests in two admission
+   waves on 4 slots; asserts every request finishes, launch counts, zero
+   plain-version calls, and cuda-vs-reference backend logits on one step.
    Decode step time comes from the Engine's own decode chunks (each one
    ends in a host copy) and from CUDA-event times of single steps, each
    with its spread.
-5. the kernel summary line, the card line, and the last line
+6. serve_pooled — (a) the same 8 requests through a pooled Engine (768
+   blocks of 16 tokens): every token stream identical to the serve
+   phase's; (b) shared-prefix traffic, 8 requests with one 2048-token
+   prefix and suffixes of 128..1024 tokens, 512 blocks: every request
+   finishes, prefix hit rate > 0, peak resident packed bytes under half
+   the striped worst case, a clean pool audit.  Both runs attend through
+   the block-table kernel only (no striped or plain decode_attn call).
+7. the kernel summary line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
@@ -42,7 +56,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 ATOL, RTOL = 3e-5, 1e-4          # decode_attn kernel vs plain, f32
 LOGIT_REL_TOL = 0.05             # cuda vs reference backend, bf16 model
-MAX_LEN = 4096                   # per-slot cache capacity of the serve phase
+# per-slot cache capacity of the serve phases: 4229 - 5 sinks - 128 window
+# leaves a packed region of 4096 tokens = 256 pool blocks of 16
+MAX_LEN = 4229
+POOL_BT = 16
 
 
 def emit(obj) -> None:
@@ -173,9 +190,9 @@ def phase_kv_quant(state):
 
 
 def _attn_case(gen, dev, b, hkv, gq, d, live):
-    """Packed planes of a ``MAX_LEN``-token cache (the serve phase's: 3963
-    packed tokens under a 4096-token mask) with ``live`` packed tokens per
-    slot, built by the port's own prefill + masks."""
+    """Packed planes of a ``MAX_LEN``-token cache (the serve phase's: 4096
+    packed tokens) with ``live`` packed tokens per slot, built by the
+    port's own prefill + masks."""
     import torch
     from repro_torch.core import kv_cache as kvc
     from repro_torch.core.policy import PAPER_POLICY as POL
@@ -199,10 +216,41 @@ def _attn_case(gen, dev, b, hkv, gq, d, live):
             seg.packed_block_bounds(ok, bs), bs)
 
 
-def phase_decode_attn(state):
+def _attn_bound(pol, q, hkv, gq, d, n_live, extra_bytes=0):
+    """Bound of one decode_attn call: the live tokens' packed K and V rows
+    and mask entries, q, the outputs (and ``extra_bytes``), or its f32
+    operations."""
+    from repro_torch.core.quant import packed_nbytes
+    gsz = min(pol.group_size, d)
+    per_tok = hkv * (packed_nbytes(d, pol.bits_k, gsz, 8)
+                     + packed_nbytes(d, pol.bits_v, gsz, 8))
+    nbytes = (n_live * (per_tok + 4) + q.numel() * 4
+              + 4 * hkv * gq * (d + 2) + extra_bytes)
+    # per live token and kv head: dequantize K and V (2 x 2D), then
+    # q.k and p.v for each of the Gq query rows (2 x 2D x Gq)
+    flops = n_live * hkv * (4 * d + 4 * d * gq)
+    return nbytes, flops, *bound(nbytes, flops)
+
+
+def _sdpa_ms(pol, q, k_qt, v_qt, mask, scale):
+    """CUDA-event time of scaled_dot_product_attention over the same tokens
+    dequantized to bf16, masked: the library yardstick."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.core.quant import dequantize_groups, packed_nbytes
+    from repro_torch.core.quant import dequantize_groups
+    b, hkv, gq, d = q.shape
+    gsz = min(pol.group_size, d)
+    kd = dequantize_groups(k_qt, d, pol.bits_k, gsz, True, torch.bfloat16)
+    vd = dequantize_groups(v_qt, d, pol.bits_v, gsz, True, torch.bfloat16)
+    kd, vd = kd.transpose(1, 2), vd.transpose(1, 2)          # B, H, S, D
+    qb = q.reshape(b, hkv * gq, 1, d).to(torch.bfloat16)
+    am = (mask[:, : kd.shape[2]] > 0)[:, None, None, :]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qb, kd, vd, attn_mask=am, scale=scale, enable_gqa=gq > 1))
+
+
+def phase_decode_attn(state):
+    import torch
     from repro_torch.kernels import decode_attn as DA
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -233,25 +281,9 @@ def phase_decode_attn(state):
         plain_ms = cuda_ms(lambda: DA.decode_attn_plain(
             *args, block_s=bs, block_bounds=bounds), iters=3, warmup=1)
         full_ms = cuda_ms(lambda: DA.decode_attn(*args, block_s=bs))
-        gsz = min(pol.group_size, d)
-        per_tok = hkv * (packed_nbytes(d, pol.bits_k, gsz, 8)
-                         + packed_nbytes(d, pol.bits_v, gsz, 8))
-        n_live = sum(live)
-        nbytes = (n_live * (per_tok + 4) + q.numel() * 4
-                  + 4 * hkv * gq * (d + 2))
-        # per live token and kv head: dequantize K and V (2 x 2D), then
-        # q.k and p.v for each of the Gq query rows (2 x 2D x Gq)
-        flops = n_live * hkv * (4 * d + 4 * d * gq)
-        bound_ms, bound_by = bound(nbytes, flops)
-        # yardstick: SDPA over the same tokens dequantized to bf16, masked
-        kd = dequantize_groups(k_qt, d, pol.bits_k, gsz, True, torch.bfloat16)
-        vd = dequantize_groups(v_qt, d, pol.bits_v, gsz, True, torch.bfloat16)
-        kd, vd = kd.transpose(1, 2), vd.transpose(1, 2)      # B, H, S, D
-        qb = q.reshape(4, hkv * gq, 1, d).to(torch.bfloat16)
-        am = (mask[:, : kd.shape[2]] > 0)[:, None, None, :]
-        lib = lambda: F.scaled_dot_product_attention(
-            qb, kd, vd, attn_mask=am, scale=scale, enable_gqa=gq > 1)
-        library_ms = cuda_ms(lib)
+        nbytes, flops, bound_ms, bound_by = _attn_bound(pol, q, hkv, gq, d,
+                                                        sum(live))
+        library_ms = _sdpa_ms(pol, q, k_qt, v_qt, mask, scale)
         rows.append({"hkv": hkv, "gq": gq, "d": d, "max_len": MAX_LEN,
                      "packed": k_qt["codes_hi"].shape[1],
                      "mask": mask.shape[1], "live": live,
@@ -260,11 +292,87 @@ def phase_decode_attn(state):
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "flops": flops,
                      "library_ms": library_ms})
-        del kd, vd
     emit({"phase": "decode_attn", "cases": rows, "atol": ATOL, "rtol": RTOL})
     state["decode_attn"] = {k: rows[0][k] for k in
                             ("max_abs_err", "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms")}
+
+
+def phase_decode_attn_pooled(state):
+    """The block-table mode at the serve shape: 4 slots x NB = 256 logical
+    blocks of 16 tokens over 4 * 256 + 1 physical blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.core import segments as seg
+    from repro_torch.kernels import decode_attn as DA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, hkv, gq, d, live = 4, 32, 1, 128, [500, 1500, 2900, 3900]
+    pol, q, k_st, v_st, mask, _, bs = _attn_case(gen, dev, b, hkv, gq, d,
+                                                 live)
+    nb = k_st["codes_hi"].shape[1] // POOL_BT
+    check(nb == 256 and bs == 256, f"pooled case: NB={nb} tile={bs}")
+    # scatter the striped planes into a pool through a seeded permutation;
+    # slots 0 and 1 share their first 8 blocks (same content in both)
+    perm = np.random.default_rng(3).permutation(np.arange(1, b * nb + 1))
+    tbl = perm.reshape(b, nb).astype(np.int32)
+    tbl[1, :8] = tbl[0, :8]
+    k_qt, v_qt = {}, {}
+    for src, dst in ((k_st, k_qt), (v_st, v_qt)):
+        for k, v in src.items():
+            v = v.clone()
+            v[1, :8 * POOL_BT] = v[0, :8 * POOL_BT]
+            blocks = v.reshape((b * nb, POOL_BT) + tuple(v.shape[2:]))
+            p = torch.zeros((b * nb + 1,) + tuple(blocks.shape[1:]),
+                            dtype=v.dtype, device=dev)
+            p[torch.as_tensor(tbl.reshape(-1), device=dev).long()] = blocks
+            dst[k] = p
+    table = torch.as_tensor(tbl, device=dev)
+    bounds = seg.packed_block_bounds(mask > 0, bs)
+    scale = d ** -0.5
+    args = (q, k_qt, v_qt, mask, pol, d, scale)
+    got = DA.decode_attn(*args, block_s=bs, block_bounds=bounds,
+                         block_table=table)
+    want = DA.decode_attn_plain(*args, block_s=bs, block_bounds=bounds,
+                                block_table=table)
+    full = DA.decode_attn(*args, block_s=bs, block_table=table)
+    k_g, v_g = DA.gather_planes(k_qt, table), DA.gather_planes(v_qt, table)
+    striped = DA.decode_attn(q, k_g, v_g, mask, pol, d, scale, block_s=bs,
+                             block_bounds=bounds)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, c) for a, c in zip(got, full)),
+          "decode_attn pooled: pruned walk differs from full walk")
+    check(all(torch.equal(a, c) for a, c in zip(got, striped)),
+          "decode_attn pooled: differs from the striped kernel over the "
+          "gathered planes at the same tile")
+    out_g, out_w = got[0] / got[2], want[0] / want[2]
+    err = float((out_g - out_w).abs().max())
+    for name, x, y in (("out", out_g, out_w), ("m", got[1], want[1]),
+                       ("l", got[2], want[2])):
+        check(torch.allclose(x, y, atol=ATOL, rtol=RTOL),
+              f"decode_attn pooled: {name} outside atol={ATOL} rtol={RTOL}: "
+              f"max err {float((x - y).abs().max())}")
+    kw = dict(block_s=bs, block_bounds=bounds, block_table=table)
+    ms = cuda_ms(lambda: DA.decode_attn(*args, **kw))
+    striped_ms = cuda_ms(lambda: DA.decode_attn(q, k_g, v_g, mask, pol, d,
+                                                scale, block_s=bs,
+                                                block_bounds=bounds))
+    plain_ms = cuda_ms(lambda: DA.decode_attn_plain(*args, **kw), iters=3,
+                       warmup=1)
+    nbytes, flops, bound_ms, bound_by = _attn_bound(
+        pol, q, hkv, gq, d, sum(live), extra_bytes=table.numel() * 4)
+    library_ms = _sdpa_ms(pol, q, k_g, v_g, mask, scale)
+    row = {"b": b, "hkv": hkv, "gq": gq, "d": d, "bt": POOL_BT, "nb": nb,
+           "phys_blocks": b * nb + 1, "tile": bs, "live": live,
+           "bounds": bounds.tolist(), "max_abs_err": err, "ms": ms,
+           "striped_kernel_ms": striped_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": flops, "library_ms": library_ms}
+    emit({"phase": "decode_attn_pooled", "case": row, "atol": ATOL,
+          "rtol": RTOL})
+    state["decode_attn_pooled"] = {k: row[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
 
 
 SERVE_LENS = [1024, 2048, 3000, 512, 1536, 1536, 2500, 1024]  # two waves
@@ -279,25 +387,11 @@ def _spread(xs):
             "max": float(a.max()), "std": float(a.std())}
 
 
-def phase_serve(state):
-    import numpy as np
-    import torch
-    from repro_torch import configs
-    from repro_torch.core.policy import PAPER_POLICY
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import transformer as T
-    from repro_torch.serving import Engine, Request
-    dev = torch.device("cuda")
-    cfg = configs.get("llama2_7b")
-    t0 = time.monotonic()
-    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
-    eng = Engine(params, cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
-                 max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
-                 device=dev)
-    # every decode chunk ends in its one device->host copy, so its wall time
-    # is that of SERVE_SPS decode steps as the Engine runs them
+def _timed_chunks(eng):
+    """Wrap the Engine's decode chunk: every chunk ends in its one
+    device->host copy, so its wall time is that of ``steps_per_sync``
+    decode steps as the Engine runs them.  Returns the (ms per step,
+    active slots) list it fills."""
     chunks = []
     decode_chunk = eng._decode_chunk
 
@@ -305,12 +399,41 @@ def phase_serve(state):
         active = eng.active_slots
         t = time.monotonic()
         decode_chunk()
-        chunks.append(((time.monotonic() - t) * 1e3 / SERVE_SPS, active))
+        chunks.append(((time.monotonic() - t) * 1e3 / eng.steps_per_sync,
+                       active))
     eng._decode_chunk = timed_chunk
+    return chunks
+
+
+def _serve_requests(cfg):
+    import numpy as np
+    from repro_torch.serving import Request
     rng = np.random.default_rng(0)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
-                    max_new=SERVE_NEW, seed=i)
-            for i, n in enumerate(SERVE_LENS)]
+    return rng, [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                         max_new=SERVE_NEW, seed=i)
+                 for i, n in enumerate(SERVE_LENS)]
+
+
+def phase_serve(state):
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine
+    dev = torch.device("cuda")
+    cfg = configs.get("llama2_7b")
+    t0 = time.monotonic()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    state["params"] = params
+    eng = Engine(params, cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
+                 max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
+                 device=dev)
+    chunks = _timed_chunks(eng)
+    rng, reqs = _serve_requests(cfg)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                                    # main path only
     t0 = time.monotonic()
@@ -336,6 +459,7 @@ def phase_serve(state):
           f"the wrong version ran on the main path: {counts}")
     peak = torch.cuda.max_memory_allocated()
     state["launches"] = {k: v["kernel"] for k, v in counts.items()}
+    state["serve_streams"] = [list(h.tokens) for h in handles]
     ttft = [(h.first_token_time - h.submit_time) * 1e3 for h in handles]
 
     # prefill of the longest prompt alone, synced
@@ -416,6 +540,121 @@ def phase_serve(state):
           "decode_profile": prof})
 
 
+SHARED_PREFIX, SHARED_NEW = 2048, 32
+SHARED_SUFFIXES = [128 * (i + 1) for i in range(8)]
+
+
+def _pooled_run(state, cfg, reqs, pool_blocks):
+    """Serve ``reqs`` through a pooled Engine with the counts set to 0
+    just before; returns the engine, handles, counts, wall s, chunks.
+    Engines of earlier runs are collected first (``_timed_chunks`` ties
+    each into a reference cycle), so the peak is this run's own."""
+    import gc
+    import torch
+    gc.collect()
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine
+    eng = Engine(state["params"], cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
+                 max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
+                 pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
+                 device=torch.device("cuda"))
+    chunks = _timed_chunks(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    steps = eng.n_decode_steps
+    da = counts["decode_attn"]
+    check(da["pooled"] == cfg.n_layers * steps and da["kernel"] == 0,
+          f"pooled decode_attn launches {da} != layers x steps = "
+          f"{cfg.n_layers * steps} on the block-table kernel alone")
+    check(counts["kv_quant"]["kernel"] >= 2 * cfg.n_layers * steps,
+          f"kv_quant launches {counts['kv_quant']} < 2 x layers x steps")
+    check(da["plain"] == 0 and counts["kv_quant"]["plain"] == 0,
+          f"the wrong version ran on the pooled path: {counts}")
+    check(all(h.finished and h.finish_reason == "length" for h in handles),
+          f"not every pooled request finished with length: "
+          f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
+    audit = eng.check_invariants()
+    st = eng.stats()
+    check(st["used"] == 0 and st["reserved"] == 0,
+          f"pool not drained: {st}")
+    return eng, handles, counts, wall, chunks, audit
+
+
+def _pool_report(eng, handles, counts, wall, chunks, audit):
+    import numpy as np
+    import torch
+    st = eng.stats()
+    tokens = sum(len(h.tokens) for h in handles)
+    ttft = [(h.first_token_time - h.submit_time) * 1e3 for h in handles]
+    return {"requests": len(handles), "decode_steps": eng.n_decode_steps,
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "engine_chunk_ms_per_step": [round(ms, 3) for ms, _ in chunks],
+            "engine_chunk_active_slots": [n for _, n in chunks],
+            "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]),
+            "launches": counts,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "pool": {k: st[k] for k in (
+                "pool_blocks", "pool_block_tokens", "peak_used",
+                "prefix_hits", "prefix_misses", "prefix_hit_rate",
+                "cow_copies", "peak_resident_bytes",
+                "striped_worst_case_bytes")},
+            "peak_over_striped": st["peak_resident_bytes"]
+            / st["striped_worst_case_bytes"],
+            "pool_exhausted_stalls": st["counters"]["pool_exhausted_stalls"],
+            "admitted": st["counters"]["admitted"],
+            "pool_bytes": eng.backend_info["pool_bytes"], "audit": audit}
+
+
+def phase_serve_pooled(state):
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.serving import Request
+    cfg = configs.get("llama2_7b")
+    # (a) the serve phase's traffic: streams identical to the striped run
+    _, reqs = _serve_requests(cfg)
+    run = _pooled_run(state, cfg, reqs, 768)
+    streams = [list(h.tokens) for h in run[1]]
+    same = [a == b for a, b in zip(streams, state["serve_streams"])]
+    check(all(same), f"pooled streams differ from the striped serve phase "
+          f"(request equal: {same})")
+    rep_a = _pool_report(*run)
+    del run
+    # (b) one shared system prompt, distinct suffixes
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX)
+    reqs = [Request(prompt=np.concatenate(
+                [prefix, rng.integers(0, cfg.vocab_size, n)]),
+                max_new=SHARED_NEW, seed=i)
+            for i, n in enumerate(SHARED_SUFFIXES)]
+    run = _pooled_run(state, cfg, reqs, 512)
+    rep_b = _pool_report(*run)
+    state["launches"]["decode_attn_pooled"] = \
+        run[2]["decode_attn"]["pooled"]
+    del run
+    check(rep_b["pool"]["prefix_hit_rate"] > 0,
+          f"shared-prefix traffic hit no resident block: {rep_b['pool']}")
+    check(rep_b["peak_over_striped"] < 0.5,
+          f"peak resident packed bytes {rep_b['pool']['peak_resident_bytes']}"
+          f" not under half the striped worst case "
+          f"{rep_b['pool']['striped_worst_case_bytes']}")
+    emit({"phase": "serve_pooled", "arch": cfg.name, "max_len": MAX_LEN,
+          "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
+          "same_traffic": dict(rep_a, prompt_lens=SERVE_LENS,
+                               max_new=SERVE_NEW, streams_equal=True),
+          "shared_prefix": dict(rep_b, prefix=SHARED_PREFIX,
+                                suffixes=SHARED_SUFFIXES,
+                                max_new=SHARED_NEW)})
+
+
 def _profile_decode(step, n: int = 2):
     """Device time by kernel over ``n`` decode steps (torch.profiler):
     busy share of the wall time, launches per step, top kernels."""
@@ -461,12 +700,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     state = {}
-    for phase in (phase_env, phase_kv_quant, phase_decode_attn, phase_serve):
+    for phase in (phase_env, phase_kv_quant, phase_decode_attn,
+                  phase_decode_attn_pooled, phase_serve, phase_serve_pooled):
         phase(state)
     entries = []
     for name, src, rep in (
             ("decode_attn", "src/repro_torch/csrc/decode_attn.cu",
              "src/repro/kernels/decode_attn.py:137"),
+            ("decode_attn_pooled", "src/repro_torch/csrc/decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:137 (block_table)"),
             ("kv_quant", "src/repro_torch/csrc/kv_quant.cu",
              "src/repro/kernels/kv_quant.py:78")):
         m = state[name]

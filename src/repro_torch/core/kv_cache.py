@@ -11,11 +11,16 @@ A cache is a plain dict of tensors with the reference's key names
 (``length``, ``sink_k``, ``win_k``, ``qk_codes_hi``, ...), laid out
 ``(B, S, H_kv, ...)``; ``length`` is per-slot ``(B,)`` int32.
 
-Unlike the reference, :func:`decode_append`, :func:`reset_slot` and
-:func:`insert_slot` update the tensors **in place** (and return the same
-dict), so a layer's cache may be a view into a layer-stacked buffer.
-:func:`prefill` allocates a fresh cache.  The paged block pool (§9) is not
-ported yet.
+Unlike the reference, :func:`decode_append`, :func:`reset_slot`,
+:func:`insert_slot`, :func:`pool_insert_blocks` and :func:`pool_copy_block`
+update the tensors **in place** (and return the same dict), so a layer's
+cache may be a view into a layer-stacked buffer.  :func:`prefill`
+allocates a fresh cache.
+
+The pooled layout (DESIGN.md §9) keeps the packed planes in a shared pool
+of physical blocks ``(NP + 1, BT, H_kv, ...)`` (block 0 is the never-read
+null block) with a per-slot ``block_tbl`` ``(B, NB)`` int32; sinks, window
+ring and length stay striped.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..device import resolve_device
+from . import segments as seg
 from .policy import QuantPolicy, as_layer_policy
 from .quant import quantize_groups, plane_layout
 
@@ -81,12 +87,155 @@ def init_cache(batch, max_len, n_kv, head_dim, policy, dtype=torch.bfloat16,
                                           policy, dtype).items()}
 
 
+# ------------------------------------------------------- paged block pool
+
+_PLANE_PREFIXES = ("qk_", "qv_")
+
+
+def is_plane_key(key: str) -> bool:
+    """True for packed-plane leaves (codes + scale/zero metadata): the only
+    leaves that move into the shared pool (DESIGN.md §9)."""
+    return key.startswith(_PLANE_PREFIXES)
+
+
+def is_pooled(cache: Cache) -> bool:
+    """True when the cache keeps its packed planes in a shared block pool
+    (detected by the ``block_tbl`` leaf; DESIGN.md §9)."""
+    return "block_tbl" in cache
+
+
+def pooled_cache_shapes(batch: int, max_len: int, n_kv: int, head_dim: int,
+                        policy: QuantPolicy, pool_blocks: int,
+                        block_tokens: int, dtype=torch.bfloat16):
+    """Dict of name -> (shape, dtype) for the pooled layout (DESIGN.md §9):
+    :func:`cache_shapes` with the packed planes in a pool of
+    ``pool_blocks`` blocks of ``block_tokens`` tokens (plus null block 0)
+    and a ``block_tbl`` (batch, NB) logical -> physical map."""
+    policy = as_layer_policy(policy)
+    if policy.is_fp16:
+        raise ValueError("fp16 policies have no packed planes to pool; "
+                         "keep fp16 bands on the striped layout")
+    w, ns = policy.window, policy.n_sink
+    sq = max(0, max_len - ns - w)
+    if sq == 0:
+        raise ValueError(
+            f"policy window={w} n_sink={ns} leaves no packed region at "
+            f"max_len={max_len}; nothing to pool")
+    nb = seg.n_table_blocks(sq, block_tokens)   # raises if sq is ragged
+    if pool_blocks < 1:
+        raise ValueError(f"pool_blocks must be >= 1, got {pool_blocks}")
+    out = {"length": ((batch,), torch.int32),
+           "block_tbl": ((batch, nb), torch.int32)}
+    if ns > 0:
+        out["sink_k"] = ((batch, ns, n_kv, head_dim), dtype)
+        out["sink_v"] = ((batch, ns, n_kv, head_dim), dtype)
+    if w > 0:
+        out["win_k"] = ((batch, w, n_kv, head_dim), dtype)
+        out["win_v"] = ((batch, w, n_kv, head_dim), dtype)
+    gsz = min(policy.group_size, head_dim)
+    for pref, bits in (("qk", policy.bits_k), ("qv", policy.bits_v)):
+        for k, v in _qtensor_shapes(pool_blocks + 1, block_tokens, n_kv,
+                                    head_dim, bits, gsz,
+                                    policy.meta_dtype_bits).items():
+            out[f"{pref}_{k}"] = v
+    return out
+
+
+def init_pooled_cache(batch, max_len, n_kv, head_dim, policy, pool_blocks,
+                      block_tokens, dtype=torch.bfloat16, device=None
+                      ) -> Cache:
+    """Zero-filled pooled cache dict for one layer (DESIGN.md §9), on
+    ``device`` (default CUDA; raises without a card unless ``"cpu"``)."""
+    device = resolve_device(device)
+    return {k: torch.zeros(s, dtype=d, device=device) for k, (s, d) in
+            pooled_cache_shapes(batch, max_len, n_kv, head_dim, policy,
+                                pool_blocks, block_tokens, dtype).items()}
+
+
+def gather_blocks(plane: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """One pool-major plane (NP, BT, H, W) gathered through a block table
+    (B, NB) into its striped view (B, NB*BT, H, W) (DESIGN.md §9)."""
+    g = plane[table.long()]                             # (B, NB, BT, ...)
+    return g.reshape((table.shape[0], table.shape[1] * g.shape[2])
+                     + tuple(g.shape[3:]))
+
+
+def unpool_cache(cache: Cache) -> Cache:
+    """Gather a pooled cache into the equivalent striped view (DESIGN.md
+    §9): planes (NP, BT, H, W) gathered through ``block_tbl`` (B, NB)
+    become (B, NB*BT, H, W).  Unallocated entries gather the null block,
+    whose contents lie past every slot's frontier and are masked."""
+    tbl = cache["block_tbl"]
+    return {key: gather_blocks(v, tbl) if is_plane_key(key) else v
+            for key, v in cache.items() if key != "block_tbl"}
+
+
+def _pairs(pairs, device) -> torch.Tensor:
+    return torch.as_tensor(pairs, dtype=torch.int64,
+                           device=device).reshape(-1, 2)
+
+
+def pool_insert_blocks(dst: Cache, src: Cache, pairs, src_slot: int = 0,
+                       pool_axis: int = 0) -> Cache:
+    """In place: copy packed blocks of a striped cache into pool blocks
+    (DESIGN.md §9).  ``pairs`` is (n, 2) rows of [logical_block,
+    physical_block]: logical block ``lb`` of ``src`` row ``src_slot`` lands
+    at pool block ``phys``; (0, 0) rows write the null block, a no-op.
+    ``pool_axis`` is 0 for one layer, 1 for layer-stacked leaves."""
+    sel = (slice(None),) * pool_axis
+    for key, d in dst.items():
+        if not is_plane_key(key):
+            continue
+        p = _pairs(pairs, d.device)
+        bt = d.shape[pool_axis + 1]
+        srow = src[key].select(pool_axis, src_slot)   # (..., sq_src, H, W)
+        shp = tuple(srow.shape)
+        nbs = shp[pool_axis] // bt
+        blocks = srow.reshape(shp[:pool_axis] + (nbs, bt)
+                              + shp[pool_axis + 1:])
+        take = blocks.index_select(pool_axis, p[:, 0].clamp(0, nbs - 1))
+        d[sel + (p[:, 1],)] = take.to(d.dtype)
+    return dst
+
+
+def pool_copy_block(cache: Cache, pairs, pool_axis: int = 0) -> Cache:
+    """In place: copy pool blocks src -> dst across every plane leaf
+    (DESIGN.md §9 copy-on-write); ``pairs`` is (n, 2) rows of [src_phys,
+    dst_phys]."""
+    sel = (slice(None),) * pool_axis
+    for key, v in cache.items():
+        if not is_plane_key(key):
+            continue
+        p = _pairs(pairs, v.device)
+        v[sel + (p[:, 1],)] = v[sel + (p[:, 0],)]
+    return cache
+
+
+def pool_block_nbytes(n_kv: int, head_dim: int, policy: QuantPolicy,
+                      block_tokens: int) -> int:
+    """Exact bytes of ONE pool block for one layer (codes + scale/zero of
+    both K and V), straight from :func:`_qtensor_shapes` (DESIGN.md §9)."""
+    policy = as_layer_policy(policy)
+    if policy.is_fp16:
+        raise ValueError("fp16 policies have no packed planes")
+    gsz = min(policy.group_size, head_dim)
+    total = 0
+    for bits in (policy.bits_k, policy.bits_v):
+        for (s, d) in _qtensor_shapes(1, block_tokens, n_kv, head_dim, bits,
+                                      gsz, policy.meta_dtype_bits).values():
+            total += math.prod(s) * torch.empty((), dtype=d).element_size()
+    return total
+
+
 def slot_lengths(cache: Cache, batch: Optional[int] = None) -> torch.Tensor:
-    """Per-slot lengths (B,) (DESIGN.md §6).  A scalar length broadcasts."""
+    """Per-slot lengths (B,) (DESIGN.md §6).  A scalar length broadcasts;
+    pooled plane leaves lead with the pool axis, so batch comes from a
+    per-slot leaf."""
     t = cache["length"]
     if t.ndim == 0:
         if batch is None:
-            batch = next(v.shape[0] for k, v in cache.items() if k != "length")
+            batch = next(v.shape[0] for k, v in cache.items()
+                         if k != "length" and not is_plane_key(k))
         t = t.expand(batch)
     return t
 
@@ -111,15 +260,35 @@ def _put_tok_where(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     buf[rows, idx] = torch.where(cond[:, None, None], val[:, 0], old)
 
 
+def _pool_dest(tbl: torch.Tensor, idx: torch.Tensor, block_tokens: int,
+               cond: torch.Tensor):
+    """Pooled write target (DESIGN.md §9): packed index ``idx`` (B,) routes
+    through the slot's table to (physical block, offset) index tensors.
+    Rows with ``cond`` False are steered to null block 0, which is never
+    read unmasked; copy-on-write makes live rows own their target block,
+    so live writes never collide.  Computed once per append and shared by
+    every plane leaf."""
+    lb = torch.div(idx, block_tokens, rounding_mode="floor").clamp(
+        0, tbl.shape[1] - 1)
+    phys = seg.physical_block(tbl, lb)
+    p = torch.where(cond, phys, torch.zeros_like(phys))
+    return p.long(), torch.remainder(idx, block_tokens).long()
+
+
 # ------------------------------------------------------ slot lifecycle ops
 
 def reset_slot(caches, i: int, batch_axis: int = 0):
     """In place: zero batch slot ``i`` of every leaf (DESIGN.md §6
     retirement).  Works on one cache dict or nested groups of
-    layer-stacked caches (``batch_axis=1``)."""
+    layer-stacked caches (``batch_axis=1``).  A pooled cache (§9) zeroes
+    the slot's ``block_tbl`` row but leaves the shared planes alone: other
+    slots may share those blocks, and freeing them is the host
+    ``BlockPool``'s job."""
     if isinstance(caches, dict):
-        for v in caches.values():
-            reset_slot(v, i, batch_axis)
+        pooled = is_pooled(caches)
+        for k, v in caches.items():
+            if not (pooled and is_plane_key(k)):
+                reset_slot(v, i, batch_axis)
         return caches
     caches.select(batch_axis, i).zero_()
     return caches
@@ -127,10 +296,15 @@ def reset_slot(caches, i: int, batch_axis: int = 0):
 
 def insert_slot(dst, i: int, src, src_slot: int = 0, batch_axis: int = 0):
     """In place: copy batch row ``src_slot`` of ``src`` into slot ``i`` of
-    ``dst`` (DESIGN.md §6 admission).  Non-batch dims must match."""
+    ``dst`` (DESIGN.md §6 admission).  Non-batch dims must match.  When
+    ``dst`` is pooled (§9) only the striped leaves copy; the planes land
+    through :func:`pool_insert_blocks` and ``block_tbl`` is the host
+    pool's."""
     if isinstance(dst, dict):
+        pooled = is_pooled(dst)
         for k, v in dst.items():
-            insert_slot(v, i, src[k], src_slot, batch_axis)
+            if not (pooled and (is_plane_key(k) or k == "block_tbl")):
+                insert_slot(v, i, src[k], src_slot, batch_axis)
         return dst
     dst.select(batch_axis, i).copy_(src.select(batch_axis, src_slot))
     return dst
@@ -190,7 +364,9 @@ def decode_append(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
     quantize the token it evicts from the window (DESIGN.md §1).
 
     Every row advances at its own ``length``.  Rows with ``valid`` False
-    (optional (B,) bool) are no-ops and do not advance.  Returns ``cache``."""
+    (optional (B,) bool) are no-ops and do not advance.  A pooled cache
+    (§9) routes the packed write through the slot's block table
+    (:func:`_pool_dest`).  Returns ``cache``."""
     policy = as_layer_policy(policy)
     qf = quant_fn or quantize_groups
     b, _, h, d = k_new.shape
@@ -198,12 +374,23 @@ def decode_append(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
     t = slot_lengths(cache, b).clone()
     ok = (torch.ones(b, dtype=torch.bool, device=k_new.device) if valid is None
           else torch.as_tensor(valid, device=k_new.device).expand(b))
+    pooled = is_pooled(cache)
+
+    def packed_len():
+        s = cache["qk_codes_hi"].shape[1]
+        return cache["block_tbl"].shape[-1] * s if pooled else s
 
     def put_all(qk, qv, idx, cond):
+        if pooled:
+            dest = _pool_dest(cache["block_tbl"], idx,
+                              cache["qk_codes_hi"].shape[1], cond)
         for name, qt in (("qk", qk), ("qv", qv)):
             for kk, vv in qt.items():
                 full = cache[f"{name}_{kk}"]
-                _put_tok_where(full, idx, vv.to(full.dtype), cond)
+                if pooled:
+                    full[dest] = vv[:, 0].to(full.dtype)
+                else:
+                    _put_tok_where(full, idx, vv.to(full.dtype), cond)
 
     if policy.is_fp16:
         idx = t.clamp(0, cache["k"].shape[1] - 1)
@@ -217,7 +404,7 @@ def decode_append(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
         slot = (t - ns).clamp_min(0) % w
         u_e = t - ns - w          # packed-region index of the evicted token
         if "qk_codes_hi" in cache and cache["qk_codes_hi"].shape[1] > 0:
-            idx = u_e.clamp(0, cache["qk_codes_hi"].shape[1] - 1)
+            idx = u_e.clamp(0, packed_len() - 1)
             # gather the evicted tokens before the ring slot is overwritten
             ek = _gat_tok(cache["win_k"], slot)
             ev = _gat_tok(cache["win_v"], slot)
@@ -229,7 +416,7 @@ def decode_append(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
                            ~is_sink & ok)
     else:
         # no window: quantize immediately (the paper's no-window ablation)
-        idx = (t - ns).clamp_min(0).clamp_max(cache["qk_codes_hi"].shape[1] - 1)
+        idx = (t - ns).clamp_min(0).clamp_max(packed_len() - 1)
         put_all(qf(k_new, policy.bits_k, gsz, alpha_k, policy.fp8_meta),
                 qf(v_new, policy.bits_v, gsz, alpha_v, policy.fp8_meta),
                 idx, ok)

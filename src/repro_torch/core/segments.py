@@ -103,6 +103,59 @@ def blocks_visited(bounds: torch.Tensor) -> torch.Tensor:
     return (bounds[..., 1] - bounds[..., 0]).clamp_min(1)
 
 
+# ------------------------------------------------- block-table index math
+# The paged pool (DESIGN.md §9) tiles the packed region into fixed
+# ``block_tokens``-token blocks.  Packed token ``u`` lives at logical block
+# ``u // block_tokens``, offset ``u % block_tokens``; the per-slot block
+# table maps logical -> physical block id, physical id 0 being the
+# never-read null block.  ``u`` is exactly the striped packed index, so
+# every mask above applies unchanged to the pooled view.
+
+def n_table_blocks(packed_len: int, block_tokens: int) -> int:
+    """Logical blocks covering a ``packed_len``-token packed region; a
+    ragged tail block would break bit-parity with the striped layout, so
+    it raises."""
+    if block_tokens < 1:
+        raise ValueError(f"block_tokens must be >= 1, got {block_tokens}")
+    if packed_len % block_tokens:
+        raise ValueError(
+            f"packed region of {packed_len} tokens does not tile into "
+            f"{block_tokens}-token blocks; round the capacity so that "
+            f"(max_len - n_sink - window) % block_tokens == 0")
+    return packed_len // block_tokens
+
+
+def logical_block(u, block_tokens: int) -> torch.Tensor:
+    """Packed token index ``u`` -> its logical block index."""
+    return torch.div(_t(u), block_tokens, rounding_mode="floor")
+
+
+def block_offset(u, block_tokens: int) -> torch.Tensor:
+    """Packed token index ``u`` -> its offset inside its logical block."""
+    return torch.remainder(_t(u), block_tokens)
+
+
+def physical_block(table, lb) -> torch.Tensor:
+    """(B, NB) table, (B,) logical block -> (B,) physical ids (0 = null)."""
+    table = _t(table)
+    lb = _t(lb, table.device).to(torch.int64)
+    return torch.gather(table, 1, lb[:, None])[:, 0]
+
+
+def blocks_spanned(u_lo: int, u_hi: int, block_tokens: int,
+                   n_blocks: int) -> range:
+    """Host mirror: logical blocks touched by packed writes at
+    ``u in [u_lo, u_hi)``, clipped into the table exactly as the device
+    write clamps (``kv_cache.decode_append``).  Negative ``u`` touches
+    nothing."""
+    if n_blocks <= 0 or u_hi <= 0 or u_hi <= u_lo:
+        return range(0)
+    lo = max(u_lo, 0)
+    first = min(lo // block_tokens, n_blocks - 1)
+    last = min((u_hi - 1) // block_tokens, n_blocks - 1)
+    return range(first, last + 1)
+
+
 def attend_ok(pos, stored, t_now, window_eff) -> torch.Tensor:
     """Final attendability: stored ∧ causal ∧ inside the local band."""
     t_now = _t(t_now)

@@ -30,6 +30,19 @@
 //   * Planes may hold fewer tokens (S) than the mask (S_mask, a multiple of
 //     block_s): tokens at or past S are treated as masked and never read,
 //     so the caller need not pad the planes.
+//   * Block-table (pooled) mode, DESIGN.md §9 (decode_attn_pallas with
+//     block_table=).  The planes are pool-major, (n_phys, bt, Hkv, W), and
+//     logical token t of slot b lives in physical block tbl[b, t / bt] at
+//     offset t % bt, S = NB * bt.  The TPU kernel fetches one pool block per
+//     grid step through its BlockSpec index map, which pins its tile to bt.
+//     Here every thread gathers its own token's row, so the tile stays the
+//     striped one (256 tokens) whatever bt is: a 16-token tile would leave
+//     15/16 of the 256 threads idle.  The table is read on the device, so a
+//     table that changes costs neither a host sync nor a rebuild.  At the
+//     same tile the pooled walk reads the same values in the same order as
+//     the striped walk over the gathered planes, so the two are bitwise
+//     equal.  An entry outside [0, n_phys) reads null block 0 instead of
+//     memory past the pool.
 //
 // What bounds it on an H100: bytes.  Per live token it reads the packed K
 // and V rows (60 B at D = 128, K2/V1.5, fp8 meta) plus a 4 B mask entry for
@@ -74,6 +87,22 @@ __device__ __forceinline__ float dec_meta(const void* base, size_t i,
   return __half2float(((const __half*)base)[i]);
 }
 
+// Row of token t of slot b in the (B*S or n_phys*bt, hkv) plane rows: the
+// striped row, or the physical block's row through the table.
+__device__ __forceinline__ size_t plane_row(const int* tbl, int nb, int bt,
+                                            int n_phys, int b, int S, int t,
+                                            int hkv, int h) {
+  size_t tok;
+  if (tbl) {
+    int phys = __ldg(tbl + (size_t)b * nb + t / bt);
+    phys = (phys < 0 || phys >= n_phys) ? 0 : phys;
+    tok = (size_t)phys * bt + t % bt;
+  } else {
+    tok = (size_t)b * S + t;
+  }
+  return tok * hkv + h;
+}
+
 // Reduce v[0..gq) across the block; every thread gets the same result.
 __device__ __forceinline__ void block_reduce(float (&v)[kMaxG], int gq,
                                              float* red, bool is_max) {
@@ -101,7 +130,8 @@ __device__ __forceinline__ void block_reduce(float (&v)[kMaxG], int gq,
 
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ mask,
-                   const int* __restrict__ bounds, Planes kp, Planes vp,
+                   const int* __restrict__ bounds, const int* __restrict__ tbl,
+                   int nb, int bt, int n_phys, Planes kp, Planes vp,
                    int S, int S_mask, int hkv, int gq, int d, int bs,
                    float scale, float softcap, int fp8_meta,
                    float* __restrict__ num_out, float* __restrict__ m_out,
@@ -138,7 +168,7 @@ decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ mask,
     const int t = t0 + tid;
     if (tid < bs && t < S) {
       mk = mask[(size_t)b * S_mask + t];
-      const size_t row = ((size_t)b * S + t) * hkv + h;
+      const size_t row = plane_row(tbl, nb, bt, n_phys, b, S, t, hkv, h);
       for (int pi = 0; pi < kp.n; ++pi) {
         const Plane& p = kp.p[pi];
         const int wb = p.width * p.bits / 8, cpb = 8 / p.bits;
@@ -207,7 +237,8 @@ decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ mask,
         const int tok = t0 + sub + tt;
         float* dst = v_s + tt * d + p.start + j * cpb;
         if (tok < S) {
-          const size_t row = ((size_t)b * S + tok) * hkv + h;
+          const size_t row = plane_row(tbl, nb, bt, n_phys, b, S, tok, hkv,
+                                       h);
           const unsigned byte = __ldg(p.codes + row * (p.width * p.bits / 8) + j);
           const unsigned cmask = (1u << p.bits) - 1u;
           for (int i = 0; i < cpb; ++i) {
@@ -268,11 +299,14 @@ Planes make_planes(int n, const void* c0, const void* s0, const void* z0,
 }  // namespace
 
 // q: (B, Hkv, Gq, D) f32; mask: (B, S_mask) f32; bounds: (B, 2) i32 block
-// range [lo, hi) over S_mask / bs tiles.  Planes: codes (B, S, Hkv, W*b/8)
-// u8, scale/zero (B, S, Hkv, W/gs) u8 (fp8) or f16.  Outputs: num
-// (B, Hkv, Gq, D), m and l (B, Hkv, Gq) f32.  Returns cudaGetLastError().
+// range [lo, hi) over S_mask / bs tiles.  Striped (tbl null): planes codes
+// (B, S, Hkv, W*b/8) u8, scale/zero (B, S, Hkv, W/gs) u8 (fp8) or f16.
+// Pooled: tbl (B, nb) i32, planes (n_phys, bt, Hkv, ...), S = nb * bt.
+// Outputs: num (B, Hkv, Gq, D), m and l (B, Hkv, Gq) f32.  Returns
+// cudaGetLastError().
 extern "C" int decode_attn_launch(
-    const float* q, const float* mask, const int* bounds,
+    const float* q, const float* mask, const int* bounds, const int* tbl,
+    int nb, int bt, int n_phys,
     int nk, const void* kc0, const void* ks0, const void* kz0, int kst0,
     int kw0, int kb0, int kgs0, const void* kc1, const void* ks1,
     const void* kz1, int kst1, int kw1, int kb1, int kgs1,
@@ -286,6 +320,8 @@ extern "C" int decode_attn_launch(
   if (gq < 1 || gq > kMaxG || gq * d > kThreads * kMaxOut || bs < 1 ||
       bs > kThreads || S_mask % bs != 0 || S > S_mask)
     return (int)cudaErrorInvalidValue;
+  if (tbl && (nb < 1 || bt < 1 || n_phys < 1 || S != nb * bt))
+    return (int)cudaErrorInvalidValue;
   const Planes kp = make_planes(nk, kc0, ks0, kz0, kst0, kw0, kb0, kgs0, kc1,
                                 ks1, kz1, kst1, kw1, kb1, kgs1);
   const Planes vp = make_planes(nv, vc0, vs0, vz0, vst0, vw0, vb0, vgs0, vc1,
@@ -297,7 +333,8 @@ extern "C" int decode_attn_launch(
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   decode_attn_kernel<<<B * hkv, kThreads, smem, (cudaStream_t)stream>>>(
-      q, mask, bounds, kp, vp, S, S_mask, hkv, gq, d, bs, scale, softcap,
+      q, mask, bounds, tbl, nb, bt, n_phys, kp, vp, S, S_mask, hkv, gq, d,
+      bs, scale, softcap,
       fp8_meta, num, m, l);
   return (int)cudaGetLastError();
 }

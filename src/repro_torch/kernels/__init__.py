@@ -6,7 +6,8 @@ from __future__ import annotations
 
 
 def launch_counts() -> dict:
-    """{kernel: {"kernel": n, "plain": n}} for both kernels."""
+    """{kernel: {"kernel": n, "plain": n}} for both kernels; decode_attn
+    also counts its block-table launches under ``"pooled"``."""
     from . import decode_attn, kv_quant
     return {"decode_attn": dict(decode_attn.LAUNCHES),
             "kv_quant": dict(kv_quant.LAUNCHES)}

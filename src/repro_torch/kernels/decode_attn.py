@@ -1,6 +1,7 @@
 """Fused dequantize + online-softmax decode attention over the packed SKVQ
 planes (port of the TPU kernel ``decode_attn_pallas``,
-``src/repro/kernels/decode_attn.py``, striped layout with block bounds).
+``src/repro/kernels/decode_attn.py``: the striped layout with block bounds,
+and the block-table (pooled) mode of DESIGN.md §9).
 
 :func:`decode_attn` launches ``csrc/decode_attn.cu`` on CUDA tensors and
 takes the plain PyTorch version :func:`decode_attn_plain` only for CPU
@@ -19,9 +20,17 @@ What bounds it on an H100 and the design: see the note at the top of
 ``csrc/decode_attn.cu`` (bytes-bound; one block per (slot, kv-head), K
 dequantized in registers, V in 64-token shared-memory sub-tiles).
 
-``LAUNCHES["kernel"]`` counts kernel launches and ``LAUNCHES["plain"]``
-calls of the plain version.  The block-table (pooled) mode of the TPU
-kernel is not ported yet.
+Pooled mode (``block_table`` (B, NB) int32): the planes are pool-major
+``(NP, BT, Hkv, ...)`` and logical token ``t`` of slot ``b`` reads physical
+block ``block_table[b, t // BT]`` at offset ``t % BT``; the logical length
+is ``NB * BT``, and the mask and bounds stay in logical coordinates.  The
+kernel gathers per token, so ``block_s`` need not equal ``BT``.  The plain
+version gathers the planes into the striped view first
+(:func:`gather_planes`), then walks them as in striped mode.
+
+``LAUNCHES["kernel"]`` counts striped kernel launches,
+``LAUNCHES["pooled"]`` block-table kernel launches and ``LAUNCHES["plain"]``
+calls of the plain version (either mode).
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from ..core.kv_cache import gather_blocks
 from ..core.packing import unpack_u8
 from ..core.policy import QuantPolicy
 from ..core.quant import plane_layout
@@ -39,7 +49,7 @@ BLOCK_S = 256
 NEG = -1e30
 # bit pattern of float8_e4m3fn(1.0): sign 0, exponent 0111 (bias 7)
 FP8_ONE = 0x38
-LAUNCHES = {"kernel": 0, "plain": 0}
+LAUNCHES = {"kernel": 0, "pooled": 0, "plain": 0}
 _C = ctypes
 
 
@@ -59,6 +69,13 @@ def pad_planes(qt: Dict[str, torch.Tensor], s_pad: int, fp8_meta: bool
                           dtype=v.dtype, device=v.device)
         out[k] = torch.cat([v, tail], dim=1)
     return out
+
+
+def gather_planes(qt: Dict[str, torch.Tensor], block_table: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """Pool-major planes (NP, BT, Hkv, W) -> the striped view
+    (B, NB*BT, Hkv, W) of the slots in ``block_table`` (B, NB)."""
+    return {k: gather_blocks(v, block_table) for k, v in qt.items()}
 
 
 def _dequant_tile(qt, sl: slice, layout, fp8_meta: bool) -> torch.Tensor:
@@ -81,9 +98,14 @@ def _dequant_tile(qt, sl: slice, layout, fp8_meta: bool) -> torch.Tensor:
 def decode_attn_plain(q, k_qt, v_qt, mask, policy: QuantPolicy,
                       head_dim: int, scale: float, block_s: int = BLOCK_S,
                       softcap: float = 0.0,
-                      block_bounds: Optional[torch.Tensor] = None):
-    """Plain PyTorch version, tile by tile as the TPU kernel walks them."""
+                      block_bounds: Optional[torch.Tensor] = None,
+                      block_table: Optional[torch.Tensor] = None):
+    """Plain PyTorch version, tile by tile as the TPU kernel walks them;
+    pooled planes are gathered into the striped view first."""
     LAUNCHES["plain"] += 1
+    if block_table is not None:
+        k_qt = gather_planes(k_qt, block_table)
+        v_qt = gather_planes(v_qt, block_table)
     b, hkv, gq, d = q.shape
     s_mask = mask.shape[-1]
     gsz = min(policy.group_size, head_dim)
@@ -128,7 +150,7 @@ def _lib():
     if fn.argtypes is None:
         plane = [_C.c_void_p] * 3 + [_C.c_int] * 4
         side = [_C.c_int] + plane + plane
-        fn.argtypes = ([_C.c_void_p] * 3 + side + side
+        fn.argtypes = ([_C.c_void_p] * 4 + [_C.c_int] * 3 + side + side
                        + [_C.c_int] * 7 + [_C.c_float, _C.c_float, _C.c_int]
                        + [_C.c_void_p] * 4)
         fn.restype = _C.c_int
@@ -148,21 +170,37 @@ def _plane_args(qt, layout):
 
 def decode_attn(q, k_qt, v_qt, mask, policy: QuantPolicy, head_dim: int,
                 scale: float, block_s: int = BLOCK_S, softcap: float = 0.0,
-                block_bounds: Optional[torch.Tensor] = None
+                block_bounds: Optional[torch.Tensor] = None,
+                block_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (B, Hkv, Gq, D); planes (B, S, Hkv, ...); mask (B, S_mask) float,
-    ``S <= S_mask``, ``S_mask % block_s == 0``; block_bounds (B, 2) int32
-    ``[lo, hi)`` on the device, or None for the full walk.
+    """q (B, Hkv, Gq, D); planes (B, S, Hkv, ...), or pool-major
+    (NP, BT, Hkv, ...) with ``block_table`` (B, NB) int32 and S = NB * BT;
+    mask (B, S_mask) float, ``S <= S_mask``, ``S_mask % block_s == 0``;
+    block_bounds (B, 2) int32 ``[lo, hi)`` on the device, or None for the
+    full walk.
 
     CUDA tensors launch the kernel (and raise if it fails); CPU tensors take
     :func:`decode_attn_plain`."""
     if q.device.type == "cpu":
         return decode_attn_plain(q, k_qt, v_qt, mask, policy, head_dim,
-                                 scale, block_s, softcap, block_bounds)
+                                 scale, block_s, softcap, block_bounds,
+                                 block_table)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn: unsupported device {q.device}")
     b, hkv, gq, d = q.shape
-    s = k_qt["codes_hi"].shape[1]
+    pooled = block_table is not None
+    if pooled:
+        if (block_table.ndim != 2 or block_table.shape[0] != b
+                or block_table.device != q.device):
+            raise ValueError(f"decode_attn: block_table must be (B, NB) on "
+                             f"{q.device}, got {tuple(block_table.shape)}")
+        tbl = block_table.to(torch.int32).contiguous()
+        n_phys, bt = k_qt["codes_hi"].shape[:2]
+        nb = tbl.shape[1]
+        s, rows = nb * bt, (n_phys, bt)
+    else:
+        s = k_qt["codes_hi"].shape[1]
+        rows = (b, s)
     s_mask = mask.shape[-1]
     if d != head_dim or s_mask % block_s or s > s_mask or block_s > 256 \
             or gq > 8 or gq * d > 1024:
@@ -179,11 +217,11 @@ def decode_attn(q, k_qt, v_qt, mask, policy: QuantPolicy, head_dim: int,
                                 ("scale", width // gs, meta_dt),
                                 ("zero", width // gs, meta_dt)):
                 v = qt[f"{part}_{name}"]
-                if (tuple(v.shape) != (b, s, hkv, w) or v.dtype != dt
+                if (tuple(v.shape) != rows + (hkv, w) or v.dtype != dt
                         or not v.is_contiguous() or v.device != q.device):
                     raise ValueError(
                         f"decode_attn: plane {part}_{name} must be a "
-                        f"contiguous {dt} tensor of shape {(b, s, hkv, w)} "
+                        f"contiguous {dt} tensor of shape {rows + (hkv, w)} "
                         f"on {q.device}, got {v.dtype} {tuple(v.shape)}")
     if tuple(mask.shape) != (b, s_mask):
         raise ValueError(f"decode_attn: mask must be (B, S_mask), got "
@@ -201,12 +239,15 @@ def decode_attn(q, k_qt, v_qt, mask, policy: QuantPolicy, head_dim: int,
     num = torch.empty((b, hkv, gq, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, gq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((b, hkv, gq, 1), dtype=torch.float32, device=q.device)
+    table_args = ([tbl.data_ptr(), nb, bt, n_phys] if pooled
+                  else [None, 0, 0, 0])
     rc = _lib()(q32.data_ptr(), mask.data_ptr(), bounds.data_ptr(),
+                *table_args,
                 *_plane_args(k_qt, layout_k), *_plane_args(v_qt, layout_v),
                 b, s, s_mask, hkv, gq, d, block_s, float(scale),
                 float(softcap), int(policy.fp8_meta), num.data_ptr(),
                 m.data_ptr(), l.data_ptr(),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attn")
-    LAUNCHES["kernel"] += 1
+    LAUNCHES["pooled" if pooled else "kernel"] += 1
     return num, m, l

@@ -7,9 +7,13 @@ computed on the device, the small fp sink/window segment runs as torch
 ops, and the partials merge by logsumexp.  :func:`make_kernel_quant_fn`
 routes cache-side quantization through the ``kv_quant`` kernel.
 
-Not ported yet: the fp16-policy fallback, the pooled (block-table) path
-and the ``local_slice``/``packed_override`` levers with their pre-append
-``extra_kv``/``q_pos`` protocol.
+A pooled cache (DESIGN.md §9) keeps its planes pool-major and hands the
+kernel its ``block_tbl``: the mask and bounds are computed in logical
+coordinates at the striped tile, and nothing is gathered on the host side.
+
+Not ported yet: the fp16-policy fallback and the ``local_slice``/
+``packed_override`` levers with their pre-append ``extra_kv``/``q_pos``
+protocol.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 from ..core.policy import QuantPolicy
 from ..core.quant import n_meta_groups, packed_nbytes
 from ..core import segments as seg
-from ..core.kv_cache import slot_lengths
+from ..core.kv_cache import is_pooled, slot_lengths
 from .decode_attn import BLOCK_S, decode_attn
 from .kv_quant import kv_quant
 
@@ -38,6 +42,15 @@ def _packed_ok(j, lens, t_now, weff, policy: QuantPolicy, b: int):
     pos_q, stored_q = seg.packed_segment(j, lens, policy.n_sink,
                                          policy.window)
     return seg.bcast_rows(seg.attend_ok(pos_q, stored_q, t_now, weff), b)
+
+
+def _packed_capacity(cache) -> int:
+    """Logical packed tokens per slot: the plane length, or NB * BT for a
+    pooled cache."""
+    if "qk_codes_hi" not in cache:
+        return 0
+    s = cache["qk_codes_hi"].shape[1]
+    return cache["block_tbl"].shape[-1] * s if is_pooled(cache) else s
 
 
 def _padded_j(s_q: int, s_pad: int, device) -> torch.Tensor:
@@ -76,7 +89,9 @@ def cuda_decode_attention(q, cache, policy: QuantPolicy, *, scale: float,
     ``cache["length"]`` is per-slot, so the kernel takes a per-(slot,
     token) mask.  With ``prune_blocks`` the mask reduces on the device to
     per-slot block bounds ``[lo, hi)`` and the kernel skips dead tiles,
-    bit-identically to the full walk."""
+    bit-identically to the full walk.  A pooled cache takes the kernel's
+    block-table mode at the same tile as a striped cache of the same
+    capacity, so the two give bitwise equal results (DESIGN.md §9)."""
     if policy.is_fp16:
         raise NotImplementedError("the fp16-policy fallback of the decode "
                                   "wrapper is not ported yet")
@@ -89,7 +104,7 @@ def cuda_decode_attention(q, cache, policy: QuantPolicy, *, scale: float,
            ).shape[2]
     qg = q.reshape(b, hkv, hq // hkv, d)
     parts = []
-    s_q = cache["qk_codes_hi"].shape[1] if "qk_codes_hi" in cache else 0
+    s_q = _packed_capacity(cache)
     if s_q > 0:
         k_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qk_")}
         v_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qv_")}
@@ -99,7 +114,8 @@ def cuda_decode_attention(q, cache, policy: QuantPolicy, *, scale: float,
         bounds = seg.packed_block_bounds(ok, bs) if prune_blocks else None
         num, m, l = decode_attn(qg, k_qt, v_qt, ok.to(torch.float32), policy,
                                 d, scale, block_s=bs, softcap=softcap,
-                                block_bounds=bounds)
+                                block_bounds=bounds,
+                                block_table=cache.get("block_tbl"))
         parts.append((num, m[..., 0], l[..., 0]))
     parts.extend(fp_segment_partial(qg, cache, policy, lens, t_now, weff,
                                     scale, softcap, dtype))
@@ -110,8 +126,10 @@ def decode_block_report(cache, policy: QuantPolicy, head_dim: int, *,
                         window=None, block_s: int = BLOCK_S):
     """Pruning accounting for the packed walk (DESIGN.md §4): ``bounds``
     (B, 2), ``visited`` (B,) blocks, ``total`` capacity blocks and
-    ``bytes_per_block`` packed-plane bytes one block moves (all kv heads)."""
-    s_q = cache["qk_codes_hi"].shape[1] if "qk_codes_hi" in cache else 0
+    ``bytes_per_block`` packed-plane bytes one block moves (all kv heads).
+    A pooled cache (§9) counts its logical capacity NB * BT at the same
+    tile as the kernel walks it."""
+    s_q = _packed_capacity(cache)
     lens = slot_lengths(cache)
     b = lens.shape[0]
     if s_q == 0 or policy.is_fp16:

@@ -8,6 +8,12 @@ requests (default: two admission waves of ``--batch`` slots) through the
 port's :class:`~repro_torch.serving.Engine`, then prints the latency and
 time-to-first-token percentiles the reference CLI prints.  Without
 ``--device cpu`` it runs on the GPU and raises if there is none.
+
+``--pool-blocks N`` serves from the paged block pool (DESIGN.md §9) of N
+``--pool-block-tokens``-token blocks (max_len is rounded up so the packed
+region tiles into whole blocks) and prints the pool summary: prefix hit
+rate, copy-on-write copies, and peak and resident packed bytes against the
+striped worst case.
 """
 from __future__ import annotations
 
@@ -60,6 +66,11 @@ def main(argv=None):
                     help="cuda | reference (default: cuda on a card)")
     ap.add_argument("--steps-per-sync", type=int, default=8,
                     help="decode tokens per host sync")
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="paged KV block pool of this many blocks "
+                         "(DESIGN.md §9); 0 serves striped")
+    ap.add_argument("--pool-block-tokens", type=int, default=16,
+                    help="tokens per pool block (>= 8)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -89,9 +100,14 @@ def main(argv=None):
                             seed=i))
     max_len = (args.prompt_len + args.prompt_jitter + args.new_tokens + jit
                + args.steps_per_sync)
+    if args.pool_blocks and not policy.is_fp16:
+        # round up so the packed region (max_len - n_sink - window) tiles
+        bt = args.pool_block_tokens
+        max_len += -(max_len - policy.n_sink - policy.window) % bt
     eng = Engine(params, cfg, policy, batch_slots=args.batch, max_len=max_len,
                  backend=args.backend, steps_per_sync=args.steps_per_sync,
-                 device=dev)
+                 pool_blocks=args.pool_blocks or None,
+                 pool_block_tokens=args.pool_block_tokens, device=dev)
     t0 = time.perf_counter()
     handles = [eng.submit(r) for r in reqs]
     eng.run(handles)
@@ -123,6 +139,18 @@ def main(argv=None):
     print(f"time-to-first-token ms: p50={_pct(ttft, 50):.0f} "
           f"p90={_pct(ttft, 90):.0f} p99={_pct(ttft, 99):.0f} "
           f"max={max(ttft, default=0):.0f}")
+    if args.pool_blocks:
+        st = eng.stats()
+        eng.check_invariants()
+        print(f"pool: {st['pool_blocks']} blocks x "
+              f"{st['pool_block_tokens']} tok, peak used {st['peak_used']} "
+              f"({st['peak_resident_bytes']} B packed vs "
+              f"{st['striped_worst_case_bytes']} B striped worst case), "
+              f"resident now {st['resident_bytes']} B, prefix hit rate "
+              f"{st['prefix_hit_rate']:.2f} ({st['prefix_hits']} hits / "
+              f"{st['prefix_misses']} misses), cow copies "
+              f"{st['cow_copies']}, stalls "
+              f"{st['counters']['pool_exhausted_stalls']}")
     print(f"KV bytes/token-head: fp16={fp16_b}  skvq={q_b} "
           f"({fp16_b / q_b:.1f}x compression)")
     if handles[0].tokens:

@@ -6,8 +6,8 @@ reference-decode paths of ``repro.models.attention``).
   chunked prefill depends on this reduction structure).
 * :func:`decode_attention_skvq` — the ``"reference"`` backend: dequantize
   the packed region in the compute dtype and attend with the shared flash
-  partials (DESIGN.md §4).  Its ``chunk``/``local_slice``/
-  ``packed_override`` levers are not ported yet.
+  partials (DESIGN.md §4); a pooled cache is unpooled first (§9).  Its
+  ``chunk``/``local_slice``/``packed_override`` levers are not ported yet.
 """
 from __future__ import annotations
 
@@ -87,7 +87,11 @@ def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
                           dtype=torch.bfloat16):
     """Reference decode over the SKVQ cache: dequantize -> attend
     (DESIGN.md §4).  Per-slot aware: ``cache["length"]`` is (B,); the query
-    token is already appended.  q (B, 1, Hq, D) -> (B, 1, Hq, D)."""
+    token is already appended.  q (B, 1, Hq, D) -> (B, 1, Hq, D).  A pooled
+    cache (§9) is gathered into its striped view first, so pooled decode
+    equals striped decode on this backend by construction."""
+    if kvc.is_pooled(cache):
+        cache = kvc.unpool_cache(cache)
     w, ns = policy.window, policy.n_sink
     b, _, hq, d = q.shape
     lens = kvc.slot_lengths(cache, b)

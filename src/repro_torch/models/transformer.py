@@ -11,8 +11,10 @@ path of ``repro.models.transformer``).
   the sinks and the window (paper Sec. 3.2).  A decode step appends and
   quantizes in place, then attends through the backend (DESIGN.md §4).
 * The layer loop is a Python loop (the reference's ``lax.scan``); caches
-  are layer-stacked ``{"scan": {key: (L, B, ...)}}`` and each layer works
-  on views, so :func:`decode_step` updates them **in place**.
+  are layer-stacked ``{"scan": {key: (L, B, ...)}}`` (a pooled cache's
+  planes are ``(L, NP+1, BT, ...)`` beside ``block_tbl`` ``(L, B, NB)``,
+  DESIGN.md §9) and each layer works on views, so :func:`decode_step`
+  updates them **in place**.
 
 Only the dense family with a uniform policy is ported; ``unroll``,
 ``chunk``, schedules and chunked prefill come later.

@@ -15,23 +15,35 @@ The per-slot cache length (``cache["length"]`` is ``(B,)``) is what lets
 slots at different positions decode in one batched step.  All engine time
 flows through the injectable ``clock=`` (DESIGN.md §11).
 
+With ``pool_blocks`` (or ``pool_memory_bytes``) the packed planes of every
+layer live in one shared pool of physical blocks (DESIGN.md §9): each slot
+owns a block table, admission looks prompt blocks up by content hash (a
+hit refs a resident block, only a miss is inserted from the prefill),
+admission is FIFO in blocks, a copy-on-write pass before every decode
+chunk makes private the blocks its ring evictions will write, and decode
+attends through the block-table mode of the decode_attn kernel.
+
 Greedy streams match the reference engine token for token.  Sampling
 (temperature > 0) uses a per-slot ``torch.Generator`` seeded from the
 engine and request seeds, so a stream is reproducible per seed but is not
-``jax.random``'s.  Chunked prefill, the block pool, the async host loop,
-warmup and the degradation ladder of the reference are not ported yet;
+``jax.random``'s.  Chunked prefill (with or without a pool), the host
+spill tier, preemption, chaos injection, the async host loop, warmup and
+the rest of the degradation ladder of the reference are not ported yet;
 the Engine does not accept their arguments.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core import kv_cache as kvc
+from ..core import segments as seg
+from ..core.block_pool import BlockPool, prefix_block_keys
 from ..core.policy import as_layer_policy
 from ..device import resolve_device
 from ..models.config import ArchConfig
@@ -154,11 +166,24 @@ class Engine:
     ``device`` defaults to CUDA and raises without a card unless
     ``device="cpu"``; params and calib move to it.  ``clock`` (default
     ``time.monotonic``) stamps every latency mark (DESIGN.md §11).
+
+    ``pool_blocks`` switches the packed planes to the shared paged pool of
+    that many ``pool_block_tokens``-token blocks (DESIGN.md §9); it needs
+    ``pool_block_tokens >= 8``, the dense family and a packed capacity
+    ``max_len - n_sink - window`` that is a multiple of
+    ``pool_block_tokens``.  ``pool_memory_bytes`` sizes the pool from a
+    byte budget instead (an explicit ``pool_blocks`` overrides it, with a
+    warning).  ``stats()`` reports occupancy, prefix hit rate, copy-on-
+    write copies and resident bytes; ``check_invariants()`` audits the
+    pool after a drain.
     """
 
     def __init__(self, params, cfg: ArchConfig, policy, batch_slots: int,
                  max_len: int, calib=None, seed: int = 0, backend=None,
                  steps_per_sync: int = 8, dtype=None,
+                 pool_blocks: Optional[int] = None,
+                 pool_block_tokens: int = 16,
+                 pool_memory_bytes: Optional[int] = None,
                  clock: Optional[Callable[[], float]] = None, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
@@ -189,6 +214,82 @@ class Engine:
         self._caches = None                       # allocated at 1st admission
         self._next_rid = 0
         self.n_decode_steps = 0                   # decode steps run (all slots)
+        self._tick = 0
+        self._last_stall_tick = -1                # one stall count per tick
+        self._counters = {"admitted": 0, "pool_exhausted_stalls": 0}
+
+        # ----- paged block pool (DESIGN.md §9): one band, every layer -----
+        self.pool_blocks = pool_blocks
+        self.pool_block_tokens = int(pool_block_tokens)
+        self._pool: Optional[BlockPool] = None
+        self._pending_insert: Dict[int, list] = {}  # slot -> miss pairs
+        self._hostlen = np.zeros((b,), np.int64)    # device length mirror
+        self._stall_reason: Optional[str] = None
+        if pool_blocks is None and pool_memory_bytes is not None:
+            self.pool_blocks = self._size_pool_blocks(pool_memory_bytes)
+        elif pool_blocks is not None and pool_memory_bytes is not None:
+            warnings.warn(
+                f"explicit pool_blocks={pool_blocks} overrides "
+                f"pool_memory_bytes={pool_memory_bytes}", stacklevel=2)
+        if self.pool_blocks is not None:
+            self._init_pool()
+
+    # ------------------------------------------------------ pool set-up (§9)
+
+    def _pool_band(self):
+        """(table blocks per slot, bytes of one block across all layers)
+        of the one pooled band, validated once here (DESIGN.md §9)."""
+        cfg, bt, pol = self.cfg, self.pool_block_tokens, self.policy
+        if bt < 8:
+            raise ValueError(f"pool_block_tokens must be >= 8, got {bt}")
+        if cfg.family != "dense":
+            raise ValueError(
+                f"the paged KV block pool supports the dense family only, "
+                f"got family={cfg.family!r}")
+        sq = 0 if pol.is_fp16 else max(0, self.max_len - pol.n_sink
+                                       - pol.window)
+        if sq == 0:
+            raise ValueError(
+                "pool_blocks was set but the policy has no packed region to "
+                "pool (it is fp16, or its window+sinks cover max_len); drop "
+                "pool_blocks to serve striped")
+        if sq % bt:
+            raise ValueError(
+                f"packed capacity {sq} (max_len={self.max_len} - n_sink="
+                f"{pol.n_sink} - window={pol.window}) is not a multiple of "
+                f"pool_block_tokens={bt}; choose max_len so the packed "
+                f"region tiles into whole pool blocks")
+        nbytes = kvc.pool_block_nbytes(cfg.n_kv_heads, cfg.head_dim, pol,
+                                       bt) * cfg.n_layers
+        return sq // bt, nbytes
+
+    def _size_pool_blocks(self, budget: int) -> int:
+        """Blocks affordable under a ``pool_memory_bytes`` budget
+        (DESIGN.md §10), warning when the division leaves a remainder."""
+        if budget < 1:
+            raise ValueError(f"pool_memory_bytes must be >= 1, got {budget}")
+        per_block = self._pool_band()[1]
+        blocks = budget // per_block
+        if blocks < 1:
+            raise ValueError(
+                f"pool_memory_bytes={budget} cannot fit a single pool "
+                f"block: one block across all layers costs {per_block} "
+                f"bytes; raise the budget or coarsen the policy")
+        waste = budget - blocks * per_block
+        if waste:
+            warnings.warn(
+                f"pool_memory_bytes={budget} rounds down to "
+                f"pool_blocks={blocks} ({per_block} bytes/block; {waste} "
+                f"bytes of the budget unusable)", stacklevel=3)
+        return int(blocks)
+
+    def _init_pool(self):
+        if self.pool_blocks < 1:
+            raise ValueError(f"pool_blocks must be >= 1, "
+                             f"got {self.pool_blocks}")
+        nb, nbytes = self._pool_band()
+        self._pool = BlockPool(self.pool_blocks, self.batch_slots, nb,
+                               block_nbytes=nbytes)
 
     # ------------------------------------------------------------ public API
 
@@ -198,7 +299,13 @@ class Engine:
         out = dict(self.backend.info())
         out.update({"device": str(self.device), "policy": self.policy,
                     "batch_slots": self.batch_slots, "max_len": self.max_len,
-                    "steps_per_sync": self.steps_per_sync})
+                    "steps_per_sync": self.steps_per_sync,
+                    "pooled": self._pool is not None})
+        if self._pool is not None:
+            out.update({"pool_blocks": self.pool_blocks,
+                        "pool_block_tokens": self.pool_block_tokens,
+                        "pool_bytes": self.pool_blocks
+                        * self._pool.block_nbytes})
         return out
 
     @property
@@ -228,6 +335,16 @@ class Engine:
                 f"Request.prompt length ({prompt.size}) + Request.max_new "
                 f"({request.max_new}) exceeds the engine's per-slot cache "
                 f"capacity max_len={self.max_len}")
+        if self._pool is not None:
+            need = self._eventual_blocks(prompt.size, request.max_new)
+            if need > self.pool_blocks:
+                st = self._pool.stats()
+                raise ValueError(
+                    f"Request needs up to {need} pool blocks but the "
+                    f"engine's pool only has pool_blocks={self.pool_blocks} "
+                    f"({st['used']} used, {st['free']} free, "
+                    f"{st['reserved']} reserved); raise pool_blocks or "
+                    f"shorten the request — it could never be admitted")
         request = dataclasses.replace(request, prompt=prompt)
         handle = StreamHandle(request, self._next_rid, now=self._clock())
         self._next_rid += 1
@@ -236,7 +353,9 @@ class Engine:
 
     def step(self) -> bool:
         """One scheduler tick: retire -> admit -> one decode chunk
-        (DESIGN.md §6).  False when there is nothing left to do."""
+        (DESIGN.md §6).  False when there is nothing left to do; a queue
+        that waits for pool blocks keeps returning True."""
+        self._tick += 1
         self._retire()
         self._admit()
         active = [i for i in range(self.batch_slots)
@@ -260,6 +379,47 @@ class Engine:
             if not self.step():
                 break
 
+    def stats(self) -> dict:
+        """Pool occupancy + sharing counters (DESIGN.md §9): blocks used/
+        free/reserved, prefix hit rate, copy-on-write copies, resident and
+        peak packed bytes against the striped worst case (``batch_slots``
+        full stripes), and the cumulative ``counters`` (requests admitted,
+        ticks the FIFO head stalled on an exhausted pool).  A striped
+        engine reports only the queue and the counters."""
+        out: dict = {"pooled": self._pool is not None,
+                     "queue_depth": len(self._queue),
+                     "active_slots": self.active_slots,
+                     "counters": dict(self._counters, cow_copies=(
+                         self._pool.cow_copies if self._pool else 0))}
+        if self._pool is None:
+            return out
+        st = self._pool.stats()
+        h, m = st["prefix_hits"], st["prefix_misses"]
+        out.update({k: st[k] for k in (
+            "blocks", "used", "free", "reserved", "peak_used",
+            "prefix_hits", "prefix_misses", "cow_copies",
+            "resident_bytes")})
+        out.update({
+            "prefix_hit_rate": h / (h + m) if h + m else 0.0,
+            "peak_resident_bytes": self._pool.peak_used
+            * self._pool.block_nbytes,
+            "striped_worst_case_bytes": self.batch_slots
+            * self._pool.n_table * self._pool.block_nbytes,
+            "pool_blocks": self.pool_blocks,
+            "pool_block_tokens": self.pool_block_tokens})
+        if self._stall_reason:
+            out["admission_stall"] = self._stall_reason
+        return out
+
+    def check_invariants(self) -> dict:
+        """Leak/consistency audit of the pool after a drain (DESIGN.md
+        §11): refcounts, free list, tables, reservations and registry
+        (:meth:`BlockPool.check_invariants`).  Raises ``RuntimeError`` on
+        the first violation; ``{}`` for a striped engine."""
+        if self._pool is None:
+            return {}
+        return {"scan/L000": self._pool.check_invariants()}
+
     # --------------------------------------------------------------- details
 
     def _retire(self):
@@ -274,16 +434,40 @@ class Engine:
         self._eos[i] = -1
         self._temps[i] = 0.0
         self._gens[i] = None
+        self._pending_insert.pop(i, None)
+        if self._pool is not None:
+            self._pool.release_slot(i)    # deref blocks; shared ones live on
+        self._hostlen[i] = 0
         if self._caches is not None:
             kvc.reset_slot(self._caches, i, batch_axis=1)
 
     def _admit(self):
         """Whole-prompt admission into free slots (DESIGN.md §6): equal
         prompt lengths prefill as one batch, distinct lengths batch-of-1 —
-        no cross-slot padding ever enters the model."""
+        no cross-slot padding ever enters the model.  With a pool (§9)
+        admission is FIFO in blocks: the head request is admitted only
+        when the pool covers its prompt blocks (minus resident prefix
+        hits) plus its decode reservation."""
         free = [i for i in range(self.batch_slots)
                 if self._slot_handle[i] is None]
         if not free or not self._queue:
+            return
+        if self._pool is not None:
+            taken: List[tuple] = []
+            self._stall_reason = None
+            while self._queue and len(taken) < len(free):
+                plan = self._plan_pool_admission(self._queue[0].request)
+                if plan is None:
+                    self._note_stall()          # FIFO: the head waits
+                    break
+                h, slot = self._queue.pop(0), free[len(taken)]
+                self._commit_pool_admission(slot, plan)
+                taken.append((h, slot))
+            pgroups: Dict[int, List[tuple]] = {}
+            for h, slot in taken:
+                pgroups.setdefault(len(h.request.prompt), []).append((h, slot))
+            for pairs in pgroups.values():
+                self._admit_group([h for h, _ in pairs], [s for _, s in pairs])
             return
         take, self._queue = (self._queue[:len(free)],
                              self._queue[len(free):])
@@ -293,6 +477,146 @@ class Engine:
         it = iter(free)
         for hs in groups.values():
             self._admit_group(hs, [next(it) for _ in hs])
+
+    # ----------------------------------------------- paged block pool (§9)
+
+    def _note_stall(self):
+        """One stalled tick counts one ``pool_exhausted_stalls``."""
+        if self._last_stall_tick != self._tick:
+            self._last_stall_tick = self._tick
+            self._counters["pool_exhausted_stalls"] += 1
+
+    def _eventual_blocks(self, plen: int, max_new: int) -> int:
+        """Worst-case pool blocks a request will ever hold: every packed
+        position its stream can reach, including up to ``steps_per_sync
+        - 1`` clipped overshoot writes, all inside the slot's table."""
+        bt, pol = self.pool_block_tokens, self.policy
+        qc_end = min(max(0, plen + max_new + self.steps_per_sync
+                         - pol.n_sink - pol.window),
+                     self._pool.n_table * bt)
+        return -(-qc_end // bt)
+
+    def _plan_pool_admission(self, req: Request):
+        """Dry-run admission of one request: prefix-key lookups and the
+        block budget.  None (with ``_stall_reason`` set) if the pool lacks
+        blocks; nothing is allocated before :meth:`_commit_pool_admission`."""
+        pool, pol = self._pool, self.policy
+        full_keys, tail_key = prefix_block_keys(
+            req.prompt.tolist(), pol.n_sink, pol.window,
+            self.pool_block_tokens, seed=f"scan:L000:{pol}")
+        hits = [(lb, key, pool.lookup(key))
+                for lb, key in enumerate(full_keys)]
+        n_hit = sum(1 for _, _, p in hits if p is not None)
+        eventual = self._eventual_blocks(len(req.prompt), req.max_new)
+        if eventual - n_hit > pool.available():
+            st = pool.stats()
+            self._stall_reason = (
+                f"queued: the head request needs {eventual - n_hit} blocks "
+                f"but only {pool.available()} are uncommitted "
+                f"({st['used']}/{st['blocks']} used, {st['reserved']} "
+                f"reserved for in-flight decodes, {st['resident_bytes']} "
+                f"resident bytes)")
+            return None
+        tail_phys = pool.lookup(tail_key) if tail_key else None
+        return hits, tail_key, tail_phys, eventual, n_hit
+
+    def _commit_pool_admission(self, slot: int, plan):
+        """Apply a plan: ref prefix hits, alloc misses into the slot's
+        table, reserve the remaining decode blocks, register the miss keys
+        and remember which blocks the prefill must insert."""
+        hits, tail_key, tail_phys, eventual, n_hit = plan
+        pool = self._pool
+        miss_pairs, reg = [], []
+
+        def take(lb, key):
+            fresh = pool.alloc(slot)
+            pool.assign(slot, lb, fresh)
+            pool.misses += 1
+            miss_pairs.append((lb, fresh))
+            reg.append((key, fresh))
+
+        for lb, key, phys in hits:
+            if phys is not None:
+                pool.ref(phys)
+                pool.assign(slot, lb, phys)
+                pool.hits += 1
+            else:
+                take(lb, key)
+        if tail_key is not None:
+            if tail_phys is not None:
+                pool.ref(tail_phys)
+                pool.assign(slot, len(hits), tail_phys)
+                pool.hits += 1
+            else:
+                take(len(hits), tail_key)
+        # decode still needs (eventual - full hits - allocated now) blocks;
+        # a shared tail counts: its first write goes copy-on-write
+        pool.set_reservation(slot, max(0, eventual - n_hit - len(miss_pairs)))
+        for key, phys in reg:
+            pool.register(key, phys)
+        self._pending_insert[slot] = miss_pairs
+
+    def _apply_pool_insert(self, slot: int, src_caches, row: int):
+        """Quantize-once commit: copy the slot's miss blocks from its
+        freshly prefilled striped cache into the pool; hits are resident
+        already and are never inserted again."""
+        pairs = self._pending_insert.pop(slot, None)
+        if pairs:
+            kvc.pool_insert_blocks(self._caches["scan"], src_caches["scan"],
+                                   pairs, src_slot=row, pool_axis=1)
+
+    def _cow_cap(self) -> int:
+        # a span of sps tokens touches at most ceil((sps-1)/bt)+1 blocks
+        # per slot; a fixed pair count keeps the copy one shape per engine
+        sps, bt = self.steps_per_sync, self.pool_block_tokens
+        return self.batch_slots * ((sps - 1 + bt - 1) // bt + 1)
+
+    def _pool_prewrite(self):
+        """Copy-on-write pass before a decode chunk: every packed block the
+        next ``steps_per_sync`` ring evictions can touch becomes private to
+        its slot.  Shared blocks are copied to fresh ones (drawing on the
+        slot's reservation); private ones drop their prefix-hash key."""
+        sps, bt, pol = self.steps_per_sync, self.pool_block_tokens, self.policy
+        pool = self._pool
+        pairs = []
+        for i in range(self.batch_slots):
+            if self._slot_handle[i] is None:
+                continue
+            u_lo = int(self._hostlen[i]) - pol.n_sink - pol.window
+            for lb in seg.blocks_spanned(u_lo, u_lo + sps, bt, pool.n_table):
+                work = pool.ensure_writable(i, lb)
+                if work is not None and work[0] == "copy":
+                    pairs.append((work[1], work[2]))
+        if pairs:
+            arr = np.zeros((self._cow_cap(), 2), np.int64)
+            arr[:len(pairs)] = pairs
+            kvc.pool_copy_block(self._caches["scan"], arr, pool_axis=1)
+
+    def _flush_tables(self):
+        """Push a dirty host table to the device ``block_tbl`` leaf of
+        every layer.  Rows of slots with no request are masked to the null
+        block, so a free-wheeling device row never writes a live block."""
+        pool = self._pool
+        if not pool.dirty:
+            return
+        live = np.array([h is not None for h in self._slot_handle], np.int32)
+        tbl = torch.as_tensor(pool.tables * live[:, None], device=self.device)
+        dst = self._caches["scan"]["block_tbl"]
+        dst.copy_(tbl[None].expand_as(dst))
+        pool.dirty = False
+
+    def _alloc_pooled(self):
+        """Zeroed pooled engine caches, built from shapes: ``_alloc_like``
+        widens axis 1 of every leaf, but a pooled plane's axis 1 is the
+        pool axis.  Planes (L, NP+1, BT, H, W), ``block_tbl`` (L, B, NB)."""
+        cfg = self.cfg
+        shapes = kvc.pooled_cache_shapes(
+            self.batch_slots, self.max_len, cfg.n_kv_heads, cfg.head_dim,
+            self.policy, self.pool_blocks, self.pool_block_tokens,
+            self.params["embed"].dtype)
+        return {"scan": {k: torch.zeros((cfg.n_layers,) + s, dtype=d,
+                                        device=self.device)
+                         for k, (s, d) in shapes.items()}}
 
     def _generator(self, request_seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -321,11 +645,16 @@ class Engine:
             torch.tensor(temps, dtype=torch.float32, device=self.device),
             self._uniforms(gens, temps)).cpu().numpy()
         if self._caches is None:
-            self._caches = _alloc_like(caches, self.batch_slots)
+            self._caches = (self._alloc_pooled() if self._pool is not None
+                            else _alloc_like(caches, self.batch_slots))
         now = self._clock()
+        self._counters["admitted"] += len(handles)
         for row, (h, slot) in enumerate(zip(handles, slots)):
             kvc.insert_slot(self._caches, slot, caches, src_slot=row,
                             batch_axis=1)
+            if self._pool is not None:
+                self._apply_pool_insert(slot, caches, row)
+                self._hostlen[slot] = len(h.request.prompt)
             req = h.request
             self._slot_handle[slot] = h
             self._tok[slot, 0] = first[row]
@@ -339,6 +668,9 @@ class Engine:
             self._deliver(slot, [int(first[row])])
 
     def _decode_chunk(self):
+        if self._pool is not None:
+            self._pool_prewrite()
+            self._flush_tables()
         dev, n = self.device, self.steps_per_sync
         temps = self._temps.copy()
         gens = list(self._gens)
@@ -360,6 +692,7 @@ class Engine:
             h = self._slot_handle[i]
             if h is None:
                 continue
+            self._hostlen[i] += n
             if host[i, n + 1] and not h.finished:
                 self._finish(h, FinishReason.SHED)   # retire frees the slot
                 continue
@@ -409,10 +742,14 @@ class ServeSession:
     def __init__(self, params, cfg: ArchConfig, policy, batch_slots: int,
                  max_len: int, calib=None, temperature=0.0, seed: int = 0,
                  backend=None, steps_per_sync: int = 8,
-                 eos_id: Optional[int] = None, device=None):
+                 eos_id: Optional[int] = None,
+                 pool_blocks: Optional[int] = None,
+                 pool_block_tokens: int = 16, device=None):
         self.engine = Engine(params, cfg, policy, batch_slots=batch_slots,
                              max_len=max_len, calib=calib, seed=seed,
                              backend=backend, steps_per_sync=steps_per_sync,
+                             pool_blocks=pool_blocks,
+                             pool_block_tokens=pool_block_tokens,
                              device=device)
         self.batch_slots = batch_slots
         self.max_len = max_len

@@ -7,7 +7,10 @@ runs on a machine with only torch:
 
 * kv_quant: 0 differing bytes, edge-case rows included.
 * decode_attn: f32 ``atol=3e-5, rtol=1e-4`` (sums in another order), and
-  the pruned walk BITWISE equal to the full walk.
+  the pruned walk BITWISE equal to the full walk.  Its block-table mode
+  (pooled planes, DESIGN.md §9) to the same tolerance against its plain
+  version, and BITWISE equal to the striped kernel over the gathered
+  planes at the same tile, for permuted, shared and null-padded tables.
 * one decode step of a smoke model: ``"cuda"`` backend vs ``"reference"``
   backend in f32, where both dequantize in f32 — ``atol=rtol=1e-4``.
 """
@@ -90,6 +93,86 @@ def test_decode_attn_kernel_matches_plain(gq, hkv, d, cap, cuda_device):
         assert torch.equal(a, b)
 
 
+def _pooled(rng, dev, hkv, gq, d, bt=16, nb=64, live=(0, 90, 600, 980),
+            lo=(0, 0, 300, 500), permute=True):
+    """Pool-major planes with per-slot tables: a seeded permutation of the
+    physical blocks, slots 1 and 2 sharing their first two entries, and
+    the null block past each slot's frontier."""
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=64, window=0,
+                      n_sink=0)
+    b = len(live)
+    n_phys = b * nb + 1
+    mk = lambda: torch.from_numpy(rng.normal(size=(n_phys, bt, hkv, d))
+                                  .astype(np.float32)).to(dev)
+    k_qt = quantize_groups(mk(), 2.0, 64)
+    v_qt = quantize_groups(mk(), 1.5, 64)
+    ids = np.arange(1, n_phys)
+    tbl = (rng.permutation(ids) if permute else ids).reshape(b, nb)
+    tbl[2, :2] = tbl[1, :2]
+    for i, n in enumerate(live):
+        tbl[i, -(-n // bt):] = 0
+    s = nb * bt
+    j = np.arange(s)
+    mask = ((j[None] < np.asarray(live)[:, None])
+            & (j[None] >= np.asarray(lo)[:, None]))
+    mask = torch.from_numpy(mask.astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(b, hkv, gq, d))
+                         .astype(np.float32)).to(dev)
+    tbl = torch.from_numpy(tbl.astype(np.int32)).to(dev)
+    return pol, q, k_qt, v_qt, mask, tbl
+
+
+@pytest.mark.parametrize("gq,hkv,d", [(1, 32, 128), (4, 8, 64)])
+@pytest.mark.parametrize("permute", [True, False])
+def test_decode_attn_pooled_kernel_matches_plain(gq, hkv, d, permute,
+                                                 cuda_device):
+    rng = np.random.default_rng(2)
+    pol, q, k_qt, v_qt, mask, tbl = _pooled(rng, cuda_device, hkv, gq, d,
+                                            permute=permute)
+    bs = 256
+    bounds = seg.packed_block_bounds(mask > 0, bs)
+    args = (q, k_qt, v_qt, mask, pol, d, d ** -0.5)
+    before = dict(DA.LAUNCHES)
+    got = DA.decode_attn(*args, block_s=bs, block_bounds=bounds,
+                         block_table=tbl)
+    assert DA.LAUNCHES["pooled"] == before["pooled"] + 1
+    assert DA.LAUNCHES["kernel"] == before["kernel"]
+    want = DA.decode_attn_plain(*args, block_s=bs, block_bounds=bounds,
+                                block_table=tbl)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    full = DA.decode_attn(*args, block_s=bs, block_table=tbl)
+    for a, b in zip(got, full):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bs", [256, 64, 16])
+def test_decode_attn_pooled_bitwise_equals_striped(bs, cuda_device):
+    rng = np.random.default_rng(3)
+    pol, q, k_qt, v_qt, mask, tbl = _pooled(rng, cuda_device, 8, 4, 64)
+    bounds = seg.packed_block_bounds(mask > 0, bs)
+    args = (q, mask, pol, 64, 0.125)
+    pooled = DA.decode_attn(args[0], k_qt, v_qt, *args[1:], block_s=bs,
+                            block_bounds=bounds, block_table=tbl)
+    striped = DA.decode_attn(args[0], DA.gather_planes(k_qt, tbl),
+                             DA.gather_planes(v_qt, tbl), *args[1:],
+                             block_s=bs, block_bounds=bounds)
+    torch.cuda.synchronize()
+    for a, b in zip(pooled, striped):
+        assert torch.equal(a, b)
+
+
+def test_decode_attn_pooled_rejects_bad_shapes(cuda_device):
+    rng = np.random.default_rng(4)
+    pol, q, k_qt, v_qt, mask, tbl = _pooled(rng, cuda_device, 8, 4, 64)
+    with pytest.raises(ValueError, match="block_table"):
+        DA.decode_attn(q, k_qt, v_qt, mask, pol, 64, 0.125,
+                       block_table=tbl[:2])
+    with pytest.raises(ValueError, match="mask"):
+        DA.decode_attn(q, k_qt, v_qt, mask[:, :-256], pol, 64, 0.125,
+                       block_table=tbl)
+
+
 @pytest.mark.parametrize("arch", ["llama3p2_1b", "llama2_7b"])
 def test_decode_step_cuda_backend_matches_reference(arch, cuda_device):
     cfg = configs.get_smoke(arch)
@@ -106,3 +189,38 @@ def test_decode_step_cuda_backend_matches_reference(arch, cuda_device):
     want, _ = T.decode_step(params, cfg, tok, clone(), pol,
                             backend="reference")
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_pooled_engine_streams_equal_striped_on_the_card(cuda_device):
+    """The pooled Engine on the card attends through the block-table
+    kernel only, and its greedy streams equal the striped Engine's."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, Request
+    cfg = configs.get_smoke("llama2_7b")
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
+                      n_sink=2)
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, cfg.vocab_size, 40)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+               for n in (3, 3, 20, 7, 0)]
+    runs = []
+    for pool in (None, 40):
+        eng = Engine(params, cfg, pol, batch_slots=3, max_len=90,
+                     steps_per_sync=4, pool_blocks=pool, pool_block_tokens=8,
+                     device=cuda_device)
+        reset_launch_counts()
+        hs = [eng.submit(Request(prompt=p, max_new=12, seed=i))
+              for i, p in enumerate(prompts)]
+        eng.run(hs)
+        c = launch_counts()["decode_attn"]
+        steps = cfg.n_layers * eng.n_decode_steps
+        assert c["plain"] == 0
+        assert (c["pooled"], c["kernel"]) == ((steps, 0) if pool else
+                                              (0, steps))
+        runs.append([h.tokens for h in hs])
+        if pool:
+            st = eng.stats()
+            assert st["prefix_hits"] > 0 and st["cow_copies"] > 0
+            eng.check_invariants()
+    assert runs[0] == runs[1]

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core.kv_cache import init_cache
+from repro_torch.core.kv_cache import init_cache, init_pooled_cache
 from repro_torch.core.policy import PAPER_POLICY
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
@@ -84,6 +84,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama2_7b", "--smoke"])
+
+
+def test_pooled_entry_points_raise_without_cuda_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = configs.get_smoke("llama2_7b")
+    p = T.init_params(cfg, seed=0, device="cpu")
+    pooled = dict(pool_blocks=8, pool_block_tokens=16)
+    max_len = PAPER_POLICY.n_sink + PAPER_POLICY.window + 64
+    for call in (lambda **kw: init_pooled_cache(
+                     1, max_len, cfg.n_kv_heads, cfg.head_dim, PAPER_POLICY,
+                     8, 16, **kw),
+                 lambda **kw: Engine(p, cfg, PAPER_POLICY, batch_slots=1,
+                                     max_len=max_len, **pooled, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama2_7b", "--smoke", "--pool-blocks", "8"])
 
 
 def test_cpu_tensors_take_plain_versions_cuda_default_backend():
