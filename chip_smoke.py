@@ -9,17 +9,25 @@ these phases, each printing one JSON line:
 1. env — GPU name and power limit, torch/CUDA versions, kernel build time.
 2. kv_quant — the kernel against its plain PyTorch version at the serving
    shapes (and the GQA smoke planes), edge-case rows included: 0 differing
-   bytes allowed.  CUDA-event times of both and the memory bound.
-3. decode_attn — the kernel against its plain version (f32, atol 3e-5 /
-   rtol 1e-4 on the normalized output, m and l), pruned walk bitwise equal
-   to the full walk, times, bound, and scaled_dot_product_attention over
-   the same tokens dequantized to bf16 as a yardstick.
+   bytes allowed.  Device times of both and the memory bound.
+3. decode_attn — the split kernel against its plain version (f32, atol
+   3e-5 / rtol 1e-4 on the normalized output, m and l) at the serve shape,
+   the GQA shape and one 131072-token slot (131000 live); pruned walk and
+   a second launch bitwise equal to the first; times, bound and its share,
+   and scaled_dot_product_attention over the same tokens dequantized to
+   bf16 as a yardstick.
 4. decode_attn_pooled — the kernel's block-table mode (DESIGN.md §9) at
    the serve shape (4 slots x 256 pool blocks of 16 tokens, a seeded
-   permutation of physical blocks, two slots sharing entries) against its
-   plain version (same tolerance), bitwise equal to the striped kernel
-   over the gathered planes at the same tile, pruned walk bitwise equal
-   to the full walk; times, bound, and SDPA over the gathered tokens.
+   permutation of physical blocks, two slots sharing entries) and at one
+   131072-token slot (8192 blocks), each against its plain version (same
+   tolerance), bitwise equal to the striped kernel over the gathered
+   planes, pruned walk bitwise equal to the full walk; times, bound, and
+   SDPA over the gathered tokens.
+
+Kernel and yardstick times are device times (a sleep kernel holds the
+stream while the calls are queued) of launches rotating over 4 copies of
+the inputs, so that decode_attn reads its planes from device memory and
+not from the 50 MB L2, as each layer of a decode step does.
 5. serve — the port's Engine at full llama2-7b width (random bf16 weights
    from a seed), PAPER_POLICY, max_len 4229 (a packed region of 4096
    tokens = 256 pool blocks of 16), 8 greedy requests in two admission
@@ -27,7 +35,8 @@ these phases, each printing one JSON line:
    plain-version calls, and cuda-vs-reference backend logits on one step.
    Decode step time comes from the Engine's own decode chunks (each one
    ends in a host copy) and from CUDA-event times of single steps, each
-   with its spread.
+   with its spread; a torch.profiler pass gives device time per step by
+   kernel, the port's kernels per launch.
 6. serve_pooled — (a) the same 8 requests through a pooled Engine (768
    blocks of 16 tokens): every token stream identical to the serve
    phase's; (b) shared-prefix traffic, 8 requests with one 2048-token
@@ -35,8 +44,9 @@ these phases, each printing one JSON line:
    finishes, prefix hit rate > 0, peak resident packed bytes under half
    the striped worst case, a clean pool audit.  Both runs attend through
    the block-table kernel only (no striped or plain decode_attn call).
-7. the kernel summary line, the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+7. the kernel summary line (decode_attn entries also carry the long
+   slot's ``long_ms``, ``long_bound_ms`` and ``long_library_ms``), the
+   card line, and the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
 """
@@ -60,6 +70,11 @@ LOGIT_REL_TOL = 0.05             # cuda vs reference backend, bf16 model
 # leaves a packed region of 4096 tokens = 256 pool blocks of 16
 MAX_LEN = 4229
 POOL_BT = 16
+# the long-context decode_attn case: one slot of 131072 packed tokens
+# (+ 5 sinks + 128 window), 131000 of them live
+LONG_MAX_LEN, LONG_LIVE = 131205, 131000
+L2_COPIES = 4                    # input copies a timing rotates over
+HOLD_CYCLES = 20_000_000         # ~10 ms of sleep while calls are queued
 
 
 def emit(obj) -> None:
@@ -76,20 +91,33 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean CUDA-event time of ``fn`` over ``iters`` back-to-back calls."""
+def cuda_ms(fns, iters: int = 20, warmup: int = 3) -> float:
+    """Mean CUDA-event device time of ``iters`` back-to-back calls, rotating
+    over ``fns`` (one callable, or one per copy of the inputs: copies whose
+    sum exceeds the 50 MB L2 make every call read device memory, as each
+    layer of a decode step reads its own cache).  A sleep kernel holds the
+    stream while the host queues the calls, so the time is the device's
+    and not the host's launch rate."""
     import torch
-    for _ in range(warmup):
-        fn()
+    fns = [fns] if callable(fns) else list(fns)
+    for i in range(warmup):
+        fns[i % len(fns)]()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def copies(tree, n: int = L2_COPIES):
+    """``n`` copies of a dict of tensors (the first is ``tree`` itself)."""
+    return [tree] + [{k: v.clone() for k, v in tree.items()}
+                     for _ in range(n - 1)]
 
 
 def bound(nbytes: float, flops: float):
@@ -189,8 +217,8 @@ def phase_kv_quant(state):
                          "bound_by": main["bound_by"]}
 
 
-def _attn_case(gen, dev, b, hkv, gq, d, live):
-    """Packed planes of a ``MAX_LEN``-token cache (the serve phase's: 4096
+def _attn_case(gen, dev, b, hkv, gq, d, live, max_len=MAX_LEN):
+    """Packed planes of a ``max_len``-token cache (the serve phase's: 4096
     packed tokens) with ``live`` packed tokens per slot, built by the
     port's own prefill + masks."""
     import torch
@@ -198,10 +226,12 @@ def _attn_case(gen, dev, b, hkv, gq, d, live):
     from repro_torch.core.policy import PAPER_POLICY as POL
     from repro_torch.kernels import ops
     from repro_torch.core import segments as seg
-    k = torch.randn((b, MAX_LEN, hkv, d), generator=gen, device=dev)
-    v = torch.randn((b, MAX_LEN, hkv, d), generator=gen, device=dev)
-    cache = kvc.prefill(k.to(torch.bfloat16), v.to(torch.bfloat16), MAX_LEN,
-                        POL, quant_fn=ops.make_kernel_quant_fn())
+    k = torch.randn((b, max_len, hkv, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, max_len, hkv, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    cache = kvc.prefill(k, v, max_len, POL, quant_fn=ops.make_kernel_quant_fn())
+    del k, v
     cache["length"].copy_(torch.tensor(live, device=dev) + POL.n_sink
                           + POL.window)
     lens = cache["length"]
@@ -212,6 +242,7 @@ def _attn_case(gen, dev, b, hkv, gq, d, live):
     k_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qk_")}
     v_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qv_")}
     q = torch.randn((b, hkv, gq, d), generator=gen, device=dev)
+    check(int((ok > 0).sum()) == sum(live), "decode_attn case: live tokens")
     return (POL, q, k_qt, v_qt, ok.to(torch.float32),
             seg.packed_block_bounds(ok, bs), bs)
 
@@ -233,8 +264,9 @@ def _attn_bound(pol, q, hkv, gq, d, n_live, extra_bytes=0):
 
 
 def _sdpa_ms(pol, q, k_qt, v_qt, mask, scale):
-    """CUDA-event time of scaled_dot_product_attention over the same tokens
-    dequantized to bf16, masked: the library yardstick."""
+    """Device time of scaled_dot_product_attention over the same tokens
+    dequantized to bf16, masked, rotating over copies like the kernel's
+    timing: the library yardstick."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.quant import dequantize_groups
@@ -242,137 +274,179 @@ def _sdpa_ms(pol, q, k_qt, v_qt, mask, scale):
     gsz = min(pol.group_size, d)
     kd = dequantize_groups(k_qt, d, pol.bits_k, gsz, True, torch.bfloat16)
     vd = dequantize_groups(v_qt, d, pol.bits_v, gsz, True, torch.bfloat16)
-    kd, vd = kd.transpose(1, 2), vd.transpose(1, 2)          # B, H, S, D
+    kv = copies({"k": kd.transpose(1, 2).contiguous(),        # B, H, S, D
+                 "v": vd.transpose(1, 2).contiguous()})
+    del kd, vd
     qb = q.reshape(b, hkv * gq, 1, d).to(torch.bfloat16)
-    am = (mask[:, : kd.shape[2]] > 0)[:, None, None, :]
-    return cuda_ms(lambda: F.scaled_dot_product_attention(
-        qb, kd, vd, attn_mask=am, scale=scale, enable_gqa=gq > 1))
+    am = (mask[:, : kv[0]["k"].shape[2]] > 0)[:, None, None, :]
+    ms = cuda_ms([lambda c=c: F.scaled_dot_product_attention(
+        qb, c["k"], c["v"], attn_mask=am, scale=scale, enable_gqa=gq > 1)
+        for c in kv])
+    del kv
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _check_attn(name, got, want, *same):
+    """f32 tolerance against the plain version; ``same``: results that must
+    equal ``got`` bitwise (another launch, the full walk, ...)."""
+    import torch
+    torch.cuda.synchronize()
+    for what, other in same:
+        check(all(torch.equal(a, c) for a, c in zip(got, other)),
+              f"{name}: differs bitwise from {what}")
+    out_g, out_w = got[0] / got[2], want[0] / want[2]
+    for what, x, y in (("out", out_g, out_w), ("m", got[1], want[1]),
+                       ("l", got[2], want[2])):
+        check(torch.allclose(x, y, atol=ATOL, rtol=RTOL),
+              f"{name}: {what} outside atol={ATOL} rtol={RTOL}: max err "
+              f"{float((x - y).abs().max())}")
+    return float((out_g - out_w).abs().max())
+
+
+def _attn_row(name, pol, q, k_qt, v_qt, mask, bounds, bs, live,
+              table=None, long=False):
+    """Check one decode_attn case (striped, or pooled with ``table``) and
+    time it L2-cold next to its plain version and SDPA."""
+    import torch
+    from repro_torch.kernels import decode_attn as DA
+    b, hkv, gq, d = q.shape
+    scale = d ** -0.5
+    kw = dict(block_s=bs, block_bounds=bounds, block_table=table)
+    args = (q, k_qt, v_qt, mask, pol, d, scale)
+    got = DA.decode_attn(*args, **kw)
+    again = DA.decode_attn(*args, **kw)
+    full = DA.decode_attn(*args, block_s=bs, block_table=table)
+    want = DA.decode_attn_plain(*args, **kw)
+    same = [("a second launch", again), ("the full walk", full)]
+    k_g = v_g = None
+    if table is not None:
+        k_g, v_g = DA.gather_planes(k_qt, table), DA.gather_planes(v_qt,
+                                                                   table)
+        same.append(("the striped kernel over the gathered planes",
+                      DA.decode_attn(q, k_g, v_g, mask, pol, d, scale,
+                                     block_s=bs, block_bounds=bounds)))
+    err = _check_attn(name, got, want, *same)
+    del got, again, full, want, same
+    ks, vs = copies(k_qt), copies(v_qt)
+    ms = cuda_ms([lambda k=k, v=v: DA.decode_attn(q, k, v, mask, pol, d,
+                                                   scale, **kw)
+                  for k, v in zip(ks, vs)])
+    full_ms = cuda_ms([lambda k=k, v=v: DA.decode_attn(
+        q, k, v, mask, pol, d, scale, block_s=bs, block_table=table)
+        for k, v in zip(ks, vs)])
+    del ks, vs
+    plain_ms = cuda_ms(lambda: DA.decode_attn_plain(*args, **kw),
+                       iters=1 if long else 3, warmup=0 if long else 1)
+    extra = 0 if table is None else table.numel() * 4
+    nbytes, flops, bound_ms, bound_by = _attn_bound(pol, q, hkv, gq, d,
+                                                    sum(live), extra)
+    library_ms = _sdpa_ms(pol, q, k_g if table is not None else k_qt,
+                          v_g if table is not None else v_qt, mask, scale)
+    torch.cuda.empty_cache()
+    return {"b": b, "hkv": hkv, "gq": gq, "d": d, "mask": mask.shape[1],
+            "tile": bs, "live": live if len(live) <= 8 else sum(live),
+            "max_abs_err": err, "ms": ms, "full_walk_ms": full_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "bytes": nbytes, "flops": flops,
+            "library_ms": library_ms}
 
 
 def phase_decode_attn(state):
+    """The striped kernel at the serve shape, the GQA shape and one
+    131072-token slot."""
     import torch
     from repro_torch.kernels import decode_attn as DA
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    live = [500, 1500, 2900, 3900]
     rows = []
-    for hkv, gq, d in ((32, 1, 128), (8, 4, 64)):
+    for hkv, gq, d, live, max_len in (
+            (32, 1, 128, [500, 1500, 2900, 3900], MAX_LEN),
+            (8, 4, 64, [500, 1500, 2900, 3900], MAX_LEN),
+            (32, 1, 128, [LONG_LIVE], LONG_MAX_LEN)):
         pol, q, k_qt, v_qt, mask, bounds, bs = _attn_case(
-            gen, dev, 4, hkv, gq, d, live)
-        check(int((mask > 0).sum()) == sum(live),
-              "decode_attn case: live token count")
-        scale = d ** -0.5
-        args = (q, k_qt, v_qt, mask, pol, d, scale)
-        got = DA.decode_attn(*args, block_s=bs, block_bounds=bounds)
-        want = DA.decode_attn_plain(*args, block_s=bs, block_bounds=bounds)
-        full = DA.decode_attn(*args, block_s=bs)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(got, full)),
-              f"decode_attn hkv={hkv}: pruned walk differs from full walk")
-        out_g, out_w = got[0] / got[2], want[0] / want[2]
-        err = float((out_g - out_w).abs().max())
-        for name, a, b in (("out", out_g, out_w), ("m", got[1], want[1]),
-                           ("l", got[2], want[2])):
-            close = torch.allclose(a, b, atol=ATOL, rtol=RTOL)
-            check(close, f"decode_attn hkv={hkv}: {name} outside atol={ATOL}"
-                  f" rtol={RTOL}: max err {float((a - b).abs().max())}")
-        ms = cuda_ms(lambda: DA.decode_attn(*args, block_s=bs,
-                                            block_bounds=bounds))
-        plain_ms = cuda_ms(lambda: DA.decode_attn_plain(
-            *args, block_s=bs, block_bounds=bounds), iters=3, warmup=1)
-        full_ms = cuda_ms(lambda: DA.decode_attn(*args, block_s=bs))
-        nbytes, flops, bound_ms, bound_by = _attn_bound(pol, q, hkv, gq, d,
-                                                        sum(live))
-        library_ms = _sdpa_ms(pol, q, k_qt, v_qt, mask, scale)
-        rows.append({"hkv": hkv, "gq": gq, "d": d, "max_len": MAX_LEN,
-                     "packed": k_qt["codes_hi"].shape[1],
-                     "mask": mask.shape[1], "live": live,
-                     "bounds": bounds.tolist(), "max_abs_err": err, "ms": ms,
-                     "full_walk_ms": full_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": nbytes, "flops": flops,
-                     "library_ms": library_ms})
-    emit({"phase": "decode_attn", "cases": rows, "atol": ATOL, "rtol": RTOL})
-    state["decode_attn"] = {k: rows[0][k] for k in
-                            ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                             "bound_by", "library_ms")}
+            gen, dev, len(live), hkv, gq, d, live, max_len)
+        row = _attn_row(f"decode_attn hkv={hkv} S={max_len}", pol, q, k_qt,
+                        v_qt, mask, bounds, bs, live,
+                        long=max_len == LONG_MAX_LEN)
+        row.update(max_len=max_len, packed=k_qt["codes_hi"].shape[1],
+                   plan=DA.launch_plan(len(live), hkv, d, pol, mask.shape[1],
+                                       bs, dev))
+        rows.append(row)
+        del pol, q, k_qt, v_qt, mask, bounds
+        torch.cuda.empty_cache()
+    emit({"phase": "decode_attn", "cases": rows, "atol": ATOL, "rtol": RTOL,
+          "timing": f"device time, rotating over {L2_COPIES} input copies"})
+    state["decode_attn"] = _kernel_stats(rows[0], rows[2])
 
 
-def phase_decode_attn_pooled(state):
-    """The block-table mode at the serve shape: 4 slots x NB = 256 logical
-    blocks of 16 tokens over 4 * 256 + 1 physical blocks."""
+def _kernel_stats(serve, long):
+    out = {k: serve[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}
+    out["max_abs_err"] = max(serve["max_abs_err"], long["max_abs_err"])
+    out.update(long_ms=long["ms"], long_bound_ms=long["bound_ms"],
+               long_library_ms=long["library_ms"])
+    return out
+
+
+def _pool(dev, b, nb, k_st, v_st, seed, share=0):
+    """Scatter striped planes (B, NB * POOL_BT, ...) into a pool of
+    B * NB + 1 blocks through a seeded permutation (block 0 stays null);
+    slot 1 shares its first ``share`` table entries with slot 0."""
     import numpy as np
     import torch
-    from repro_torch.core import segments as seg
-    from repro_torch.kernels import decode_attn as DA
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    b, hkv, gq, d, live = 4, 32, 1, 128, [500, 1500, 2900, 3900]
-    pol, q, k_st, v_st, mask, _, bs = _attn_case(gen, dev, b, hkv, gq, d,
-                                                 live)
-    nb = k_st["codes_hi"].shape[1] // POOL_BT
-    check(nb == 256 and bs == 256, f"pooled case: NB={nb} tile={bs}")
-    # scatter the striped planes into a pool through a seeded permutation;
-    # slots 0 and 1 share their first 8 blocks (same content in both)
-    perm = np.random.default_rng(3).permutation(np.arange(1, b * nb + 1))
+    perm = np.random.default_rng(seed).permutation(np.arange(1, b * nb + 1))
     tbl = perm.reshape(b, nb).astype(np.int32)
-    tbl[1, :8] = tbl[0, :8]
-    k_qt, v_qt = {}, {}
-    for src, dst in ((k_st, k_qt), (v_st, v_qt)):
+    if share:
+        tbl[1, :share] = tbl[0, :share]
+    out = []
+    for src in (k_st, v_st):
+        dst = {}
         for k, v in src.items():
-            v = v.clone()
-            v[1, :8 * POOL_BT] = v[0, :8 * POOL_BT]
+            if share:
+                v = v.clone()
+                v[1, :share * POOL_BT] = v[0, :share * POOL_BT]
             blocks = v.reshape((b * nb, POOL_BT) + tuple(v.shape[2:]))
             p = torch.zeros((b * nb + 1,) + tuple(blocks.shape[1:]),
                             dtype=v.dtype, device=dev)
             p[torch.as_tensor(tbl.reshape(-1), device=dev).long()] = blocks
             dst[k] = p
-    table = torch.as_tensor(tbl, device=dev)
-    bounds = seg.packed_block_bounds(mask > 0, bs)
-    scale = d ** -0.5
-    args = (q, k_qt, v_qt, mask, pol, d, scale)
-    got = DA.decode_attn(*args, block_s=bs, block_bounds=bounds,
-                         block_table=table)
-    want = DA.decode_attn_plain(*args, block_s=bs, block_bounds=bounds,
-                                block_table=table)
-    full = DA.decode_attn(*args, block_s=bs, block_table=table)
-    k_g, v_g = DA.gather_planes(k_qt, table), DA.gather_planes(v_qt, table)
-    striped = DA.decode_attn(q, k_g, v_g, mask, pol, d, scale, block_s=bs,
-                             block_bounds=bounds)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, c) for a, c in zip(got, full)),
-          "decode_attn pooled: pruned walk differs from full walk")
-    check(all(torch.equal(a, c) for a, c in zip(got, striped)),
-          "decode_attn pooled: differs from the striped kernel over the "
-          "gathered planes at the same tile")
-    out_g, out_w = got[0] / got[2], want[0] / want[2]
-    err = float((out_g - out_w).abs().max())
-    for name, x, y in (("out", out_g, out_w), ("m", got[1], want[1]),
-                       ("l", got[2], want[2])):
-        check(torch.allclose(x, y, atol=ATOL, rtol=RTOL),
-              f"decode_attn pooled: {name} outside atol={ATOL} rtol={RTOL}: "
-              f"max err {float((x - y).abs().max())}")
-    kw = dict(block_s=bs, block_bounds=bounds, block_table=table)
-    ms = cuda_ms(lambda: DA.decode_attn(*args, **kw))
-    striped_ms = cuda_ms(lambda: DA.decode_attn(q, k_g, v_g, mask, pol, d,
-                                                scale, block_s=bs,
-                                                block_bounds=bounds))
-    plain_ms = cuda_ms(lambda: DA.decode_attn_plain(*args, **kw), iters=3,
-                       warmup=1)
-    nbytes, flops, bound_ms, bound_by = _attn_bound(
-        pol, q, hkv, gq, d, sum(live), extra_bytes=table.numel() * 4)
-    library_ms = _sdpa_ms(pol, q, k_g, v_g, mask, scale)
-    row = {"b": b, "hkv": hkv, "gq": gq, "d": d, "bt": POOL_BT, "nb": nb,
-           "phys_blocks": b * nb + 1, "tile": bs, "live": live,
-           "bounds": bounds.tolist(), "max_abs_err": err, "ms": ms,
-           "striped_kernel_ms": striped_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "flops": flops, "library_ms": library_ms}
-    emit({"phase": "decode_attn_pooled", "case": row, "atol": ATOL,
-          "rtol": RTOL})
-    state["decode_attn_pooled"] = {k: row[k] for k in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}
+        out.append(dst)
+    return out[0], out[1], torch.as_tensor(tbl, device=dev)
+
+
+def phase_decode_attn_pooled(state):
+    """The block-table mode at the serve shape (4 slots x NB = 256 logical
+    blocks of 16 tokens over 4 * 256 + 1 physical blocks, two slots sharing
+    8) and at one 131072-token slot (8192 blocks)."""
+    import torch
+    from repro_torch.core import segments as seg
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for live, max_len, share in (([500, 1500, 2900, 3900], MAX_LEN, 8),
+                                 ([LONG_LIVE], LONG_MAX_LEN, 0)):
+        b = len(live)
+        pol, q, k_st, v_st, mask, _, bs = _attn_case(gen, dev, b, 32, 1, 128,
+                                                     live, max_len)
+        nb = k_st["codes_hi"].shape[1] // POOL_BT
+        check(nb * POOL_BT == k_st["codes_hi"].shape[1] and bs == 256,
+              f"pooled case: NB={nb} tile={bs}")
+        k_qt, v_qt, table = _pool(dev, b, nb, k_st, v_st, 3, share)
+        del k_st, v_st
+        torch.cuda.empty_cache()
+        bounds = seg.packed_block_bounds(mask > 0, bs)
+        row = _attn_row(f"decode_attn pooled S={max_len}", pol, q, k_qt,
+                        v_qt, mask, bounds, bs, live, table=table,
+                        long=max_len == LONG_MAX_LEN)
+        row.update(bt=POOL_BT, nb=nb, phys_blocks=b * nb + 1)
+        rows.append(row)
+        del pol, q, k_qt, v_qt, mask, bounds, table
+        torch.cuda.empty_cache()
+    emit({"phase": "decode_attn_pooled", "cases": rows, "atol": ATOL,
+          "rtol": RTOL,
+          "timing": f"device time, rotating over {L2_COPIES} input copies"})
+    state["decode_attn_pooled"] = _kernel_stats(rows[0], rows[1])
 
 
 SERVE_LENS = [1024, 2048, 3000, 512, 1536, 1536, 2500, 1024]  # two waves
@@ -681,10 +755,21 @@ def _profile_decode(step, n: int = 2):
             rows.append((us, e.count, e.key))
     dev_us = sum(r[0] for r in rows)
     rows.sort(reverse=True)
+    ours = {}                    # the port's kernels, by source name
+    for us, c, k in rows:
+        for tag in ("decode_attn_split", "merge_splits", "kv_quant_kernel"):
+            if tag in k:
+                e = ours.setdefault(tag, {"ms_per_step": 0.0,
+                                          "calls_per_step": 0.0})
+                e["ms_per_step"] += us / n / 1e3
+                e["calls_per_step"] += c / n
+    for e in ours.values():
+        e["us_per_call"] = e["ms_per_step"] * 1e3 / e["calls_per_step"]
     return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
             "device_ms_per_step": dev_us / n / 1e3,
             "device_busy_share": dev_us / wall_us if wall_us else None,
             "kernels_per_step": sum(r[1] for r in rows) / n,
+            "port_kernels": ours,
             "top": [{"name": k[:80], "ms_per_step": us / n / 1e3,
                      "calls_per_step": c / n} for us, c, k in rows[:8]]}
 
@@ -717,7 +802,10 @@ def main(argv=None) -> int:
                         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m["bound_by"],
-                        "library_ms": m.get("library_ms")})
+                        "library_ms": m.get("library_ms"),
+                        "long_ms": m.get("long_ms"),
+                        "long_bound_ms": m.get("long_bound_ms"),
+                        "long_library_ms": m.get("long_library_ms")})
     emit({"kernels": entries})
     print(state["gpu"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

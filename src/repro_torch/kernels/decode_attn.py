@@ -17,8 +17,15 @@ tokens at or past ``S`` as masked and never reads them; the plain version
 pads the planes (scale = 1.0, :func:`pad_planes`) to the same effect.
 
 What bounds it on an H100 and the design: see the note at the top of
-``csrc/decode_attn.cu`` (bytes-bound; one block per (slot, kv-head), K
-dequantized in registers, V in 64-token shared-memory sub-tiles).
+``csrc/decode_attn.cu``.  In short, it is bytes-bound (62 B per live
+token-head at D = 128, K2/V1.5, for ~4 * D * Gq f32 flops, far below the
+295 flop/byte ridge, so no ``wgmma``); the kernel splits each slot's
+sequence across CTAs by :func:`split_plan` (shapes only: never the bounds,
+so no host sync and the launch stays capturable), each CTA covering up to
+8 kv heads with coalesced ``cp.async`` row copies through a 3-stage
+shared-memory ring; a second kernel merges the split partials by
+logsumexp in split order, with no atomics, so launches are bitwise
+repeatable and the pruned walk equals the full walk bitwise.
 
 Pooled mode (``block_table`` (B, NB) int32): the planes are pool-major
 ``(NP, BT, Hkv, ...)`` and logical token ``t`` of slot ``b`` reads physical
@@ -43,14 +50,63 @@ from . import _build
 from ..core.kv_cache import gather_blocks
 from ..core.packing import unpack_u8
 from ..core.policy import QuantPolicy
-from ..core.quant import plane_layout
+from ..core.quant import packed_nbytes, plane_layout
 
 BLOCK_S = 256
 NEG = -1e30
+CHUNK = 32           # tokens per chunk of the kernel (kTT in the source)
+STAGES = 3           # depth of its shared-memory ring (kStages)
+CTAS_PER_SM = 8      # split plan target
+MAX_HEADS = 8        # kv heads per CTA (kMaxHG)
+STAGE_BUDGET = 96 * 1024   # shared-memory bytes of the ring the plan aims at
 # bit pattern of float8_e4m3fn(1.0): sign 0, exponent 0111 (bias 7)
 FP8_ONE = 0x38
 LAUNCHES = {"kernel": 0, "pooled": 0, "plain": 0}
 _C = ctypes
+_SM_COUNT: Dict[int, int] = {}
+
+
+def split_plan(n_blocks: int, block_s: int, b: int, hkv: int,
+               token_head_bytes: int, sm_count: int) -> Tuple[int, int, int]:
+    """The kernel's launch plan, from shapes alone: ``(hg, tiles_per_split,
+    n_splits)``.
+
+    ``hg`` kv heads share a CTA (the largest of 8, 4, 2, 1 that divides
+    ``hkv`` and keeps the copy ring of ``token_head_bytes`` per token-head
+    within :data:`STAGE_BUDGET`).  The ``n_blocks`` tiles of ``block_s``
+    tokens are cut into ``n_splits`` runs of ``tiles_per_split`` (the last
+    may be shorter) so that the grid has about :data:`CTAS_PER_SM` CTAs per
+    SM, each run covering at least one chunk.  Split ``s`` owns tiles
+    ``[s * tiles_per_split, min((s + 1) * tiles_per_split, n_blocks))``.
+    The bounds play no part: pruning clips a CTA's range on the device."""
+    hg = MAX_HEADS
+    while hg > 1 and (hkv % hg or
+                      hg * token_head_bytes * CHUNK * STAGES > STAGE_BUDGET):
+        hg //= 2
+    want = max(1, -(-CTAS_PER_SM * sm_count // (b * (hkv // hg))))
+    tps = max(-(-CHUNK // block_s), -(-n_blocks // want))
+    n_splits = -(-n_blocks // tps)
+    return hg, -(-n_blocks // n_splits), n_splits
+
+
+def launch_plan(b: int, hkv: int, head_dim: int, policy: QuantPolicy,
+                s_mask: int, block_s: int, device: torch.device
+                ) -> Tuple[int, int, int]:
+    """:func:`split_plan` of a launch on ``device``."""
+    gsz = min(policy.group_size, head_dim)
+    nbytes = sum(packed_nbytes(head_dim, bits, gsz, policy.meta_dtype_bits)
+                 for bits in (policy.bits_k, policy.bits_v))
+    return split_plan(s_mask // block_s, block_s, b, hkv, nbytes,
+                      _sm_count(device))
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def pad_planes(qt: Dict[str, torch.Tensor], s_pad: int, fp8_meta: bool
@@ -152,7 +208,7 @@ def _lib():
         side = [_C.c_int] + plane + plane
         fn.argtypes = ([_C.c_void_p] * 4 + [_C.c_int] * 3 + side + side
                        + [_C.c_int] * 7 + [_C.c_float, _C.c_float, _C.c_int]
-                       + [_C.c_void_p] * 4)
+                       + [_C.c_int] * 2 + [_C.c_void_p] * 5)
         fn.restype = _C.c_int
     return fn
 
@@ -203,7 +259,7 @@ def decode_attn(q, k_qt, v_qt, mask, policy: QuantPolicy, head_dim: int,
         rows = (b, s)
     s_mask = mask.shape[-1]
     if d != head_dim or s_mask % block_s or s > s_mask or block_s > 256 \
-            or gq > 8 or gq * d > 1024:
+            or gq > 8 or gq * d > 1024 or d % 4:
         raise ValueError(
             f"decode_attn: unsupported shape q={tuple(q.shape)} S={s} "
             f"S_mask={s_mask} block_s={block_s}")
@@ -211,6 +267,11 @@ def decode_attn(q, k_qt, v_qt, mask, policy: QuantPolicy, head_dim: int,
     layout_k = plane_layout(head_dim, policy.bits_k, gsz)
     layout_v = plane_layout(head_dim, policy.bits_v, gsz)
     meta_dt = torch.uint8 if policy.fp8_meta else torch.float16
+    for _, width, bits, gs in layout_k + layout_v:
+        if gs % 4 or gs * bits % 8:
+            raise ValueError(f"decode_attn: quant groups of {gs} channels at "
+                             f"{bits} bits are not whole bytes of 4-channel "
+                             f"quads")
     for qt, layout in ((k_qt, layout_k), (v_qt, layout_v)):
         for name, (_, width, bits, gs) in zip(("hi", "lo"), layout):
             for part, w, dt in (("codes", width * bits // 8, torch.uint8),
@@ -239,13 +300,19 @@ def decode_attn(q, k_qt, v_qt, mask, policy: QuantPolicy, head_dim: int,
     num = torch.empty((b, hkv, gq, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, gq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((b, hkv, gq, 1), dtype=torch.float32, device=q.device)
+    hg, _, n_splits = launch_plan(b, hkv, d, policy, s_mask, block_s,
+                                  q.device)
+    part = (torch.empty((b * hkv * n_splits * gq * (d + 2),),
+                        dtype=torch.float32, device=q.device)
+            if n_splits > 1 else None)
     table_args = ([tbl.data_ptr(), nb, bt, n_phys] if pooled
                   else [None, 0, 0, 0])
     rc = _lib()(q32.data_ptr(), mask.data_ptr(), bounds.data_ptr(),
                 *table_args,
                 *_plane_args(k_qt, layout_k), *_plane_args(v_qt, layout_v),
                 b, s, s_mask, hkv, gq, d, block_s, float(scale),
-                float(softcap), int(policy.fp8_meta), num.data_ptr(),
+                float(softcap), int(policy.fp8_meta), hg, n_splits,
+                None if part is None else part.data_ptr(), num.data_ptr(),
                 m.data_ptr(), l.data_ptr(),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attn")

@@ -11,6 +11,10 @@ runs on a machine with only torch:
   (pooled planes, DESIGN.md §9) to the same tolerance against its plain
   version, and BITWISE equal to the striped kernel over the gathered
   planes at the same tile, for permuted, shared and null-padded tables.
+* the split (flash-decoding) kernel: many splits with dead ones, to the
+  plain version's tolerance; pruned == full, and two launches, BITWISE;
+  every plane width (1/2/4/8 bits, one and two planes), fp16 metadata,
+  Gq up to 8 and head dims 16..256 against the plain version.
 * one decode step of a smoke model: ``"cuda"`` backend vs ``"reference"``
   backend in f32, where both dequantize in f32 — ``atol=rtol=1e-4``.
 """
@@ -91,6 +95,80 @@ def test_decode_attn_kernel_matches_plain(gq, hkv, d, cap, cuda_device):
     full = DA.decode_attn(*args, block_s=bs, softcap=cap)
     for a, b in zip(got, full):
         assert torch.equal(a, b)
+
+
+def test_decode_attn_many_splits_with_dead_ones(cuda_device):
+    """S_mask = 16384 at B = 2, Hkv = 2 cuts each slot into many splits:
+    slot 0 has no live token (every split empty), slot 1's live range
+    starts past several splits and ends inside one."""
+    rng = np.random.default_rng(6)
+    b, hkv, gq, d, s_mask, bs = 2, 2, 2, 64, 16384, 256
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=64, window=0,
+                      n_sink=0)
+    hg, tps, n_splits = DA.split_plan(s_mask // bs, bs, b, hkv, 31, 132)
+    assert n_splits >= 16 and 5000 > 3 * tps * bs
+    mk = lambda: torch.from_numpy(rng.normal(size=(b, s_mask - 100, hkv, d))
+                                  .astype(np.float32)).to(cuda_device)
+    k_qt = quantize_groups(mk(), 2.0, 64)
+    v_qt = quantize_groups(mk(), 1.5, 64)
+    j = np.arange(s_mask)
+    mask = np.zeros((b, s_mask), np.float32)
+    mask[1] = ((j >= 5000) & (j < 9000) & (rng.uniform(size=s_mask) < 0.8))
+    mask = torch.from_numpy(mask).to(cuda_device)
+    bounds = seg.packed_block_bounds(mask > 0, bs)
+    q = torch.from_numpy(rng.normal(size=(b, hkv, gq, d))
+                         .astype(np.float32)).to(cuda_device)
+    args = (q, k_qt, v_qt, mask, pol, d, d ** -0.5)
+    got = DA.decode_attn(*args, block_s=bs, block_bounds=bounds)
+    again = DA.decode_attn(*args, block_s=bs, block_bounds=bounds)
+    full = DA.decode_attn(*args, block_s=bs)
+    want = DA.decode_attn_plain(*args, block_s=bs, block_bounds=bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1][0], torch.full_like(got[1][0], DA.NEG))
+    assert not got[0][0].any() and not got[2][0].any()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+    for a, r, f in zip(got, again, full):
+        assert torch.equal(a, r) and torch.equal(a, f)
+
+
+MODES = [  # bits_k, bits_v, group, fp8_meta, gq, d
+    (2.0, 1.5, 128, True, 1, 128),     # the paper's policy, MHA
+    (2.0, 1.5, 16, True, 2, 16),       # smoke-model head dim
+    (4.0, 3.0, 32, True, 2, 64),       # two planes of 4 and 2 bits
+    (1.0, 8.0, 64, False, 8, 128),     # 1-bit K, 8-bit V, fp16 meta
+    (8.0, 4.0, 32, False, 3, 96),      # Gq 3 padded to 4, 24 quads
+    (2.0, 1.5, 64, True, 2, 256),      # two quads per lane
+]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_decode_attn_kernel_every_plane_mode(mode, cuda_device):
+    bk, bv, gs, fp8, gq, d = mode
+    rng = np.random.default_rng(7)
+    pol = QuantPolicy(bits_k=bk, bits_v=bv, group_size=gs, window=0,
+                      n_sink=0, fp8_meta=fp8)
+    b, hkv, s_mask, bs = 3, 4, 1024, 128
+    g = min(gs, d)
+    mk = lambda: torch.from_numpy(rng.normal(size=(b, s_mask - 24, hkv, d))
+                                  .astype(np.float32)).to(cuda_device)
+    k_qt = quantize_groups(mk(), bk, g, fp8_meta=fp8)
+    v_qt = quantize_groups(mk(), bv, g, fp8_meta=fp8)
+    mask = torch.from_numpy((rng.uniform(size=(b, s_mask)) < 0.6)
+                            .astype(np.float32)).to(cuda_device)
+    mask[0, 300:] = 0.0
+    mask[:, s_mask - 24:] = 0.0       # past the planes, as the caller masks
+    bounds = seg.packed_block_bounds(mask > 0, bs)
+    q = torch.from_numpy(rng.normal(size=(b, hkv, gq, d))
+                         .astype(np.float32)).to(cuda_device)
+    args = (q, k_qt, v_qt, mask, pol, d, d ** -0.5)
+    got = DA.decode_attn(*args, block_s=bs, block_bounds=bounds)
+    want = DA.decode_attn_plain(*args, block_s=bs, block_bounds=bounds)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+    full = DA.decode_attn(*args, block_s=bs)
+    for a, f in zip(got, full):
+        assert torch.equal(a, f)
 
 
 def _pooled(rng, dev, hkv, gq, d, bt=16, nb=64, live=(0, 90, 600, 980),

@@ -161,3 +161,39 @@ def test_block_report_matches_reference(rng):
                                   np.asarray(want["visited"]))
     assert (got["total"], got["bytes_per_block"]) == \
         (want["total"], want["bytes_per_block"])
+
+
+@pytest.mark.parametrize("n_blocks,block_s,b,hkv", [
+    (16, 256, 4, 32),      # serve shape: 4 slots x 4096 packed tokens
+    (512, 256, 1, 32),     # one 128K-token slot
+    (1, 256, 1, 32),       # S_mask = block_s
+    (64, 16, 4, 8), (3, 8, 2, 2), (7, 64, 3, 5)])
+def test_split_plan_covers_every_tile_once(n_blocks, block_s, b, hkv):
+    """The kernel's split plan: every tile in exactly one split, no split
+    empty by construction, at least one split, and the same plan whatever
+    the bounds (it takes none): the CTAs' bound-clipped ranges then cover
+    exactly the live tiles."""
+    plan = DA.split_plan(n_blocks, block_s, b, hkv, 62, 132)
+    hg, tps, n = plan
+    assert hkv % hg == 0 and 1 <= n <= n_blocks
+    tiles = [(s * tps, min((s + 1) * tps, n_blocks)) for s in range(n)]
+    assert [t for lo, hi in tiles for t in range(lo, hi)] == \
+        list(range(n_blocks))
+    assert all(hi > lo for lo, hi in tiles)
+    rng = np.random.default_rng(n_blocks)
+    for _ in range(5):
+        lo_b, hi_b = sorted(rng.integers(0, n_blocks + 1, 2))
+        assert DA.split_plan(n_blocks, block_s, b, hkv, 62, 132) == plan
+        clipped = [t for lo, hi in tiles
+                   for t in range(max(lo, lo_b), min(hi, hi_b))]
+        assert clipped == list(range(lo_b, hi_b))
+
+
+def test_split_plan_fills_the_card():
+    """About CTAS_PER_SM CTAs per SM at the serve and long shapes, and the
+    copy ring within its budget for wide rows."""
+    hg, tps, n = DA.split_plan(512, 256, 1, 32, 62, 132)
+    assert (32 // hg) * n >= 2 * 132
+    hg, _, _ = DA.split_plan(16, 256, 1, 8, 2 * 1024 + 8, 132)
+    assert hg * (2 * 1024 + 8) * DA.CHUNK * DA.STAGES <= DA.STAGE_BUDGET \
+        or hg == 1
