@@ -6,10 +6,25 @@
 Builds both hand-written kernels from ``src/repro_torch/csrc`` and runs
 these phases, each printing one JSON line:
 
-1. env — GPU name and power limit, torch/CUDA versions, kernel build time.
-2. kv_quant — the kernel against its plain PyTorch version at the serving
-   shapes (and the GQA smoke planes), edge-case rows included: 0 differing
-   bytes allowed.  Device times of both and the memory bound.
+1. env — GPU name and power limit, torch/CUDA versions, kernel build time
+   (both sources compiled in parallel).
+2. kv_quant — the bulk kernel against its plain PyTorch version at the
+   decode shapes (128 rows; and the GQA smoke planes), edge-case rows
+   included, and at one layer of the longest prompt's prefill (91,744 rows
+   x 128 bf16, K 2-bit and V 1.5-bit, per-head clip factors): 0 differing
+   bytes allowed.  L2-cold device times of both, the byte bound and its
+   share.
+2b. kv_append — the fused decode append (one launch per layer) against
+   its plain version (``kv_cache.decode_append``) for 300 steps from
+   identical caches, at the serve shape (4 slots x 32 heads x 128,
+   PAPER_POLICY, max_len 4229) and the GQA shape (Hkv 8, D 64, group 64),
+   striped and pooled (256 blocks of 16 per slot over a seeded
+   permutation); slots pass through the sinks, the window's filling,
+   eviction and past the capacity, one row with ``valid`` False on some
+   steps: every leaf byte-equal after every step (pool block 0 excluded).
+   Kernel µs per launch (L2-cold) against its byte bound, the plain
+   append's device time (profiler) and host wall time per call, and one
+   CUDA-graph capture and replay byte-equal to eager launches.
 3. decode_attn — the split kernel against its plain version (f32, atol
    3e-5 / rtol 1e-4 on the normalized output, m and l) at the serve shape,
    the GQA shape and one 131072-token slot (131000 live); pruned walk and
@@ -31,12 +46,15 @@ not from the 50 MB L2, as each layer of a decode step does.
 5. serve — the port's Engine at full llama2-7b width (random bf16 weights
    from a seed), PAPER_POLICY, max_len 4229 (a packed region of 4096
    tokens = 256 pool blocks of 16), 8 greedy requests in two admission
-   waves on 4 slots; asserts every request finishes, launch counts, zero
-   plain-version calls, and cuda-vs-reference backend logits on one step.
-   Decode step time comes from the Engine's own decode chunks (each one
-   ends in a host copy) and from CUDA-event times of single steps, each
-   with its spread; a torch.profiler pass gives device time per step by
-   kernel, the port's kernels per launch.
+   waves on 4 slots; asserts every request finishes, one kv_append launch
+   per layer per decode step, two bulk kv_quant launches per layer per
+   prefill, zero plain-version calls, and cuda-vs-reference backend logits
+   on one step.  Decode step time comes from the Engine's own decode
+   chunks (each one ends in a host copy) and from CUDA-event times of
+   single steps, each with its spread; a torch.profiler pass gives device
+   time per step by kernel, the port's kernels per launch; then single
+   steps at 4 x 2048 alternate ABBA between the kernel append and the
+   plain append, timed on the host clock.
 6. serve_pooled — (a) the same 8 requests through a pooled Engine (768
    blocks of 16 tokens): every token stream identical to the serve
    phase's; (b) shared-prefix traffic, 8 requests with one 2048-token
@@ -45,8 +63,10 @@ not from the 50 MB L2, as each layer of a decode step does.
    the striped worst case, a clean pool audit.  Both runs attend through
    the block-table kernel only (no striped or plain decode_attn call).
 7. the kernel summary line (decode_attn entries also carry the long
-   slot's ``long_ms``, ``long_bound_ms`` and ``long_library_ms``), the
-   card line, and the last line ``{"ok": true, "device": {...}}``.
+   slot's ``long_ms``, ``long_bound_ms`` and ``long_library_ms``; kv_quant
+   its prefill-size ``prefill_ms``, ``prefill_bound_ms`` and
+   ``prefill_rows``), the card line, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
 """
@@ -73,8 +93,17 @@ POOL_BT = 16
 # the long-context decode_attn case: one slot of 131072 packed tokens
 # (+ 5 sinks + 128 window), 131000 of them live
 LONG_MAX_LEN, LONG_LIVE = 131205, 131000
+# one layer of the longest serve prompt's prefill: B*S*Hkv = 1 x 2867 x 32
+# rows (3000 tokens - 5 sinks - 128 window quantized)
+PREFILL_ROWS = 2867 * 32
+APPEND_STEPS = 300               # >= 2 wraps of the 128-token ring
 L2_COPIES = 4                    # input copies a timing rotates over
 HOLD_CYCLES = 20_000_000         # ~10 ms of sleep while calls are queued
+
+
+# per-kernel numbers beyond the contract's keys that the summary line carries
+KERNEL_EXTRAS = ("long_ms", "long_bound_ms", "long_library_ms", "prefill_ms",
+                 "prefill_bound_ms", "prefill_rows", "plain_wall_ms")
 
 
 def emit(obj) -> None:
@@ -209,12 +238,238 @@ def phase_kv_quant(state):
                              "diff_bytes": diff, "max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by})
-    emit({"phase": "kv_quant", "cases": rows})
+    prefill = [_kv_quant_prefill(gen, dev, bits) for bits in (2.0, 1.5)]
+    worst = max([worst] + [r["max_abs_err"] for r in prefill])
+    emit({"phase": "kv_quant", "cases": rows, "prefill": prefill,
+          "timing": f"device time, rotating over {L2_COPIES} input copies"})
     main = rows[0]                       # K plane of a decode step, bf16
     state["kv_quant"] = {"max_abs_err": worst, "ms": main["ms"],
                          "plain_ms": main["plain_ms"],
                          "bound_ms": main["bound_ms"],
-                         "bound_by": main["bound_by"]}
+                         "bound_by": main["bound_by"],
+                         "prefill_ms": prefill[0]["ms"],
+                         "prefill_bound_ms": prefill[0]["bound_ms"],
+                         "prefill_rows": PREFILL_ROWS}
+
+
+def _kv_quant_prefill(gen, dev, bits):
+    """One layer of the longest prompt's prefill through the bulk kernel:
+    PREFILL_ROWS x 128 bf16 rows (edge rows first), per-head (32, G) clip
+    factors read by row % 32; 0 differing bytes from the plain version,
+    L2-cold times, the byte bound and its share."""
+    import torch
+    from repro_torch.core.quant import dequantize_groups, n_meta_groups
+    from repro_torch.kernels import kv_quant as KQ
+    d, gs, h = 128, 128, 32
+    x = torch.randn((PREFILL_ROWS, d), generator=gen, device=dev)
+    x[:8] = _edge_rows(gen, d, dev)
+    x = x.to(torch.bfloat16)
+    alpha = 0.8 + 0.2 * torch.rand((h, n_meta_groups(d, bits, gs)),
+                                   generator=gen, device=dev)
+    got = KQ.kv_quant(x, bits, gs, alpha)
+    want = KQ.kv_quant_plain(x, bits, gs, alpha)
+    diff = sum(int((got[k].view(torch.uint8) != want[k].view(torch.uint8)
+                    ).sum()) for k in want)
+    check(diff == 0, f"kv_quant prefill rows bits={bits}: {diff} bytes "
+          f"differ from the plain version")
+    deq = [dequantize_groups(qt, d, bits, gs, True, torch.float32)
+           for qt in (got, want)]
+    err = float((deq[0] - deq[1]).abs().max())
+    del deq, want
+    xs = [x] + [x.clone() for _ in range(L2_COPIES - 1)]
+    ms = cuda_ms([lambda c=c: KQ.kv_quant(c, bits, gs, alpha) for c in xs])
+    plain_ms = cuda_ms([lambda c=c: KQ.kv_quant_plain(c, bits, gs, alpha)
+                        for c in xs], iters=4, warmup=1)
+    out_b = sum(v.numel() * v.element_size() for v in got.values())
+    in_b = x.numel() * x.element_size() + alpha.numel() * 4
+    bound_ms, bound_by = bound(in_b + out_b, 7 * x.numel())
+    del xs, x, got
+    torch.cuda.empty_cache()
+    return {"rows": PREFILL_ROWS, "d": d, "bits": bits, "dtype": "bfloat16",
+            "alpha": "per head (32, G)", "diff_bytes": diff,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bytes": in_b + out_b, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms}
+
+
+def _append_policy(gs):
+    import dataclasses
+    from repro_torch.core.policy import PAPER_POLICY
+    return dataclasses.replace(PAPER_POLICY, group_size=gs)
+
+
+def _append_caches(gen, dev, hkv, d, gs, pooled):
+    """A kernel and a plain cache with identical seeded contents at the
+    serve capacity (max_len 4229; pooled: 256 blocks of 16 per slot over a
+    seeded permutation of 4 * 256 + 1 physical blocks), slots at 0 (sinks
+    first), 40 (window filling), 2000 and 4100 (past the capacity within
+    APPEND_STEPS)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core.quant import n_meta_groups
+    pol, b = _append_policy(gs), 4
+    if pooled:
+        nb = (MAX_LEN - pol.n_sink - pol.window) // POOL_BT
+        cache = kvc.init_pooled_cache(b, MAX_LEN, hkv, d, pol, b * nb,
+                                      POOL_BT, torch.bfloat16, device=dev)
+        tbl = np.random.default_rng(4).permutation(np.arange(1, b * nb + 1))
+        cache["block_tbl"].copy_(torch.as_tensor(
+            tbl.reshape(b, nb).astype(np.int32)))
+    else:
+        cache = kvc.init_cache(b, MAX_LEN, hkv, d, pol, torch.bfloat16,
+                               device=dev)
+    for k, v in cache.items():
+        if k == "length":
+            v.copy_(torch.tensor([0, 40, 2000, 4100]))
+        elif v.is_floating_point():
+            v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+        elif k != "block_tbl":
+            v.copy_(torch.randint(0, 256, v.shape, generator=gen,
+                                  device=dev))
+    alphas = [0.8 + 0.2 * torch.rand((hkv, n_meta_groups(d, bits, gs)),
+                                     generator=gen, device=dev)
+              for bits in (pol.bits_k, pol.bits_v)]
+    return pol, cache, {k: v.clone() for k, v in cache.items()}, alphas
+
+
+def _caches_differ(a, c, pooled):
+    """Leaves of two caches that differ in any byte (pool block 0, where
+    the plain version steers rows that write nothing, excluded)."""
+    import torch
+    from repro_torch.core.kv_cache import is_plane_key
+    bad = []
+    for k in c:
+        x, y = a[k], c[k]
+        if pooled and is_plane_key(k):
+            x, y = x[1:], y[1:]
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        if not torch.equal(x, y):
+            bad.append(k)
+    return bad
+
+
+def _append_bound(cache, pol, hkv, d):
+    """Bytes one append launch must move at these lengths: per slot and
+    head the new K/V rows in and out (ring or sink), and where the slot
+    evicts the ring rows in and the packed rows out (plus its table entry
+    if pooled); the clip factors and lengths once."""
+    from repro_torch.core.quant import n_meta_groups, packed_nbytes
+    lens = cache["length"].tolist()
+    gsz = min(pol.group_size, d)
+    packed = (packed_nbytes(d, pol.bits_k, gsz, 8)
+              + packed_nbytes(d, pol.bits_v, gsz, 8))
+    row = 2 * d * 2                                  # K + V rows, bf16
+    n_ev = sum(1 for t in lens if t - pol.n_sink - pol.window >= 0)
+    nbytes = (len(lens) * hkv * 2 * row + n_ev * hkv * (row + packed)
+              + n_ev * 4 * ("block_tbl" in cache) + 8 * len(lens)
+              + 4 * hkv * (n_meta_groups(d, pol.bits_k, gsz)
+                           + n_meta_groups(d, pol.bits_v, gsz)))
+    return nbytes, *bound(nbytes, 7 * 2 * n_ev * hkv * d)
+
+
+def _host_ms(fn, n: int = 30) -> float:
+    """Host wall time per call of ``n`` calls ending in a synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _append_case(gen, dev, hkv, d, gs, pooled):
+    import torch
+    from repro_torch.core.quant import dequantize_groups
+    from repro_torch.kernels import kv_quant as KQ
+    pol, kc, pc, (ak, av) = _append_caches(gen, dev, hkv, d, gs, pooled)
+    b = kc["length"].shape[0]
+    start = kc["length"].tolist()
+    new = lambda: torch.randn((b, 1, hkv, d), generator=gen, device=dev
+                              ).to(torch.bfloat16)
+    for step in range(APPEND_STEPS):
+        kn, vn = new(), new()
+        valid = None if step % 3 == 0 else torch.tensor(
+            [True, True, step % 3 == 1, True], device=dev)
+        KQ.kv_append(kc, kn, vn, pol, ak, av, valid=valid)
+        KQ.kv_append_plain(pc, kn, vn, pol, ak, av, valid=valid)
+        bad = _caches_differ(kc, pc, pooled)
+        check(not bad, f"kv_append hkv={hkv} d={d} pooled={pooled} step "
+              f"{step}: leaves {bad} differ from the plain version")
+    end = kc["length"].tolist()
+    cap = MAX_LEN - pol.n_sink - pol.window
+    check(start[0] == 0 and end[0] > pol.n_sink + pol.window
+          and start[1] < pol.n_sink + pol.window < end[1]
+          and end[3] > MAX_LEN and end[2] < start[2] + APPEND_STEPS,
+          f"kv_append lengths {start} -> {end} miss a phase")
+    gsz = min(gs, d)
+    err = 0.0
+    for pref, bits in (("qk", pol.bits_k), ("qv", pol.bits_v)):
+        qts = [{k[3:]: v[1:] if pooled else v for k, v in c.items()
+                if k.startswith(pref + "_")} for c in (kc, pc)]
+        deq = [dequantize_groups(qt, d, bits, gsz, True, torch.float32)
+               for qt in qts]
+        err = max(err, float((deq[0] - deq[1]).abs().max()))
+        del deq
+    # timings from the evicting state the steps left, valid = None
+    kn, vn = new(), new()
+    nbytes, bound_ms, bound_by = _append_bound(kc, pol, hkv, d)
+    cs = copies(kc)
+    ms = cuda_ms([lambda c=c: KQ.kv_append(c, kn, vn, pol, ak, av)
+                  for c in cs])
+    wall_ms = _host_ms(lambda: KQ.kv_append(cs[0], kn, vn, pol, ak, av))
+    del cs
+    prof = _profile_decode(lambda: KQ.kv_append_plain(pc, kn, vn, pol, ak,
+                                                      av), n=5)
+    plain_wall_ms = _host_ms(lambda: KQ.kv_append_plain(pc, kn, vn, pol, ak,
+                                                        av))
+    # one capture + replays, byte-equal to eager launches from one state
+    # (the library is loaded: the launches above came first)
+    gc, ec = copies(kc, 3)[1:]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        KQ.kv_append(gc, kn, vn, pol, ak, av)
+    for _ in range(8):
+        graph.replay()
+        KQ.kv_append(ec, kn, vn, pol, ak, av)
+    torch.cuda.synchronize()
+    bad = _caches_differ(gc, ec, pooled)
+    check(not bad, f"kv_append CUDA-graph replay differs from eager: {bad}")
+    del gc, ec, kc, pc, graph
+    torch.cuda.empty_cache()
+    return {"b": b, "hkv": hkv, "d": d, "group": gs,
+            "layout": "pooled" if pooled else "striped",
+            "steps": APPEND_STEPS, "lengths_start": start,
+            "lengths_end": end, "packed_capacity": cap, "diff_leaves": 0,
+            "max_abs_err": err, "ms": ms, "wall_ms": wall_ms,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": prof["device_ms_per_step"],
+            "plain_kernels": prof["kernels_per_step"],
+            "plain_wall_ms": plain_wall_ms, "graph_replay_equal": True}
+
+
+def phase_kv_append(state):
+    """The fused decode append against its plain version, both layouts,
+    the serve and GQA head shapes."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = [_append_case(gen, dev, hkv, d, gs, pooled)
+            for hkv, d, gs in ((32, 128, 128), (8, 64, 64))
+            for pooled in (False, True)]
+    emit({"phase": "kv_append", "cases": rows,
+          "timing": f"kernel: device time, rotating over {L2_COPIES} cache "
+                    f"copies; plain: profiler device time and host wall time "
+                    f"per call"})
+    main = rows[0]
+    state["kv_append"] = {k: main[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "plain_wall_ms",
+        "wall_ms")}
+    state["kv_append"].update(
+        max_abs_err=max(r["max_abs_err"] for r in rows), library_ms=None)
 
 
 def _attn_case(gen, dev, b, hkv, gq, d, live, max_len=MAX_LEN):
@@ -479,6 +734,35 @@ def _timed_chunks(eng):
     return chunks
 
 
+def _counted_prefills(eng):
+    """Wrap the Engine's group admission (one ``prefill_model`` call per
+    group); returns the list it appends one entry per prefill to."""
+    calls = []
+    admit_group = eng._admit_group
+
+    def counted(handles, slots):
+        calls.append(len(handles))
+        admit_group(handles, slots)
+    eng._admit_group = counted
+    return calls
+
+
+def _check_main_path(cfg, counts, steps, prefills, what):
+    """The main path's launch counts: one fused append per layer per decode
+    step, two bulk quantizer launches per layer per prefill, and no call of
+    any plain version."""
+    kq = counts["kv_quant"]
+    check(kq["append"] == cfg.n_layers * steps,
+          f"{what}: kv_append launches {kq['append']} != layers x steps = "
+          f"{cfg.n_layers * steps}")
+    check(kq["kernel"] == 2 * cfg.n_layers * prefills,
+          f"{what}: bulk kv_quant launches {kq['kernel']} != 2 x layers x "
+          f"prefills = {2 * cfg.n_layers * prefills}")
+    check(counts["decode_attn"]["plain"] == 0 and kq["plain"] == 0
+          and kq["append_plain"] == 0,
+          f"{what}: the wrong version ran on the main path: {counts}")
+
+
 def _serve_requests(cfg):
     import numpy as np
     from repro_torch.serving import Request
@@ -507,6 +791,7 @@ def phase_serve(state):
                  max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
                  device=dev)
     chunks = _timed_chunks(eng)
+    prefills = _counted_prefills(eng)
     rng, reqs = _serve_requests(cfg)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                                    # main path only
@@ -526,13 +811,10 @@ def phase_serve(state):
     check(counts["decode_attn"]["kernel"] == cfg.n_layers * steps,
           f"decode_attn launches {counts['decode_attn']} != layers x steps "
           f"= {cfg.n_layers * steps}")
-    check(counts["kv_quant"]["kernel"] >= 2 * cfg.n_layers * steps,
-          f"kv_quant launches {counts['kv_quant']} < 2 x layers x steps")
-    check(counts["decode_attn"]["plain"] == 0
-          and counts["kv_quant"]["plain"] == 0,
-          f"the wrong version ran on the main path: {counts}")
+    _check_main_path(cfg, counts, steps, len(prefills), "serve")
     peak = torch.cuda.max_memory_allocated()
     state["launches"] = {k: v["kernel"] for k, v in counts.items()}
+    state["launches"]["kv_append"] = counts["kv_quant"]["append"]
     state["serve_streams"] = [list(h.tokens) for h in handles]
     ttft = [(h.first_token_time - h.submit_time) * 1e3 for h in handles]
 
@@ -589,6 +871,7 @@ def phase_serve(state):
     top1 = float((lc.argmax(-1) == lr.argmax(-1)).float().mean())
     check(rel <= LOGIT_REL_TOL, f"cuda vs reference logits: relative L2 "
           f"{rel:.4f} > {LOGIT_REL_TOL}")
+    abba = _abba_append_steps(params, cfg, tok, base, eng.calib)
     tokens = sum(len(h.tokens) for h in handles)
     cache_b = T.cache_bytes(eng._caches)
     bf16_b = T.bf16_cache_bytes(cfg, SERVE_SLOTS, MAX_LEN)
@@ -611,7 +894,52 @@ def phase_serve(state):
           "cache_bytes": cache_b, "bf16_cache_bytes": bf16_b,
           "cache_ratio": cache_b / bf16_b, "logits_rel_l2": rel,
           "logits_rel_tol": LOGIT_REL_TOL, "top1_agreement": top1,
-          "decode_profile": prof})
+          "prefills": len(prefills), "decode_profile": prof,
+          "abba_append_steps": abba})
+
+
+ABBA_ROUNDS = 8
+
+
+def _abba_append_steps(params, cfg, tok, base, calib):
+    """Single decode steps at 4 x STEP_CONTEXT from two copies of one
+    cache, in the order A B B A per round: A appends through the kv_append
+    kernel, B through its plain version (everything else the same cuda
+    backend).  Host wall time of each step, synchronized before and
+    after: the step is host-bound, so only turns within one call compare."""
+    import dataclasses
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels.kv_quant import kv_append_plain
+    from repro_torch.models import transformer as T
+    from repro_torch.models.backends import CudaBackend
+
+    @dataclasses.dataclass(frozen=True)
+    class PlainAppend(CudaBackend):
+        name: str = "cuda+plain-append"
+
+        def append_fn(self, policy):
+            return kv_append_plain
+
+    runs = {"kernel": (CudaBackend(), {g: {k: v.clone() for k, v in
+                                           d.items()}
+                                       for g, d in base.items()}, []),
+            "plain": (PlainAppend(), {g: {k: v.clone() for k, v in
+                                          d.items()}
+                                      for g, d in base.items()}, [])}
+    for _ in range(ABBA_ROUNDS):
+        for name in ("kernel", "plain", "plain", "kernel"):
+            backend, caches, times = runs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.decode_step(params, cfg, tok, caches, PAPER_POLICY,
+                          calib=calib, backend=backend)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    out = {name: _spread(r[2]) for name, r in runs.items()}
+    out["order"] = "ABBA (A kernel append, B plain append)"
+    out["plain_over_kernel"] = out["plain"]["mean"] / out["kernel"]["mean"]
+    return out
 
 
 SHARED_PREFIX, SHARED_NEW = 2048, 32
@@ -634,6 +962,7 @@ def _pooled_run(state, cfg, reqs, pool_blocks):
                  pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
                  device=torch.device("cuda"))
     chunks = _timed_chunks(eng)
+    prefills = _counted_prefills(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                                    # main path only
@@ -648,10 +977,7 @@ def _pooled_run(state, cfg, reqs, pool_blocks):
     check(da["pooled"] == cfg.n_layers * steps and da["kernel"] == 0,
           f"pooled decode_attn launches {da} != layers x steps = "
           f"{cfg.n_layers * steps} on the block-table kernel alone")
-    check(counts["kv_quant"]["kernel"] >= 2 * cfg.n_layers * steps,
-          f"kv_quant launches {counts['kv_quant']} < 2 x layers x steps")
-    check(da["plain"] == 0 and counts["kv_quant"]["plain"] == 0,
-          f"the wrong version ran on the pooled path: {counts}")
+    _check_main_path(cfg, counts, steps, len(prefills), "serve_pooled")
     check(all(h.finished and h.finish_reason == "length" for h in handles),
           f"not every pooled request finished with length: "
           f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
@@ -757,7 +1083,8 @@ def _profile_decode(step, n: int = 2):
     rows.sort(reverse=True)
     ours = {}                    # the port's kernels, by source name
     for us, c, k in rows:
-        for tag in ("decode_attn_split", "merge_splits", "kv_quant_kernel"):
+        for tag in ("decode_attn_split", "merge_splits", "kv_quant_kernel",
+                    "kv_append_kernel"):
             if tag in k:
                 e = ours.setdefault(tag, {"ms_per_step": 0.0,
                                           "calls_per_step": 0.0})
@@ -785,8 +1112,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     state = {}
-    for phase in (phase_env, phase_kv_quant, phase_decode_attn,
-                  phase_decode_attn_pooled, phase_serve, phase_serve_pooled):
+    for phase in (phase_env, phase_kv_quant, phase_kv_append,
+                  phase_decode_attn, phase_decode_attn_pooled, phase_serve,
+                  phase_serve_pooled):
         phase(state)
     entries = []
     for name, src, rep in (
@@ -795,17 +1123,19 @@ def main(argv=None) -> int:
             ("decode_attn_pooled", "src/repro_torch/csrc/decode_attn.cu",
              "src/repro/kernels/decode_attn.py:137 (block_table)"),
             ("kv_quant", "src/repro_torch/csrc/kv_quant.cu",
-             "src/repro/kernels/kv_quant.py:78")):
+             "src/repro/kernels/kv_quant.py:78"),
+            ("kv_append", "src/repro_torch/csrc/kv_quant.cu",
+             "src/repro/kernels/kv_quant.py:78 + "
+             "src/repro/core/kv_cache.py:471")):
         m = state[name]
-        entries.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": state["launches"][name],
-                        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                        "bound_by": m["bound_by"],
-                        "library_ms": m.get("library_ms"),
-                        "long_ms": m.get("long_ms"),
-                        "long_bound_ms": m.get("long_bound_ms"),
-                        "long_library_ms": m.get("long_library_ms")})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": state["launches"][name],
+                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                 "bound_by": m["bound_by"],
+                 "library_ms": m.get("library_ms")}
+        entry.update({k: m[k] for k in KERNEL_EXTRAS if k in m})
+        entries.append(entry)
     emit({"kernels": entries})
     print(state["gpu"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -52,6 +52,13 @@ def _quant_plane(x: torch.Tensor, bits: int, gs: int, alpha,
     xg = x.reshape(*lead, g, gs).to(torch.float32)
     lo = xg.amin(dim=-1)
     hi = xg.amax(dim=-1)
+    # a zero minimum takes the sign XLA's min gives it (-0 below +0), not
+    # whichever zero torch's reduction order met first: it is the sign of
+    # the zero byte (fp8 0x80 vs 0x00).  amin returns a member, so a zero
+    # minimum is already +0 when no member is -0; hi's sign never reaches a
+    # byte.
+    neg0 = (xg.view(torch.int32) == -2 ** 31).any(dim=-1)
+    lo = torch.where(neg0 & (lo == 0), -0.0, lo)
     if alpha is not None:
         lo = lo * alpha
         hi = hi * alpha

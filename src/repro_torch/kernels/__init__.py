@@ -1,13 +1,15 @@
-"""The port's two hand-written CUDA kernels and their host side
-(counterpart of ``repro.kernels``): ``kv_quant`` and ``decode_attn``, each
-with a plain PyTorch version and launch counters.  Kernels build from
-``csrc/`` at first use (:mod:`repro_torch.kernels._build`)."""
+"""The port's hand-written CUDA kernels and their host side (counterpart
+of ``repro.kernels``): ``kv_quant`` (bulk rows and the fused decode
+append) and ``decode_attn``, each with a plain PyTorch version and launch
+counters.  Kernels build from ``csrc/`` at first use
+(:mod:`repro_torch.kernels._build`)."""
 from __future__ import annotations
 
 
 def launch_counts() -> dict:
-    """{kernel: {"kernel": n, "plain": n}} for both kernels; decode_attn
-    also counts its block-table launches under ``"pooled"``."""
+    """{kernel: {"kernel": n, "plain": n}} for both sources; decode_attn
+    also counts its block-table launches under ``"pooled"``, kv_quant its
+    fused decode appends under ``"append"`` (plain: ``"append_plain"``)."""
     from . import decode_attn, kv_quant
     return {"decode_attn": dict(decode_attn.LAUNCHES),
             "kv_quant": dict(kv_quant.LAUNCHES)}

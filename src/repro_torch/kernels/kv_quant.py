@@ -1,32 +1,54 @@
 """Fused clipped group-quantize + bit-pack (port of the TPU kernel
-``kv_quant_pallas``, ``src/repro/kernels/kv_quant.py``).
+``kv_quant_pallas``, ``src/repro/kernels/kv_quant.py``), and the fused
+decode append built on it.
 
-:func:`kv_quant` launches the CUDA kernel ``csrc/kv_quant.cu`` on CUDA
-tensors and takes the plain PyTorch version :func:`kv_quant_plain` only
-for CPU tensors.  Both are bytes-for-bytes equal to
-``core.quant.quantize_groups`` — including the ±448 saturation of FP8
-metadata, which the Pallas kernel lacks — so caches built either way are
-interchangeable.
+Both entry points of ``csrc/kv_quant.cu`` share one warp-level row
+quantizer:
 
-What bounds it on an H100, and the design: see the note at the top of
-``csrc/kv_quant.cu`` (launch-bound at decode sizes; one block per row, row
-staged in shared memory, nothing but packed planes written back).
+* :func:`kv_quant` — bulk rows (prefill): launches the kernel on CUDA
+  tensors and takes the plain PyTorch version :func:`kv_quant_plain` only
+  for CPU tensors.  Both are bytes-for-bytes equal to
+  ``core.quant.quantize_groups`` — including the ±448 saturation of FP8
+  metadata, which the Pallas kernel lacks — so caches built either way are
+  interchangeable.
+* :func:`kv_append` — ``kv_cache.decode_append`` of one layer in ONE
+  launch (ring-slot read, quantize + pack of the evicted token, the packed
+  write striped or through the block table, ring/sink write, ``length``
+  update), reading ``length`` on the device, so it is capturable in a CUDA
+  graph.  CPU tensors take :func:`kv_append_plain`, which IS
+  ``decode_append`` with the plain quantizer.
 
-``LAUNCHES["kernel"]`` counts kernel launches and ``LAUNCHES["plain"]``
-calls of the plain version.
+What bounds each on an H100, and the design: see the note at the top of
+``csrc/kv_quant.cu``.  The append's argument checks, which need no card,
+live in :func:`append_launch_args`.
+
+``LAUNCHES["kernel"]`` / ``["plain"]`` count bulk kernel launches / plain
+calls; ``LAUNCHES["append"]`` / ``["append_plain"]`` the same for the
+append.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from . import _build
+from ..core.kv_cache import decode_append, is_pooled
+from ..core.policy import QuantPolicy, as_layer_policy
 from ..core.quant import plane_layout, quantize_groups
 
-LAUNCHES = {"kernel": 0, "plain": 0}
+LAUNCHES = {"kernel": 0, "plain": 0, "append": 0, "append_plain": 0}
 _C = ctypes
+_FP_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _alpha_rows(alpha, n: int):
+    """(P, G) clip factors with P dividing n -> (n, G): row r takes
+    alpha[r % P], the kernel's reading."""
+    if torch.is_tensor(alpha) and alpha.ndim == 2 and alpha.shape[0] != n:
+        return alpha.repeat(n // alpha.shape[0], 1)
+    return alpha
 
 
 def kv_quant_plain(x: torch.Tensor, bits: float, group_size: int,
@@ -34,17 +56,86 @@ def kv_quant_plain(x: torch.Tensor, bits: float, group_size: int,
                    fp8_meta: bool = True) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version: ``quantize_groups`` on any device."""
     LAUNCHES["plain"] += 1
-    return quantize_groups(x, bits, group_size, alpha, fp8_meta)
+    return quantize_groups(x, bits, group_size, _alpha_rows(alpha, x.shape[0]),
+                           fp8_meta)
 
 
-def _lib():
-    lib = _build.load("kv_quant")
-    fn = lib.kv_quant_launch
+def lane_channels(d: int) -> int:
+    """Channels per lane of the row quantizer's general form: 4, or 8
+    above 128 so that a row spans at most a warp (``general_cpl`` in the
+    source)."""
+    return 8 if d > 128 else 4
+
+
+def kernel_layout(d: int, bits: float, group_size: int
+                  ) -> List[Tuple[int, int, int, int]]:
+    """``plane_layout`` of a row the kernel takes, or ValueError: D up to
+    256 with a power-of-two count of lanes (``lane_channels``) per row;
+    planes of 1/2/4/8-bit codes in whole lanes (whole bytes at 1 bit);
+    each group a power-of-two run of lanes starting at a multiple of its
+    length.  Mirrors ``make_layout`` in the source."""
+    cpl = lane_channels(d)
+    lanes = d // cpl
+    if d <= 0 or d > 256 or d % cpl or lanes & (lanes - 1):
+        raise ValueError(f"kv_quant kernel: head dim {d} is not a power-of-"
+                         f"two multiple of {cpl} channels up to 256")
+    layout = plane_layout(d, bits, group_size)
+    for start, width, b, gs in layout:
+        gl = gs // cpl
+        if (start % cpl or width % cpl or gs % cpl or gl & (gl - 1)
+                or start % gs or width % gs or b not in (1, 2, 4, 8)
+                or (cpl * b < 8 and (start % 8 or width % 8))):
+            raise ValueError(
+                f"kv_quant kernel: unsupported group {gs} (plane at channel "
+                f"{start}, width {width}, {b}-bit) of a {d}-channel row: "
+                f"groups must be power-of-two runs of {cpl}-channel lanes")
+    return layout
+
+
+def _planes_args(layout, outs) -> Tuple[object, object]:
+    """C arrays of plane ints {start, width, bits, gs} and pointers {codes,
+    scale, zero}, one (codes, scale, zero) triple of ``outs`` a plane."""
+    ints, ptrs = [], []
+    for (start, width, b, gs), (c, s, z) in zip(layout, outs):
+        ints += [start, width, b, gs]
+        ptrs += [c.data_ptr(), s.data_ptr(), z.data_ptr()]
+    return (_C.c_int * len(ints))(*ints), (_C.c_void_p * len(ptrs))(*ptrs)
+
+
+def _aligned(t: torch.Tensor, nbytes: int, what: str) -> None:
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{what}: data must be {nbytes}-byte aligned")
+
+
+def _check_alpha(alpha, g_total: int, period_of: int, device, what: str):
+    """alpha -> (contiguous f32 tensor or None, period): None; (G,) shared
+    (period 0); (P, G) with ``period_of`` % P == 0, row r reading alpha[r %
+    P]."""
+    if alpha is None:
+        return None, 0
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    if alpha.ndim <= 1:
+        if alpha.numel() not in (1, g_total):
+            raise ValueError(f"{what}: shared alpha must have {g_total} "
+                             f"entries, got {tuple(alpha.shape)}")
+        return alpha.expand(g_total).contiguous(), 0
+    if (alpha.ndim != 2 or alpha.shape[1] != g_total or alpha.shape[0] < 1
+            or period_of % alpha.shape[0]):
+        raise ValueError(f"{what}: alpha must be ({g_total},) or (P, "
+                         f"{g_total}) with P dividing {period_of}, got "
+                         f"{tuple(alpha.shape)}")
+    if not alpha.is_contiguous():
+        raise ValueError(f"{what}: alpha must be contiguous")
+    return alpha, alpha.shape[0]
+
+
+def _lib(name: str):
+    fn = getattr(_build.load("kv_quant"), name)
     if fn.argtypes is None:
-        plane = [_C.c_int] * 4 + [_C.c_void_p] * 3
-        fn.argtypes = ([_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_int,
-                        _C.c_int, _C.c_int, _C.c_int] + plane + plane
-                       + [_C.c_int, _C.c_void_p])
+        p, i = _C.c_void_p, _C.c_int
+        fn.argtypes = ([p, i, i, i, p, i, i, p, p, i, p]
+                       if name == "kv_quant_launch" else
+                       [i, i, i, p, p, i, i, i, p, p, i, p, p, i, p])
         fn.restype = _C.c_int
     return fn
 
@@ -54,9 +145,11 @@ def kv_quant(x: torch.Tensor, bits: float, group_size: int,
              fp8_meta: bool = True) -> Dict[str, torch.Tensor]:
     """x (N, D) tokens -> QTensor dict in the ``core.quant`` layout.
 
-    ``alpha``: None, (G_total,) shared or (N, G_total) per-row clip
-    factors.  CUDA tensors launch the kernel (and raise if it fails); CPU
-    tensors take :func:`kv_quant_plain`."""
+    ``alpha``: None, (G_total,) shared, or (P, G_total) clip factors with
+    P dividing N, row r reading alpha[r % P] — (N, G_total) per row, or
+    (H, G_total) per head for rows flattened from (..., H, D) without a
+    tiled copy.  CUDA tensors launch the kernel (and raise if it fails);
+    CPU tensors take :func:`kv_quant_plain`."""
     if x.device.type == "cpu":
         return kv_quant_plain(x, bits, group_size, alpha, fp8_meta)
     if x.device.type != "cuda":
@@ -64,25 +157,18 @@ def kv_quant(x: torch.Tensor, bits: float, group_size: int,
     if x.ndim != 2:
         raise ValueError(f"kv_quant wants (N, D) rows, got {tuple(x.shape)}")
     n, d = x.shape
-    layout = plane_layout(d, bits, group_size)
-    g_total = sum(w // gs for (_, w, _, gs) in layout)
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if n >= 2 ** 30:
+        raise ValueError(f"kv_quant: {n} rows is too many for one launch")
+    layout = kernel_layout(d, bits, group_size)
+    if x.dtype not in _FP_DTYPES:
         x = x.to(torch.float32)
     x = x.contiguous()
-    if alpha is None:
-        alpha = torch.ones((g_total,), dtype=torch.float32, device=x.device)
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
-    if alpha.ndim < 2:
-        alpha = alpha.expand(g_total).contiguous()
-        a_stride = 0
-    else:
-        if tuple(alpha.shape) != (n, g_total):
-            raise ValueError(f"per-row alpha must be ({n}, {g_total}), got "
-                             f"{tuple(alpha.shape)}")
-        alpha = alpha.contiguous()
-        a_stride = g_total
+    _aligned(x, 16, "kv_quant x")
+    alpha, period = _check_alpha(alpha, sum(w // gs for (_, w, _, gs)
+                                            in layout), n, x.device,
+                                 "kv_quant")
     meta_dt = torch.uint8 if fp8_meta else torch.float16
-    out, args = {}, []
+    out, planes = {}, []
     for name, (start, width, b, gs) in zip(("hi", "lo"), layout):
         codes = torch.empty((n, width * b // 8), dtype=torch.uint8,
                             device=x.device)
@@ -90,14 +176,161 @@ def kv_quant(x: torch.Tensor, bits: float, group_size: int,
         zero = torch.empty((n, width // gs), dtype=meta_dt, device=x.device)
         out.update({f"codes_{name}": codes, f"scale_{name}": scale,
                     f"zero_{name}": zero})
-        args += [start, width, b, gs, codes.data_ptr(), scale.data_ptr(),
-                 zero.data_ptr()]
-    if len(layout) == 1:
-        args += [0, 0, 8, 1, None, None, None]
-    fn = _lib()
-    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), alpha.data_ptr(),
-            a_stride, n, d, len(layout), *args, int(fp8_meta),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        planes.append((codes, scale, zero))
+    ints, ptrs = _planes_args(layout, planes)
+    rc = _lib("kv_quant_launch")(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), n, d,
+        None if alpha is None else alpha.data_ptr(), period, len(layout),
+        ints, ptrs, int(fp8_meta),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "kv_quant")
     LAUNCHES["kernel"] += 1
     return out
+
+
+# ------------------------------------------------------------ decode append
+
+def kv_append_plain(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                    policy: QuantPolicy, alpha_k=None, alpha_v=None,
+                    valid=None):
+    """Plain version of :func:`kv_append`: ``kv_cache.decode_append`` with
+    the plain quantizer, in place, on any device."""
+    LAUNCHES["append_plain"] += 1
+    return decode_append(cache, k_new, v_new, policy, alpha_k, alpha_v,
+                         quant_fn=None, valid=valid)
+
+
+def _leaf(cache, key: str, shape, dtype, device) -> torch.Tensor:
+    t = cache[key]
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"kv_append: cache[{key!r}] is {tuple(t.shape)} "
+                         f"{t.dtype}, expected {tuple(shape)} {dtype}")
+    if t.device != device:
+        raise ValueError(f"kv_append: cache[{key!r}] is on {t.device}, "
+                         f"k_new on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"kv_append: cache[{key!r}] is not contiguous "
+                         f"(the kernel writes it in place by flat index)")
+    return t
+
+
+def append_launch_args(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                       policy: QuantPolicy, alpha_k=None, alpha_v=None,
+                       valid=None) -> dict:
+    """Checks of an append launch that need no card (dtypes, shapes,
+    contiguity, alpha, the block table, the plane layout); returns the
+    launch's ints and tensors.  Raises NotImplementedError for an fp16
+    policy (nothing to quantize: the card path has no such mode) and
+    ValueError for anything the kernel does not take."""
+    policy = as_layer_policy(policy)
+    if policy.is_fp16:
+        raise NotImplementedError(
+            "kv_append: an fp16 policy has nothing to quantize; the kernel "
+            "has no fp16 mode (use kv_cache.decode_append off the card)")
+    if k_new.ndim != 4 or k_new.shape[1] != 1 or v_new.shape != k_new.shape:
+        raise ValueError(f"kv_append wants k_new/v_new (B, 1, H, D), got "
+                         f"{tuple(k_new.shape)} / {tuple(v_new.shape)}")
+    b, _, h, d = k_new.shape
+    dt, dev = k_new.dtype, k_new.device
+    if dt not in _FP_DTYPES or v_new.dtype != dt:
+        raise ValueError(f"kv_append: k_new/v_new must share f32 or bf16, "
+                         f"got {k_new.dtype} / {v_new.dtype}")
+    if v_new.device != dev or not (k_new.is_contiguous()
+                                   and v_new.is_contiguous()):
+        raise ValueError("kv_append: k_new/v_new must be contiguous on one "
+                         "device")
+    w, ns = policy.window, policy.n_sink
+    gsz = min(policy.group_size, d)
+    cpl = lane_channels(d)
+    pooled = is_pooled(cache)
+    t = {"length": _leaf(cache, "length", (b,), torch.int32, dev)}
+    for key, n_tok in (("sink", ns), ("win", w)):
+        for kv in ("k", "v"):
+            if n_tok > 0:
+                t[f"{key}_{kv}"] = _leaf(cache, f"{key}_{kv}",
+                                         (b, n_tok, h, d), dt, dev)
+    rows = cache["qk_codes_hi"].shape[:2]
+    if pooled:
+        nb = cache["block_tbl"].shape[-1]
+        t["block_tbl"] = _leaf(cache, "block_tbl", (b, nb), torch.int32, dev)
+        n_phys, bt = rows
+        cap = nb * bt
+    else:
+        if rows[0] != b:
+            raise ValueError(f"kv_append: planes hold {rows[0]} slots, "
+                             f"k_new {b}")
+        nb = n_phys = bt = 0
+        cap = rows[1]
+    if w == 0 and cap == 0:
+        raise ValueError("kv_append: no window and no packed region")
+    meta_dt = torch.uint8 if policy.fp8_meta else torch.float16
+    planes, alphas = {}, {}
+    for pref, bits, alpha in (("qk", policy.bits_k, alpha_k),
+                              ("qv", policy.bits_v, alpha_v)):
+        layout = kernel_layout(d, bits, gsz)
+        outs = []
+        for name, (_, width, pb, gs) in zip(("hi", "lo"), layout):
+            lead = tuple(rows) + (h,)
+            c = _leaf(cache, f"{pref}_codes_{name}", lead + (width * pb // 8,),
+                      torch.uint8, dev)
+            s = _leaf(cache, f"{pref}_scale_{name}", lead + (width // gs,),
+                      meta_dt, dev)
+            z = _leaf(cache, f"{pref}_zero_{name}", lead + (width // gs,),
+                      meta_dt, dev)
+            _aligned(c, min(8, max(1, cpl * pb // 8)),
+                     f"kv_append {pref}_codes_{name}")
+            outs.append((c, s, z))
+        planes[pref] = (layout, outs)
+        g_total = sum(wd // gs for (_, wd, _, gs) in layout)
+        alphas[pref] = _check_alpha(alpha, g_total, h, dev,
+                                    f"kv_append alpha_{pref[1]}")
+    row_align = min(16, cpl * k_new.element_size())
+    for key in ("sink_k", "sink_v", "win_k", "win_v"):
+        if key in t:
+            _aligned(t[key], row_align, f"kv_append {key}")
+    _aligned(k_new, row_align, "kv_append k_new")
+    _aligned(v_new, row_align, "kv_append v_new")
+    if valid is not None:
+        valid = torch.as_tensor(valid, dtype=torch.bool,
+                                device=dev).expand(b).contiguous()
+    return {"b": b, "d": d, "dims": (h, w, ns, cap, bt, nb, n_phys),
+            "tensors": t, "valid": valid, "k_new": k_new, "v_new": v_new,
+            "planes": planes, "alphas": alphas,
+            "bf16": dt == torch.bfloat16, "fp8": policy.fp8_meta}
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def kv_append(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+              policy: QuantPolicy, alpha_k=None, alpha_v=None, valid=None):
+    """In place: append one token per slot (k/v_new (B, 1, H, D)) and
+    quantize the token it evicts from the window — ``decode_append``'s
+    semantics (striped or pooled cache; ``valid`` (B,) bool rows only;
+    alpha (H, G_total) per head or (G_total,) shared).  CUDA tensors launch
+    the kernel once (and raise if it fails; an fp16 policy raises); CPU
+    tensors take :func:`kv_append_plain`.  Returns ``cache``."""
+    if k_new.device.type == "cpu":
+        return kv_append_plain(cache, k_new, v_new, policy, alpha_k, alpha_v,
+                               valid)
+    if k_new.device.type != "cuda":
+        raise ValueError(f"kv_append: unsupported device {k_new.device}")
+    a = append_launch_args(cache, k_new, v_new, policy, alpha_k, alpha_v,
+                           valid)
+    t = a["tensors"]
+    (ak, ak_p), (av, av_p) = a["alphas"]["qk"], a["alphas"]["qv"]
+    ptrs = [t["length"], a["valid"], t.get("block_tbl"), a["k_new"],
+            a["v_new"], t.get("win_k"), t.get("win_v"), t.get("sink_k"),
+            t.get("sink_v"), ak, av]
+    k_ints, k_ptrs = _planes_args(*a["planes"]["qk"])
+    v_ints, v_ptrs = _planes_args(*a["planes"]["qv"])
+    rc = _lib("kv_append_launch")(
+        int(a["bf16"]), a["b"], a["d"], (_C.c_int * 7)(*a["dims"]),
+        (_C.c_void_p * 11)(*[_ptr(p) for p in ptrs]), ak_p, av_p,
+        len(a["planes"]["qk"][0]), k_ints, k_ptrs,
+        len(a["planes"]["qv"][0]), v_ints, v_ptrs, int(a["fp8"]),
+        torch.cuda.current_stream(k_new.device).cuda_stream)
+    _build.check(rc, "kv_append")
+    LAUNCHES["append"] += 1
+    return cache

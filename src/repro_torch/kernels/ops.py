@@ -5,7 +5,8 @@
 segment goes through the ``decode_attn`` kernel with per-slot block bounds
 computed on the device, the small fp sink/window segment runs as torch
 ops, and the partials merge by logsumexp.  :func:`make_kernel_quant_fn`
-routes cache-side quantization through the ``kv_quant`` kernel.
+routes prefill-side quantization through the bulk ``kv_quant`` kernel
+(the decode append has its own kernel, ``kv_quant.kv_append``).
 
 A pooled cache (DESIGN.md §9) keeps its planes pool-major and hands the
 kernel its ``block_tbl``: the mask and bounds are computed in logical
@@ -60,21 +61,24 @@ def _padded_j(s_q: int, s_pad: int, device) -> torch.Tensor:
 
 def make_kernel_quant_fn():
     """A ``quant_fn`` for ``kv_cache.prefill``/``decode_append``: flattens
-    the leading axes to kernel rows, tiles the per-head clip factors onto
-    the rows, and calls the ``kv_quant`` kernel (plain version on CPU)."""
+    the leading axes to kernel rows and calls the ``kv_quant`` kernel
+    (plain version on CPU).  Per-head clip factors (H, G) pass through
+    as they are — rows flattened from (..., H, D) read them by row % H —
+    and only other shapes are tiled onto the rows."""
     def quant_fn(x, bits, group_size, alpha, fp8_meta):
         *lead, d = x.shape
         n = 1
         for s in lead:
             n *= s
-        a_rows = None
         if alpha is not None:
-            g_total = n_meta_groups(d, bits, min(group_size, d))
             alpha = torch.as_tensor(alpha, dtype=torch.float32,
                                     device=x.device)
-            a_rows = alpha.expand(*lead, g_total).reshape(n, g_total)
+            per_head = alpha.ndim == 2 and lead and alpha.shape[0] == lead[-1]
+            if alpha.ndim > 1 and not per_head:
+                g_total = n_meta_groups(d, bits, min(group_size, d))
+                alpha = alpha.expand(*lead, g_total).reshape(n, g_total)
         qt = kv_quant(x.reshape(n, d), bits, min(group_size, d),
-                      alpha=a_rows, fp8_meta=fp8_meta)
+                      alpha=alpha, fp8_meta=fp8_meta)
         return {k: v.reshape(*lead, v.shape[-1]) for k, v in qt.items()}
     return quant_fn
 

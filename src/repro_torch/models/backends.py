@@ -7,12 +7,15 @@ fp window, so attention and quantization agree on the packed layout.
 
 * ``"reference"`` — dequantize in the compute dtype, attend with the shared
   flash partials (``attention.decode_attention_skvq``); quantizes with
-  ``core.quant.quantize_groups``.  The default off the card.
+  ``core.quant.quantize_groups`` and appends with
+  ``kv_cache.decode_append``.  The default off the card.
 * ``"cuda"`` — the ``decode_attn`` kernel over the packed planes
-  (``kernels.ops.cuda_decode_attention``), and ALWAYS the ``kv_quant``
-  kernel as its quantizer, so both kernels are on the main path.  The
-  counterpart of the reference's ``PallasBackend``; the default on a CUDA
-  device.  On CPU tensors both kernels run their plain versions.
+  (``kernels.ops.cuda_decode_attention``), ALWAYS the bulk ``kv_quant``
+  kernel as its prefill quantizer, and the fused ``kv_append`` kernel
+  (one launch per layer) as its decode append, so every kernel is on the
+  main path.  The counterpart of the reference's ``PallasBackend``; the
+  default on a CUDA device.  On CPU tensors the kernels run their plain
+  versions.
 """
 from __future__ import annotations
 
@@ -81,6 +84,13 @@ class ReferenceBackend:
         as_layer_policy(policy)
         return None
 
+    def append_fn(self, policy: QuantPolicy) -> Callable:
+        """``kv_cache.decode_append`` with the plain quantizer (DESIGN.md
+        §1)."""
+        as_layer_policy(policy)
+        from ..core.kv_cache import decode_append
+        return decode_append
+
     def info(self) -> dict:
         """Resolved runtime facts (DESIGN.md §4)."""
         return {"name": self.name, "kernels": False}
@@ -89,8 +99,8 @@ class ReferenceBackend:
 @register_backend("cuda")
 @dataclasses.dataclass(frozen=True)
 class CudaBackend:
-    """The hand-written Hopper kernels: fused dequant + flash decode and
-    fused quantize + pack (DESIGN.md §4)."""
+    """The hand-written Hopper kernels: fused dequant + flash decode, fused
+    quantize + pack, and the fused decode append (DESIGN.md §4)."""
 
     name: str = "cuda"
 
@@ -105,10 +115,18 @@ class CudaBackend:
             softcap=cfg.attn_softcap, window=window, dtype=dtype)
 
     def quant_fn(self, policy: QuantPolicy) -> Optional[Callable]:
-        """The ``kv_quant`` kernel, always (DESIGN.md §3 plane layout)."""
+        """The bulk ``kv_quant`` kernel, always (DESIGN.md §3 plane
+        layout)."""
         as_layer_policy(policy)
         from ..kernels.ops import make_kernel_quant_fn
         return make_kernel_quant_fn()
+
+    def append_fn(self, policy: QuantPolicy) -> Callable:
+        """The fused ``kv_append`` kernel: the whole decode append of a
+        layer in one launch (DESIGN.md §1)."""
+        as_layer_policy(policy)
+        from ..kernels.kv_quant import kv_append
+        return kv_append
 
     def info(self) -> dict:
         """Resolved runtime facts (DESIGN.md §4)."""

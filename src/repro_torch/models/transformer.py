@@ -209,14 +209,15 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 dtype=None, backend=None):
     """One decode step for ``token`` (B, 1) at each slot's own position.
 
-    Appends + quantizes the evicted token in every layer, then attends
-    through ``backend`` (DESIGN.md §4).  ``caches`` is updated **in place**
+    Appends + quantizes the evicted token in every layer through the
+    backend's ``append_fn``, then attends through ``backend`` (DESIGN.md
+    §4).  ``caches`` is updated **in place**
     and returned with the logits (B, 1, V)."""
     _check_dense(cfg)
     policy = as_layer_policy(policy)
     dev = token.device
     backend = bk.resolve_backend(backend, dev)
-    quant_fn = backend.quant_fn(policy)
+    append = backend.append_fn(policy)
     params = _cast_params(params, dtype)
     cal = _calib(calib, cfg, policy, dev)
     perm_q = _expand_perm(cal["perm_k"], cfg.n_heads)
@@ -233,10 +234,9 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
         cache = {k: v[i] for k, v in group.items()}
         hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
         q, k, v = _qkv(hn, p["attn"], cfg, rope)
-        kvc.decode_append(cache, _apply_perm(k, cal["perm_k"][i]),
-                          _apply_perm(v, cal["perm_v"][i]), policy,
-                          cal["alpha_k"][i], cal["alpha_v"][i],
-                          quant_fn=quant_fn)
+        append(cache, _apply_perm(k, cal["perm_k"][i]),
+               _apply_perm(v, cal["perm_v"][i]), policy, cal["alpha_k"][i],
+               cal["alpha_v"][i])
         attn = backend.attend(_apply_perm(q, perm_q[i]), cache, cfg, policy,
                               window=_window(cfg, i), dtype=x.dtype)
         attn = _apply_perm(attn, inv_v[i])

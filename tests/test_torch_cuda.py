@@ -5,7 +5,13 @@ runs on a machine with only torch:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
 
-* kv_quant: 0 differing bytes, edge-case rows included.
+* kv_quant: 0 differing bytes, edge-case rows included, rows holding both
+  +0 and -0, every head dim of the repo's configs (16, 64, 128, 256), per
+  head clip factors, and a prefill-size launch.
+* kv_append (the fused decode append): byte-equal to its plain version
+  after every one of 300 steps (pool block 0 excluded), striped and
+  pooled, D 128 and 64, with and without a window; a CUDA-graph replay
+  byte-equal to eager launches.
 * decode_attn: f32 ``atol=3e-5, rtol=1e-4`` (sums in another order), and
   the pruned walk BITWISE equal to the full walk.  Its block-table mode
   (pooled planes, DESIGN.md §9) to the same tolerance against its plain
@@ -23,6 +29,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.core import kv_cache as kvc
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quant import n_meta_groups, quantize_groups
 from repro_torch.core import segments as seg
@@ -60,6 +67,196 @@ def test_kv_quant_kernel_matches_plain(bits, fp8_meta, dtype, cuda_device):
         for k in want:
             assert torch.equal(got[k].view(torch.uint8),
                                want[k].view(torch.uint8)), k
+
+
+def _bytes_equal(got, want, what=""):
+    for k in want:
+        assert torch.equal(got[k].view(torch.uint8),
+                           want[k].view(torch.uint8)), f"{what} {k}"
+
+
+def _signed_zero_rows(rng, n, d):
+    """Rows whose groups' minimum is a zero: +0 before -0, -0 before +0,
+    +0 alone, mixed all-zero rows."""
+    x = rng.uniform(0.0, 1.0, (n, d)).astype(np.float32)
+    for i in range(n):
+        p = np.sort(rng.permutation(d)[: d // 2])
+        kind = i % 4
+        if kind == 0:
+            x[i, p[::2]], x[i, p[1::2]] = 0.0, -0.0
+        elif kind == 1:
+            x[i, p[::2]], x[i, p[1::2]] = -0.0, 0.0
+        elif kind == 2:
+            x[i, p] = 0.0
+        else:
+            x[i] = np.where(rng.uniform(size=d) < 0.5, 0.0, -0.0)
+    return x
+
+
+@pytest.mark.parametrize("bits", [1.0, 1.5, 2.0, 4.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_quant_kernel_signed_zero_rows(bits, dtype, cuda_device):
+    """A shuffle-tree minimum must give a zero the sign the plain version
+    gives it (-0 below +0), or the fp8 zero byte flips (0x00 vs 0x80)."""
+    rng = np.random.default_rng(8)
+    x = np.concatenate([_signed_zero_rows(rng, 120, 128),
+                        _edge_rows(rng, 128)])
+    x = torch.from_numpy(x).to(dtype).to(cuda_device)
+    for gs in (16, 64, 128):
+        for fp8 in (True, False):
+            got = KQ.kv_quant(x, bits, gs, None, fp8)
+            want = KQ.kv_quant_plain(x, bits, gs, None, fp8)
+            _bytes_equal(got, want, f"gs={gs} fp8={fp8}")
+    z = KQ.kv_quant_plain(x, bits, 16)["zero_hi"]
+    assert (z == 0x80).any() and (z == 0x00).any()
+
+
+@pytest.mark.parametrize("d,gs,bits", [
+    (16, 16, 1.5), (16, 8, 2.0), (64, 64, 1.5), (64, 16, 4.0),
+    (128, 128, 2.0), (128, 32, 8.0), (256, 256, 2.0), (256, 128, 1.5),
+    (256, 64, 3.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_quant_kernel_every_head_dim(d, gs, bits, dtype, cuda_device):
+    """Head dims 16, 64, 128 and 256 (two quads per lane, and one 64-quad
+    group spanning both halves of a D-256 row); shared, per-head and
+    per-row clip factors."""
+    rng = np.random.default_rng(9)
+    n, h = 96, 8
+    x = np.concatenate([_edge_rows(rng, d),
+                        rng.normal(size=(n - 8, d)).astype(np.float32)])
+    x = torch.from_numpy(x).to(dtype).to(cuda_device)
+    g = n_meta_groups(d, bits, gs)
+    per_head = torch.from_numpy(rng.uniform(0.7, 1.0, (h, g))
+                                .astype(np.float32)).to(cuda_device)
+    for alpha in (None, per_head[0], per_head, per_head.repeat(n // h, 1)):
+        got = KQ.kv_quant(x, bits, gs, alpha)
+        want = KQ.kv_quant_plain(x, bits, gs, alpha)
+        _bytes_equal(got, want, "alpha " + str(
+            None if alpha is None else tuple(alpha.shape)))
+    tiled = KQ.kv_quant(x, bits, gs, per_head.repeat(n // h, 1))
+    _bytes_equal(KQ.kv_quant(x, bits, gs, per_head), tiled, "per-head")
+
+
+def test_kv_quant_kernel_prefill_size(cuda_device):
+    """One layer of a 3000-token llama2-7b prefill: 91,744 rows of 128
+    bf16 channels, K 2-bit and V 1.5-bit, per-head clip factors."""
+    rng = np.random.default_rng(10)
+    n, h = 2867 * 32, 32
+    x = torch.randn((n, 128), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0)
+                    ).to(torch.bfloat16)
+    x[:8] = torch.from_numpy(_edge_rows(rng, 128)).to(cuda_device).to(
+        torch.bfloat16)
+    for bits in (2.0, 1.5):
+        alpha = torch.from_numpy(rng.uniform(0.7, 1.0, (
+            h, n_meta_groups(128, bits, 128))).astype(np.float32)
+        ).to(cuda_device)
+        before = KQ.LAUNCHES["kernel"]
+        got = KQ.kv_quant(x, bits, 128, alpha)
+        assert KQ.LAUNCHES["kernel"] == before + 1
+        _bytes_equal(got, KQ.kv_quant_plain(x, bits, 128, alpha), f"{bits}")
+
+
+def _append_case(dev, seed, d, hkv, gs, window, pooled, b=4, bt=16, nb=16):
+    """Identical kernel and plain caches (random contents, slots at 0,
+    in the window's filling, evicting, and near the capacity), per-head
+    clip factors."""
+    rng = np.random.default_rng(seed)
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=gs, window=window,
+                      n_sink=5)
+    max_len = 5 + window + nb * bt
+    if pooled:
+        cache = kvc.init_pooled_cache(b, max_len, hkv, d, pol, b * nb, bt,
+                                      torch.bfloat16, device=dev)
+        cache["block_tbl"].copy_(torch.from_numpy(
+            rng.permutation(np.arange(1, b * nb + 1)).reshape(b, nb)
+            .astype(np.int32)))
+    else:
+        cache = kvc.init_cache(b, max_len, hkv, d, pol, torch.bfloat16,
+                               device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    for k, v in cache.items():
+        if k == "length":
+            v.copy_(torch.tensor([0, 20, 5 + window + 60, max_len - 40]))
+        elif v.is_floating_point():
+            v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+        elif k != "block_tbl":
+            v.copy_(torch.randint(0, 256, v.shape, generator=gen,
+                                  device=dev))
+    alphas = [torch.from_numpy(rng.uniform(0.7, 1.0, (
+        hkv, n_meta_groups(d, bits, gs))).astype(np.float32)).to(dev)
+        for bits in (2.0, 1.5)]
+    return pol, cache, {k: v.clone() for k, v in cache.items()}, alphas, gen
+
+
+def _caches_equal(a, c, pooled, what):
+    for k in c:
+        x, y = a[k], c[k]
+        if pooled and kvc.is_plane_key(k):     # null block 0 excluded
+            x, y = x[1:], y[1:]
+        assert torch.equal(x.view(torch.uint8) if x.dtype != torch.int32
+                           else x, y.view(torch.uint8)
+                           if y.dtype != torch.int32 else y), f"{what} {k}"
+
+
+@pytest.mark.parametrize("d,hkv,gs", [(128, 32, 128), (64, 8, 64)])
+@pytest.mark.parametrize("pooled", [False, True])
+@pytest.mark.parametrize("window", [32, 0])
+def test_kv_append_kernel_matches_plain_300_steps(d, hkv, gs, pooled,
+                                                  window, cuda_device):
+    pol, kc, pc, (ak, av), gen = _append_case(cuda_device, 11, d, hkv, gs,
+                                              window, pooled)
+    b = kc["length"].shape[0]
+    before = dict(KQ.LAUNCHES)
+    for step in range(300):
+        kn = torch.randn((b, 1, hkv, d), generator=gen, device=cuda_device
+                         ).to(torch.bfloat16)
+        vn = torch.randn((b, 1, hkv, d), generator=gen, device=cuda_device
+                         ).to(torch.bfloat16)
+        valid = None
+        if step % 3:
+            valid = torch.tensor([True, True, step % 3 == 1, True],
+                                 device=cuda_device)
+        KQ.kv_append(kc, kn, vn, pol, ak, av, valid=valid)
+        KQ.kv_append_plain(pc, kn, vn, pol, ak, av, valid=valid)
+        _caches_equal(kc, pc, pooled, f"step {step}")
+    assert KQ.LAUNCHES["append"] == before["append"] + 300
+    lens = kc["length"].tolist()
+    assert lens[0] == 300 and lens[3] > 5 + window + 16 * 16
+
+
+def test_kv_append_cuda_graph_replay_equals_eager(cuda_device):
+    pol, gc, ec, (ak, av), gen = _append_case(cuda_device, 12, 128, 32, 128,
+                                              32, True)
+    b = gc["length"].shape[0]
+    kn = torch.randn((b, 1, 32, 128), generator=gen, device=cuda_device
+                     ).to(torch.bfloat16)
+    vn = torch.randn_like(kn)
+    warm = {k: v.clone() for k, v in gc.items()}
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        KQ.kv_append(warm, kn, vn, pol, ak, av)      # build + load first
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        KQ.kv_append(gc, kn, vn, pol, ak, av)
+    for _ in range(40):                  # lengths advance on the device
+        graph.replay()
+        KQ.kv_append(ec, kn, vn, pol, ak, av)
+    torch.cuda.synchronize()
+    _caches_equal(gc, ec, True, "graph vs eager")
+    assert gc["length"].tolist() == [40, 60, 5 + 32 + 100, 5 + 32 + 256]
+
+
+def test_kv_append_rejects_fp16_policy_on_the_card(cuda_device):
+    pol = QuantPolicy(bits_k=16.0, bits_v=16.0, clip=False, reorder=False,
+                      window=0, n_sink=0)
+    cache = kvc.init_cache(2, 16, 2, 64, pol, device=cuda_device)
+    kn = torch.zeros((2, 1, 2, 64), device=cuda_device,
+                     dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="fp16"):
+        KQ.kv_append(cache, kn, kn, pol)
 
 
 def _ragged(rng, dev, hkv, gq, d, s_mask=1024, bs=256):
