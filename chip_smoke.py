@@ -62,11 +62,29 @@ not from the 50 MB L2, as each layer of a decode step does.
    finishes, prefix hit rate > 0, peak resident packed bytes under half
    the striped worst case, a clean pool audit.  Both runs attend through
    the block-table kernel only (no striped or plain decode_attn call).
-7. the kernel summary line (decode_attn entries also carry the long
-   slot's ``long_ms``, ``long_bound_ms`` and ``long_library_ms``; kv_quant
-   its prefill-size ``prefill_ms``, ``prefill_bound_ms`` and
-   ``prefill_rows``), the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+7. serve_graph — the serving harness of DESIGN.md §10 at the same width,
+   policy, slots, steps per sync and max_len: (a) the serve phase's 8
+   requests through a warmed striped Engine, then a warmed pooled one
+   (768 blocks), each decode step a replay of the CUDA graph warmup
+   captured: every stream bitwise equal to the eager serve phase's, the
+   launch identities with graphs on, no post-warmup graph miss; (b) ms per
+   step from the warmed Engine's own chunks; at 4 x 2048, chunks replayed
+   and eager in ABBA turns, then whole Engine chunks striped and pooled,
+   both replayed, in ABBA turns; (c) the device busy share of a replay
+   window and its device time by kind of kernel (torch.profiler; if it
+   shows no kernel under replay, CUDA-event step time against the eager
+   profile's kernel sum); (d) an
+   open-loop Poisson trace (16 requests at 2 req/s, prompts 512-3000, half
+   sharing a 256-token prefix) through ``run_open_loop`` on a warmed pooled
+   Engine with the async host loop: no post-warmup miss, every request
+   finished, the launch identities, a clean pool audit; TTFT/TPOT
+   percentiles and SLA attainment printed for information; (e) the warmup
+   report (kernel load, capture and rehearsal seconds, graph count).
+8. a ``timing`` line of seconds per phase, then the kernel summary line
+   (decode_attn entries also carry the long slot's ``long_ms``,
+   ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
+   ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``), the card
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
 """
@@ -86,6 +104,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 ATOL, RTOL = 3e-5, 1e-4          # decode_attn kernel vs plain, f32
 LOGIT_REL_TOL = 0.05             # cuda vs reference backend, bf16 model
+SLA_TTFT_MS, SLA_TPOT_MS = 2000.0, 500.0   # the port CLI docstring's SLA
 # per-slot cache capacity of the serve phases: 4229 - 5 sinks - 128 window
 # leaves a packed region of 4096 tokens = 256 pool blocks of 16
 MAX_LEN = 4229
@@ -875,6 +894,7 @@ def phase_serve(state):
     tokens = sum(len(h.tokens) for h in handles)
     cache_b = T.cache_bytes(eng._caches)
     bf16_b = T.bf16_cache_bytes(cfg, SERVE_SLOTS, MAX_LEN)
+    state["eager_profile"] = prof
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
           "params_init_s": round(init_s, 3), "requests": len(handles),
           "prompt_lens": SERVE_LENS, "max_new": SERVE_NEW,
@@ -1055,6 +1075,238 @@ def phase_serve_pooled(state):
                                 max_new=SHARED_NEW)})
 
 
+GRAPH_ABBA_ROUNDS = 4
+ABBA_NEW = 1024          # budget of the timing requests: 4 x 192 blocks
+
+
+def _graph_engine(state, cfg, pool_blocks=None, async_host=False):
+    """A warmed Engine (DESIGN.md §10) at the serve shape; engines of
+    earlier runs that nothing holds are collected first, so their memory
+    is free."""
+    import gc
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.serving import Engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = Engine(state["params"], cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
+                 max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
+                 pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
+                 async_host=async_host, device=torch.device("cuda"))
+    rep = eng.warmup()
+    check(rep["n_graphs"] == 1 and rep["post_warmup_misses"] == 0,
+          f"warmup captured no decode step: {rep}")
+    return eng, rep
+
+
+def _check_graph_path(cfg, eng, counts, prefills, what):
+    """The launch identities with graphs on: every decode step a replay,
+    one decode_attn launch per layer per step on the layout's kernel, and
+    the main path's kv_quant identities."""
+    steps = eng.n_decode_steps
+    da = counts["decode_attn"]
+    mode = "pooled" if eng.stats()["pooled"] else "kernel"
+    check(da[mode] == cfg.n_layers * steps and da["plain"] == 0
+          and sum(da.values()) == da[mode],
+          f"{what}: decode_attn launches {da} != layers x steps = "
+          f"{cfg.n_layers * steps} on the {mode} kernel alone")
+    _check_main_path(cfg, counts, steps, len(prefills), what)
+    rep = eng.warmup_report()
+    check(rep["replays"] == steps, f"{what}: {rep['replays']} replays for "
+          f"{steps} decode steps")
+    check(rep["post_warmup_misses"] == 0,
+          f"{what}: post-warmup graph misses {rep['cold_names']}")
+
+
+def _graph_serve(state, cfg, pool_blocks):
+    """(a) the serve phase's requests through a warmed Engine: streams
+    bitwise equal to the eager serve phase's, counts with graphs on."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    eng, warm = _graph_engine(state, cfg, pool_blocks)
+    chunks = _timed_chunks(eng)
+    prefills = _counted_prefills(eng)
+    _, reqs = _serve_requests(cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    what = f"serve_graph {'pooled' if pool_blocks else 'striped'}"
+    _check_graph_path(cfg, eng, counts, prefills, what)
+    streams = [list(h.tokens) for h in handles]
+    same = [a == b for a, b in zip(streams, state["serve_streams"])]
+    check(all(same), f"{what}: replayed streams differ from the eager serve "
+          f"phase's (request equal: {same})")
+    if pool_blocks:
+        eng.check_invariants()
+    tokens = sum(len(h.tokens) for h in handles)
+    return eng, {"warmup": warm, "decode_steps": eng.n_decode_steps,
+                 "wall_s": wall, "tokens": tokens,
+                 "tokens_per_s": tokens / wall,
+                 "engine_chunk_ms_per_step": [round(ms, 3)
+                                              for ms, _ in chunks],
+                 "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]),
+                 "launches": counts, "prefills": len(prefills),
+                 "streams_equal_eager": True}
+
+
+def _load_slots(eng, cfg):
+    """Admit SERVE_SLOTS requests of STEP_CONTEXT seeded tokens (the same
+    prompts on every engine) and run their first chunk."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(2)
+    for i in range(SERVE_SLOTS):
+        eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size,
+                                               STEP_CONTEXT),
+                           max_new=ABBA_NEW, seed=i))
+    eng.step()
+    check(eng.active_slots == SERVE_SLOTS, "ABBA engine: slots not admitted")
+
+
+def _abba(runs, rounds=GRAPH_ABBA_ROUNDS):
+    """``runs`` {name: chunk fn} for two names A, B, called A B B A per
+    round; host wall time of each chunk, synchronized before and after,
+    in ms per step."""
+    import torch
+    a, b = runs
+    times = {a: [], b: []}
+    for _ in range(rounds):
+        for name in (a, b, b, a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / SERVE_SPS)
+    out = {name: _spread(t) for name, t in times.items()}
+    out["order"] = f"ABBA (A {a}, B {b}), ms per step"
+    out[f"{b}_over_{a}"] = out[b]["mean"] / out[a]["mean"]
+    return out
+
+
+def _graph_timings(eng_s, eng_p, cfg):
+    """(b) single chunks at SERVE_SLOTS x STEP_CONTEXT: the captured step
+    replayed against the eager multi_decode on the striped engine's caches
+    (decode only), then whole Engine chunks striped against pooled, both
+    replayed; (c) CUDA-event times and the profiler over replayed
+    chunks."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import multi_decode
+    for eng in (eng_s, eng_p):
+        _load_slots(eng, cfg)
+    dev = eng_s.device
+    tok = torch.as_tensor(eng_s._tok, device=dev)
+    done = torch.zeros(SERVE_SLOTS, dtype=torch.bool, device=dev)
+    temps = torch.zeros(SERVE_SLOTS, dtype=torch.float32, device=dev)
+    eos = torch.full((SERVE_SLOTS,), -1, dtype=torch.int64, device=dev)
+    host_t = np.zeros(SERVE_SLOTS, np.float32)
+    gens = [None] * SERVE_SLOTS
+    graph = lambda: eng_s._decode_steps(SERVE_SPS, tok, done, temps, eos,
+                                        gens, host_t)
+    eager = lambda: multi_decode(
+        eng_s.params, cfg, eng_s.policy, SERVE_SPS, tok, eng_s._caches,
+        done, temps, eos, calib=eng_s.calib, backend=eng_s.backend)
+    vs_eager = _abba({"graph": graph, "eager": eager})
+    vs_pooled = _abba({"striped": eng_s._decode_chunk,
+                       "pooled": eng_p._decode_chunk})
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    for e in ev[1:]:
+        graph()
+        e.record()
+    torch.cuda.synchronize()
+    event_ms = _spread([a.elapsed_time(b) / SERVE_SPS
+                        for a, b in zip(ev, ev[1:])])
+    prof = _profile_decode(graph)
+    per_step = {k: prof[k] / SERVE_SPS for k in (
+        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
+    return vs_eager, vs_pooled, event_ms, prof, per_step
+
+
+def phase_serve_graph(state):
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (MetricsRecorder, WorkloadSpec,
+                                     poisson_trace, run_open_loop)
+    cfg = configs.get("llama2_7b")
+    eng_s, striped = _graph_serve(state, cfg, None)
+    eng_p, pooled = _graph_serve(state, cfg, 768)
+    vs_eager, vs_pooled, event_ms, prof, per_step = _graph_timings(
+        eng_s, eng_p, cfg)
+    del eng_s, eng_p
+    eager = state["eager_profile"]
+    if per_step["kernels_per_step"] > 0 and per_step["device_ms_per_step"]:
+        busy = {"source": "torch.profiler over replays",
+                "busy_share": prof["device_busy_share"]}
+    else:
+        busy = {"source": "eager profile's kernel sum over CUDA-event "
+                          "replay step time",
+                "busy_share": eager["device_ms_per_step"] / event_ms["mean"]}
+    # (d) open-loop Poisson traffic, warmed pooled Engine, async host loop
+    eng, warm = _graph_engine(state, cfg, 768, async_host=True)
+    chunks = _timed_chunks(eng)
+    prefills = _counted_prefills(eng)
+    spec = WorkloadSpec(n_requests=16, arrival_rate=2.0,
+                        prompt_lens=(512, 1024, 2048, 3000),
+                        max_news=(16, 32, 64), shared_prefix_ratio=0.5,
+                        shared_prefix_len=256, vocab=cfg.vocab_size, seed=0)
+    trace = poisson_trace(spec)
+    rec = MetricsRecorder()
+    reset_launch_counts()                                    # main path only
+    handles, makespan = run_open_loop(eng, trace, rec)
+    counts = launch_counts()
+    _check_graph_path(cfg, eng, counts, prefills, "serve_graph open loop")
+    check(all(h.finished and h.finish_reason == "length"
+              and len(h.tokens) == a.request.max_new
+              for h, a in zip(handles, trace)),
+          f"open loop: not every request finished: "
+          f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
+    audit = eng.check_invariants()
+    st = eng.stats()
+    check(st["used"] == 0 and st["reserved"] == 0, f"pool not drained: {st}")
+    eng.close()
+    summary = rec.summary(sla_ttft_ms=SLA_TTFT_MS, sla_tpot_ms=SLA_TPOT_MS)
+    emit({"phase": "serve_graph", "arch": cfg.name, "max_len": MAX_LEN,
+          "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
+          "striped": striped, "pooled": pooled,
+          "abba_graph_vs_eager": vs_eager,
+          "abba_striped_vs_pooled": vs_pooled,
+          "replay_event_ms_per_step": event_ms,
+          "replay_profile": dict(prof, per_step=per_step),
+          "busy": busy,
+          "open_loop": {"spec": _spec_dict(spec),
+                        "makespan_s": makespan, "warmup": warm,
+                        "decode_steps": eng.n_decode_steps,
+                        "prefills": len(prefills), "launches": counts,
+                        "engine_ms_per_step": _spread(
+                            [ms for ms, _ in chunks[1:]] or [0.0]),
+                        "stats": st, "audit": audit, "summary": summary}})
+
+
+def _spec_dict(spec):
+    import dataclasses
+    return {k: list(v) if isinstance(v, tuple) else v
+            for k, v in dataclasses.asdict(spec).items()}
+
+
+# kernel-name fragments of each kind, first match wins
+KERNEL_KINDS = (
+    ("port: decode_attn + merge", ("decode_attn_split", "merge_splits")),
+    ("port: kv_quant + kv_append", ("kv_quant_kernel", "kv_append_kernel",
+                                    "kv_quant_wide", "kv_quant_rows")),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "splitKreduce")),
+    ("copy / cast", ("copy_kernel", "CatArrayBatchedCopy")),
+    ("index / gather / scatter", ("index", "gather", "scatter")),
+    ("reduce", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
 def _profile_decode(step, n: int = 2):
     """Device time by kernel over ``n`` decode steps (torch.profiler):
     busy share of the wall time, launches per step, top kernels."""
@@ -1092,11 +1344,19 @@ def _profile_decode(step, n: int = 2):
                 e["calls_per_step"] += c / n
     for e in ours.values():
         e["us_per_call"] = e["ms_per_step"] * 1e3 / e["calls_per_step"]
+    groups = {}                  # device ms per step by kind of kernel
+    for us, c, k in rows:
+        kind = next((g for g, tags in KERNEL_KINDS if any(
+            t in k for t in tags)), "other")
+        e = groups.setdefault(kind, {"ms_per_step": 0.0,
+                                     "calls_per_step": 0.0})
+        e["ms_per_step"] += us / n / 1e3
+        e["calls_per_step"] += c / n
     return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
             "device_ms_per_step": dev_us / n / 1e3,
             "device_busy_share": dev_us / wall_us if wall_us else None,
             "kernels_per_step": sum(r[1] for r in rows) / n,
-            "port_kernels": ours,
+            "port_kernels": ours, "by_kind": groups,
             "top": [{"name": k[:80], "ms_per_step": us / n / 1e3,
                      "calls_per_step": c / n} for us, c, k in rows[:8]]}
 
@@ -1112,10 +1372,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     state = {}
+    seconds = {}
     for phase in (phase_env, phase_kv_quant, phase_kv_append,
                   phase_decode_attn, phase_decode_attn_pooled, phase_serve,
-                  phase_serve_pooled):
+                  phase_serve_pooled, phase_serve_graph):
+        t0 = time.monotonic()
         phase(state)
+        seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
+    emit({"phase": "timing", "seconds": seconds})
     entries = []
     for name, src, rep in (
             ("decode_attn", "src/repro_torch/csrc/decode_attn.cu",

@@ -21,3 +21,22 @@ def reset_launch_counts() -> None:
     for d in (decode_attn.LAUNCHES, kv_quant.LAUNCHES):
         for k in d:
             d[k] = 0
+
+
+def launch_count_delta(before: dict, after: dict) -> dict:
+    """``after - before`` of two :func:`launch_counts` snapshots."""
+    return {k: {c: after[k][c] - before[k].get(c, 0) for c in after[k]}
+            for k in after}
+
+
+def add_launch_counts(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (shaped as :func:`launch_counts`) to the
+    counters.  A CUDA-graph replay launches the kernels its capture
+    recorded without running the wrappers that count them, so the graph
+    cache adds the capture's delta once per replay here (and takes it
+    back off after the capture, which launches nothing)."""
+    from . import decode_attn, kv_quant
+    for name, d in (("decode_attn", decode_attn.LAUNCHES),
+                    ("kv_quant", kv_quant.LAUNCHES)):
+        for c, n in delta.get(name, {}).items():
+            d[c] += n * times

@@ -13,7 +13,22 @@ time-to-first-token percentiles the reference CLI prints.  Without
 ``--pool-block-tokens``-token blocks (max_len is rounded up so the packed
 region tiles into whole blocks) and prints the pool summary: prefix hit
 rate, copy-on-write copies, and peak and resident packed bytes against the
-striped worst case.
+striped worst case.  ``--pool-memory-mb`` sizes the pool from a byte
+budget instead (DESIGN.md §10).
+
+``--open-loop`` switches to the throughput harness of DESIGN.md §10:
+requests arrive on a seeded Poisson clock at ``--arrival-rate`` req/s
+regardless of engine progress, ``--warmup`` loads the kernels and
+captures the decode step as a CUDA graph before the first arrival (the
+run fails if any call misses the graph afterwards), ``--async-host``
+moves delivery to the background host loop, and the report becomes
+TTFT/TPOT percentiles + goodput under the ``--sla-ttft-ms`` /
+``--sla-tpot-ms`` SLA.  The defaults are the reference CLI's.
+
+    python -m repro_torch.launch.serve --arch llama3p2_1b --smoke \
+        --device cpu --open-loop --warmup --async-host --arrival-rate 8 \
+        --requests 8 --prompt-len 40 --prompt-jitter 16 --new-tokens 12 \
+        --pool-blocks 64 --sla-ttft-ms 2000 --sla-tpot-ms 500
 """
 from __future__ import annotations
 
@@ -29,7 +44,8 @@ from ..core.quant import packed_nbytes
 from ..device import resolve_device
 from ..kernels import launch_counts
 from ..models import transformer as T
-from ..serving import Engine, Request
+from ..serving import (Engine, MetricsRecorder, Request, WorkloadSpec,
+                       poisson_trace, run_open_loop)
 
 
 def _pct(xs, q):
@@ -59,8 +75,8 @@ def main(argv=None):
                     help="stop generation at this token id")
     ap.add_argument("--bits-k", type=float, default=2.0)
     ap.add_argument("--bits-v", type=float, default=1.5)
-    ap.add_argument("--group-size", type=int, default=128)
-    ap.add_argument("--window", type=int, default=128)
+    ap.add_argument("--group-size", type=int, default=64)
+    ap.add_argument("--window", type=int, default=32)
     ap.add_argument("--sinks", type=int, default=5)
     ap.add_argument("--backend", default=None,
                     help="cuda | reference (default: cuda on a card)")
@@ -71,6 +87,29 @@ def main(argv=None):
                          "(DESIGN.md §9); 0 serves striped")
     ap.add_argument("--pool-block-tokens", type=int, default=16,
                     help="tokens per pool block (>= 8)")
+    ap.add_argument("--pool-memory-mb", type=float, default=0,
+                    help="size the block pool from a device-memory budget "
+                         "instead of --pool-blocks (DESIGN.md §10)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="load the kernels and capture the decode step as "
+                         "a CUDA graph before traffic (DESIGN.md §10); with "
+                         "--open-loop the run fails if a call misses it")
+    ap.add_argument("--async-host", action="store_true",
+                    help="deliver tokens on the background host loop "
+                         "(DESIGN.md §10) instead of the scheduler thread")
+    ap.add_argument("--open-loop", action="store_true",
+                    help="open-loop load: Poisson arrivals at "
+                         "--arrival-rate req/s, SLA goodput report "
+                         "(DESIGN.md §10)")
+    ap.add_argument("--arrival-rate", type=float, default=4.0,
+                    help="open-loop offered load, requests/second")
+    ap.add_argument("--shared-prefix-ratio", type=float, default=0.0,
+                    help="fraction of open-loop prompts sharing one common "
+                         "prefix (exercises pool prefix sharing)")
+    ap.add_argument("--sla-ttft-ms", type=float, default=None,
+                    help="TTFT SLA bound for the goodput report, ms")
+    ap.add_argument("--sla-tpot-ms", type=float, default=None,
+                    help="TPOT SLA bound for the goodput report, ms")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -100,14 +139,24 @@ def main(argv=None):
                             seed=i))
     max_len = (args.prompt_len + args.prompt_jitter + args.new_tokens + jit
                + args.steps_per_sync)
-    if args.pool_blocks and not policy.is_fp16:
+    pooled = bool(args.pool_blocks or args.pool_memory_mb)
+    if pooled and not policy.is_fp16:
         # round up so the packed region (max_len - n_sink - window) tiles
         bt = args.pool_block_tokens
         max_len += -(max_len - policy.n_sink - policy.window) % bt
     eng = Engine(params, cfg, policy, batch_slots=args.batch, max_len=max_len,
                  backend=args.backend, steps_per_sync=args.steps_per_sync,
                  pool_blocks=args.pool_blocks or None,
-                 pool_block_tokens=args.pool_block_tokens, device=dev)
+                 pool_block_tokens=args.pool_block_tokens,
+                 pool_memory_bytes=int(args.pool_memory_mb * 2 ** 20) or None,
+                 async_host=args.async_host, device=dev)
+    if args.warmup:
+        rep = eng.warmup()
+        print(f"warmup: {rep['n_graphs']} CUDA graph(s) captured in "
+              f"{rep['capture_s']:.2f}s, kernels loaded in "
+              f"{rep['build_s']:.2f}s, rehearsal {rep['rehearse_s']:.2f}s")
+    if args.open_loop:
+        return _open_loop(eng, args, cfg, n_req, policy)
     t0 = time.perf_counter()
     handles = [eng.submit(r) for r in reqs]
     eng.run(handles)
@@ -139,7 +188,7 @@ def main(argv=None):
     print(f"time-to-first-token ms: p50={_pct(ttft, 50):.0f} "
           f"p90={_pct(ttft, 90):.0f} p99={_pct(ttft, 99):.0f} "
           f"max={max(ttft, default=0):.0f}")
-    if args.pool_blocks:
+    if pooled:
         st = eng.stats()
         eng.check_invariants()
         print(f"pool: {st['pool_blocks']} blocks x "
@@ -155,6 +204,70 @@ def main(argv=None):
           f"({fp16_b / q_b:.1f}x compression)")
     if handles[0].tokens:
         print("sample:", handles[0].tokens[:16])
+    eng.close()
+    return handles
+
+
+def _open_loop(eng, args, cfg, n_req, policy):
+    """Open-loop serving run + SLA goodput report (DESIGN.md §10): a
+    seeded Poisson trace from the CLI's prompt/max-new knobs, driven on
+    the wall clock; prints offered vs achieved load, TTFT/TPOT/e2e
+    percentiles, gauges, counters and goodput under the ``--sla-*``
+    bounds.  With ``--warmup`` it exits non-zero if any call missed the
+    captured graph afterwards."""
+    print(f"arch={cfg.name} policy=K{args.bits_k}V{args.bits_v} "
+          f"g{policy.group_size} w{policy.window} slots={args.batch} "
+          f"requests={n_req} device={eng.device} open-loop")
+    plens = sorted({max(1, args.prompt_len + d) for d in
+                    (-args.prompt_jitter, 0, args.prompt_jitter)})
+    mnews = sorted({max(1, args.new_tokens + d) for d in
+                    (-args.max_new_jitter, 0, args.max_new_jitter)})
+    spec = WorkloadSpec(
+        n_requests=n_req, arrival_rate=args.arrival_rate,
+        prompt_lens=plens, max_news=mnews, temperature=args.temperature,
+        eos_id=args.eos_id, shared_prefix_ratio=args.shared_prefix_ratio,
+        shared_prefix_len=min(plens) // 2 if args.shared_prefix_ratio else 0,
+        vocab=cfg.vocab_size, seed=args.seed)
+    rec = MetricsRecorder()
+    handles, makespan = run_open_loop(eng, poisson_trace(spec), rec)
+    s = rec.summary(sla_ttft_ms=args.sla_ttft_ms,
+                    sla_tpot_ms=args.sla_tpot_ms)
+    print(f"open loop: {s['n_finished']}/{s['n_requests']} requests in "
+          f"{makespan:.2f}s — offered {s['offered_rps']:.2f} req/s, "
+          f"achieved {s['achieved_rps']:.2f} req/s "
+          f"({s['achieved_tok_s']:.1f} tok/s)")
+    for name in ("ttft_ms", "tpot_ms", "e2e_ms", "queue_wait_ms"):
+        p = s[name]
+        print(f"  {name:<14} p50={p['p50']:.1f} p90={p['p90']:.1f} "
+              f"p99={p['p99']:.1f}")
+    print(f"  gauges: queue max={s.get('queue_depth_max', 0)} "
+          f"host-queue max={s.get('host_queue_depth_max', 0)} "
+          f"slots max={s.get('active_slots_max', 0)}"
+          + (f" pool-used max={s['pool_used_max']}"
+             if "pool_used_max" in s else ""))
+    st = eng.stats()
+    print(f"  counters: {st['counters']}")
+    if "host" in st:
+        print(f"  host loop: {st['host']}")
+    if "goodput" in s:
+        g = s["goodput"]
+        print(f"  goodput @ SLA(ttft<={g['sla_ttft_ms']}ms, "
+              f"tpot<={g['sla_tpot_ms']}ms): {g['n_ok']}/{s['n_finished']} "
+              f"ok ({100 * g['attainment']:.0f}%), "
+              f"{g['goodput_rps']:.2f} req/s, {g['goodput_tok_s']:.1f} tok/s")
+    print(f"  finish reasons: {s.get('finish_reasons', {})}")
+    if st["pooled"]:
+        eng.check_invariants()
+        print("  pool invariant audit: PASS")
+    if args.warmup:
+        rep = eng.warmup_report()
+        if rep["post_warmup_misses"]:
+            eng.close()
+            raise SystemExit(f"FAIL: {rep['post_warmup_misses']} call(s) "
+                             f"missed the captured graph after warmup "
+                             f"({rep['cold_names']})")
+        print(f"  zero post-warmup graph misses; {rep['replays']} replays")
+    eng.close()
     return handles
 
 

@@ -32,11 +32,14 @@ _ACTS = {"silu": F.silu, "relu": F.relu,
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions (...,) -> cos/sin (..., head_dim//2) in f32."""
+    """positions (...,) -> cos/sin (..., head_dim//2) in f32; nothing
+    here copies from the host."""
     half = head_dim // 2
     idx = torch.arange(0, half, dtype=torch.float32, device=positions.device)
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=positions.device), -idx / half)
+    # an on-device fill, not a host tensor: no host-to-device copy, so the
+    # decode step stays capturable in a CUDA graph (the same f32 value)
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=positions.device), -idx / half)
     ang = positions.to(torch.float32)[..., None] * freq
     return torch.cos(ang), torch.sin(ang)
 

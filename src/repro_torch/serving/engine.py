@@ -11,6 +11,19 @@
   chunk brings them to the host.
 * :class:`ServeSession` — the lock-step array shim over :class:`Engine`.
 
+The serving harness of DESIGN.md §10: :meth:`Engine.warmup` loads the
+kernel libraries, captures ONE decode step (:func:`decode_one`) as a CUDA
+graph on the engine's own cache buffers (``serving/warmup.py``), replays
+it ``steps_per_sync`` times per chunk, and rehearses one throwaway request;
+``async_host=True`` delivers tokens on the background host loop
+(``serving/host_loop.py``); ``serving/loadgen.py`` and
+``serving/metrics.py`` drive open-loop traffic and score it against an
+SLA.  The graph is bound to buffer addresses, so the caches and the
+static uniforms buffer are never reallocated after capture: admission,
+retirement, the copy-on-write pass and the table flush all write in
+place.  An engine that is never warmed runs the eager
+:func:`multi_decode` exactly as before.
+
 The per-slot cache length (``cache["length"]`` is ``(B,)``) is what lets
 slots at different positions decode in one batched step.  All engine time
 flows through the injectable ``clock=`` (DESIGN.md §11).
@@ -27,13 +40,14 @@ Greedy streams match the reference engine token for token.  Sampling
 (temperature > 0) uses a per-slot ``torch.Generator`` seeded from the
 engine and request seeds, so a stream is reproducible per seed but is not
 ``jax.random``'s.  Chunked prefill (with or without a pool), the host
-spill tier, preemption, chaos injection, the async host loop, warmup and
-the rest of the degradation ladder of the reference are not ported yet;
-the Engine does not accept their arguments.
+spill tier, preemption, deadlines, chaos injection, detokenization and the
+rest of the degradation ladder of the reference are not ported yet; the
+Engine does not accept their arguments.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence
@@ -49,6 +63,8 @@ from ..device import resolve_device
 from ..models.config import ArchConfig
 from ..models import backends as bk
 from ..models import transformer as T
+from .host_loop import HostLoop, TokenDelivery
+from .warmup import GraphCache
 
 
 # ------------------------------------------------------------------ sampling
@@ -70,34 +86,54 @@ def sample_per_slot(logits: torch.Tensor, temps: torch.Tensor,
     return torch.where(temps > 0, samp, greedy)
 
 
+def decode_one(params, cfg: ArchConfig, policy, token, caches, done, bad,
+               live, temps, eos, uniforms: Optional[torch.Tensor] = None,
+               calib=None, backend=None):
+    """One decode step with per-slot sampling and EOS pinning, all on the
+    device: the body of :func:`multi_decode` (the reference's scan body),
+    and what :meth:`Engine.warmup` captures as a CUDA graph (DESIGN.md
+    §6, §10).  It reads nothing back to the host and copies nothing from
+    it, so one capture replays for every step.
+
+    token (B, 1), done / bad (B,) bool, live (B,) int32, temps (B,) f32,
+    eos (B,) (< 0 disables EOS for that slot), uniforms (B, V) draws or
+    None.  Returns (next token (B,), done, bad, live) as new tensors:
+    ``live`` counts tokens emitted before pinning (the EOS token
+    included); a slot whose logits go non-finite raises ``bad``, samples
+    from zeroed logits and pins ``done``.  ``caches`` are updated in
+    place."""
+    logits, _ = T.decode_step(params, cfg, token, caches, policy,
+                              calib=calib, backend=backend)
+    row = logits[:, -1].to(torch.float32)
+    bad = bad | ~torch.isfinite(row).all(dim=-1)
+    safe = torch.where(bad[:, None], torch.zeros_like(row), row)
+    nxt = sample_per_slot(safe, temps, uniforms)
+    has = eos >= 0
+    nxt = torch.where(done & has, eos.to(nxt.dtype), nxt)
+    live = live + torch.where(done | bad, 0, 1).to(torch.int32)
+    done = done | (has & (nxt == eos)) | bad
+    return nxt, done, bad, live
+
+
 def multi_decode(params, cfg: ArchConfig, policy, n_tokens: int, token,
                  caches, done, temps, eos, calib=None, backend=None,
                  uniforms: Optional[Callable] = None):
-    """``n_tokens`` decode steps with per-slot sampling and EOS pinning, all
-    on the device (DESIGN.md §6; the reference's scanned multi-decode).
+    """``n_tokens`` eager :func:`decode_one` steps (DESIGN.md §6; the
+    reference's scanned multi-decode).
 
     token (B, 1), done (B,) bool, temps (B,) f32, eos (B,) (< 0 disables
     EOS for that slot).  ``uniforms()`` returns (B, V) draws or None.
-    Returns (tokens (B, n), token, caches, done, bad, live): ``live`` counts
-    tokens emitted before pinning (the EOS token included); a slot whose
-    logits go non-finite raises ``bad``, samples from zeroed logits and
-    pins ``done``.  ``caches`` are updated in place."""
+    Returns (tokens (B, n), token, caches, done, bad, live).  ``caches``
+    are updated in place."""
     b = token.shape[0]
     bad = torch.zeros(b, dtype=torch.bool, device=token.device)
     live = torch.zeros(b, dtype=torch.int32, device=token.device)
-    has = eos >= 0
     out = []
     for _ in range(n_tokens):
-        logits, caches = T.decode_step(params, cfg, token, caches, policy,
-                                       calib=calib, backend=backend)
-        row = logits[:, -1].to(torch.float32)
-        bad = bad | ~torch.isfinite(row).all(dim=-1)
-        safe = torch.where(bad[:, None], torch.zeros_like(row), row)
-        nxt = sample_per_slot(safe, temps, None if uniforms is None
-                              else uniforms())
-        nxt = torch.where(done & has, eos.to(nxt.dtype), nxt)
-        live = live + torch.where(done | bad, 0, 1).to(torch.int32)
-        done = done | (has & (nxt == eos)) | bad
+        nxt, done, bad, live = decode_one(
+            params, cfg, policy, token, caches, done, bad, live, temps, eos,
+            None if uniforms is None else uniforms(), calib=calib,
+            backend=backend)
         token = nxt[:, None]
         out.append(nxt)
     return torch.stack(out, dim=1), token, caches, done, bad, live
@@ -127,7 +163,8 @@ class Request:
 
 class StreamHandle:
     """Live view of one submitted request (DESIGN.md §6): ``tokens`` grows
-    after every sync; ``finished``/``finish_reason`` flip at EOS or the
+    after every sync (with ``async_host``, as the host loop delivers;
+    DESIGN.md §10); ``finished``/``finish_reason`` flip at EOS or the
     max_new budget; submit/admit/first-token/finish marks come from the
     engine clock."""
 
@@ -142,6 +179,9 @@ class StreamHandle:
         self.admit_time: Optional[float] = None
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
+        self.text = ""                     # the host loop's detokenize hook
+        self._sched_consumed = 0           # tokens the scheduler committed
+        self._sched_fin: Optional[str] = None  # scheduler's finish verdict
 
     def result(self) -> np.ndarray:
         """The generated tokens so far as a 1-D int32 array."""
@@ -176,6 +216,19 @@ class Engine:
     warning).  ``stats()`` reports occupancy, prefix hit rate, copy-on-
     write copies and resident bytes; ``check_invariants()`` audits the
     pool after a drain.
+
+    ``async_host`` delivers tokens on the background host loop (DESIGN.md
+    §10): the scheduler decides eos/length finishes from the device's
+    per-slot ``done``/``bad``/``live`` flags, and each chunk's tokens ride
+    a bounded queue (``host_queue`` items) to the consumer thread in a
+    ring of ``host_queue + 1`` host buffers (pinned on CUDA).  Streams are
+    bit-identical to the synchronous loop; :meth:`run` drains, and
+    :meth:`drain`/:meth:`close` are the graceful-shutdown calls.
+
+    :meth:`warmup` (DESIGN.md §10) prepares the engine before traffic:
+    kernel libraries loaded, caches allocated, one decode step captured
+    as a CUDA graph that every later chunk replays, one throwaway request
+    rehearsed, every counter restored; ``warmup_report()`` accounts for it.
     """
 
     def __init__(self, params, cfg: ArchConfig, policy, batch_slots: int,
@@ -184,6 +237,7 @@ class Engine:
                  pool_blocks: Optional[int] = None,
                  pool_block_tokens: int = 16,
                  pool_memory_bytes: Optional[int] = None,
+                 async_host: bool = False, host_queue: int = 8,
                  clock: Optional[Callable[[], float]] = None, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
@@ -216,7 +270,20 @@ class Engine:
         self.n_decode_steps = 0                   # decode steps run (all slots)
         self._tick = 0
         self._last_stall_tick = -1                # one stall count per tick
-        self._counters = {"admitted": 0, "pool_exhausted_stalls": 0}
+        self._counters = {"admitted": 0, "queue_wait_ticks": 0,
+                          "pool_exhausted_stalls": 0}
+
+        # ----- warmup graph cache + async host loop (DESIGN.md §10) -----
+        self._graphs = GraphCache(self.device, clock=self._clock)
+        self._unif: Optional[torch.Tensor] = None  # static (B, V) uniforms
+        self._warm_s: Dict[str, Optional[float]] = {
+            "build_s": None, "prefill_s": None, "rehearse_s": None}
+        self._host: Optional[HostLoop] = HostLoop(
+            self._finish, max_queue=host_queue, clock=self._clock) \
+            if async_host else None
+        self._ring: List[torch.Tensor] = []     # async token buffers
+        self._ring_free: List[threading.Event] = []
+        self._ring_next = 0
 
         # ----- paged block pool (DESIGN.md §9): one band, every layer -----
         self.pool_blocks = pool_blocks
@@ -318,6 +385,140 @@ class Engine:
         """Slots holding a request (DESIGN.md §6)."""
         return sum(h is not None for h in self._slot_handle)
 
+    def now(self) -> float:
+        """Current engine time from the injectable clock (DESIGN.md §11):
+        what external callers (the load generator, metrics recorders)
+        anchor on, so their marks compare with the handles'."""
+        return self._clock()
+
+    def drain(self) -> None:
+        """Block until the async host loop has delivered every enqueued
+        chunk (a no-op for the synchronous engine; DESIGN.md §10)."""
+        if self._host is not None:
+            self._host.drain()
+
+    def close(self, drain: bool = True) -> None:
+        """Shut down the async host loop thread, draining first by default
+        (DESIGN.md §10).  The engine stays usable: the next async delivery
+        restarts the thread."""
+        if self._host is not None:
+            self._host.close(drain=drain)
+
+    # ------------------------------------------------- warmup (DESIGN.md §10)
+
+    def warmup(self, prompt_lens: Optional[Sequence[int]] = None,
+               rehearse: bool = True) -> dict:
+        """Prepare the engine before traffic (DESIGN.md §10) and return
+        :meth:`warmup_report`.
+
+        1. Load (building first if needed) both kernel libraries: the nvcc
+           build is the counterpart of AOT compilation, and a first-use
+           build or ``ctypes`` load cannot happen inside a capture.
+        2. Allocate the engine caches from shapes, as first admission
+           would, and capture ONE decode step (:func:`decode_one` on those
+           caches, striped or pooled) as a CUDA graph; every later chunk
+           replays it ``steps_per_sync`` times.
+        3. ``prompt_lens``: one throwaway batch-of-1 prefill per length
+           (PyTorch compiles nothing per shape, but cuBLAS and the
+           allocator settle at first use).
+        4. ``rehearse``: one throwaway request through the real scheduler
+           (prefill, admission, one replayed chunk, retirement).
+
+        The capture's warmup iterations and the rehearsal really run on
+        the caches, so after each the caches are zeroed in place and the
+        pool, every counter and the host loop's accounting start afresh.
+        Warmup refuses to run while a request is queued or active.  On
+        the CPU (tests) nothing is captured and the decode loop runs the
+        same per-step path with the step run eagerly."""
+        if self._queue or self.active_slots:
+            raise RuntimeError("warmup() cannot run while requests are "
+                               "queued or active: it captures on the "
+                               "engine's own cache buffers and then zeroes "
+                               "them")
+        t0 = self._clock()
+        if self.device.type == "cuda" and self.backend.info().get("kernels"):
+            from ..kernels import _build
+            for name in _build.SOURCES:
+                _build.load(name)
+        self._warm_s["build_s"] = self._clock() - t0
+        if self._caches is None:
+            self._caches = (self._alloc_pooled() if self._pool is not None
+                            else self._alloc_striped())
+        b, dev = self.batch_slots, self.device
+        if self._unif is None:
+            self._unif = torch.zeros((b, self.cfg.vocab_size),
+                                     dtype=torch.float32, device=dev)
+        static = (torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                  torch.ones((b,), dtype=torch.bool, device=dev),
+                  torch.zeros((b,), dtype=torch.bool, device=dev),
+                  torch.zeros((b,), dtype=torch.int32, device=dev),
+                  torch.zeros((b,), dtype=torch.float32, device=dev),
+                  torch.full((b,), -1, dtype=torch.int64, device=dev),
+                  self._unif)
+        self._graphs.warm("decode_step", self._step, static)
+        self._restore()
+        t0 = self._clock()
+        for plen in prompt_lens or ():
+            T.prefill_model(
+                self.params, self.cfg,
+                torch.zeros((1, int(plen)), dtype=torch.int64, device=dev),
+                self.policy, calib=self.calib, max_len=self.max_len,
+                backend=self.backend)
+        self._warm_s["prefill_s"] = self._clock() - t0
+        if rehearse:
+            t0 = self._clock()
+            self._rehearse()
+            self._restore()
+            self._warm_s["rehearse_s"] = self._clock() - t0
+        self._graphs.warmed = True
+        return self.warmup_report()
+
+    def warmup_report(self) -> dict:
+        """Warmup accounting (DESIGN.md §10): kernel load/build seconds,
+        graphs captured and capture seconds, prompt-length prefill and
+        rehearsal seconds, replays, and ``post_warmup_misses`` — calls that
+        found no graph after :meth:`warmup`, whose contract is 0."""
+        out = self._graphs.report()
+        out.update(self._warm_s)
+        return out
+
+    def _rehearse(self):
+        """Run one tiny request through the real scheduler (DESIGN.md
+        §10)."""
+        plen = min(8, self.max_len - 2)
+        if plen < 1:
+            return
+        prompt = (np.arange(plen, dtype=np.int64) % 17) + 1
+        try:
+            h = self.submit(Request(prompt=prompt, max_new=2,
+                                    seed=0x7FFF0000))
+        except ValueError:
+            return                # e.g. a pool too small: nothing to run
+        self.run([h])
+
+    def _restore(self):
+        """Zero the caches in place (the graph is bound to them) and start
+        the pool, every counter and the host loop's accounting afresh."""
+        for leaf in self._caches["scan"].values():
+            leaf.zero_()
+        if self._pool is not None:
+            self._init_pool()     # fresh free list, registry and counters
+        self._next_rid = 0
+        self._tick = 0
+        self._last_stall_tick = -1
+        self._stall_reason = None
+        self.n_decode_steps = 0
+        self._graphs.replays = 0
+        self._tok[:] = 0
+        self._hostlen[:] = 0
+        for k in self._counters:
+            self._counters[k] = 0
+        if self._host is not None:
+            self._host.enqueued = self._host.delivered = 0
+            self._host.backpressure_waits = 0
+            self._host.backpressure_s = 0.0
+            self._host.max_depth = 0
+
     def submit(self, request: Request) -> StreamHandle:
         """Validate + queue a request; returns its handle (DESIGN.md §6)."""
         prompt = np.asarray(request.prompt, np.int64).reshape(-1)
@@ -358,39 +559,47 @@ class Engine:
         self._tick += 1
         self._retire()
         self._admit()
+        self._counters["queue_wait_ticks"] += len(self._queue)
         active = [i for i in range(self.batch_slots)
                   if self._slot_handle[i] is not None]
         if not active:
             return bool(self._queue)
-        if any(not self._slot_handle[i].finished for i in active):
+        if any(not self._h_done(self._slot_handle[i]) for i in active):
             self._decode_chunk()
         self._retire()
         return True
 
     def run(self, handles: Optional[List[StreamHandle]] = None) -> None:
-        """Step until the given handles (default: everything) finish."""
+        """Step until the given handles (default: everything) finish, then
+        drain the async host loop so every stream is final (DESIGN.md §6,
+        §10)."""
         def pending():
             if handles is not None:
-                return any(not h.finished for h in handles)
+                return any(not self._h_done(h) for h in handles)
             return bool(self._queue) or any(
                 h is not None for h in self._slot_handle)
 
         while pending():
             if not self.step():
                 break
+        self.drain()
 
     def stats(self) -> dict:
         """Pool occupancy + sharing counters (DESIGN.md §9): blocks used/
         free/reserved, prefix hit rate, copy-on-write copies, resident and
         peak packed bytes against the striped worst case (``batch_slots``
-        full stripes), and the cumulative ``counters`` (requests admitted,
-        ticks the FIFO head stalled on an exhausted pool).  A striped
-        engine reports only the queue and the counters."""
+        full stripes), and the cumulative ``counters`` of DESIGN.md §10
+        (requests admitted, request-ticks spent queued, ticks the FIFO head
+        stalled on an exhausted pool, CoW copies; restored by
+        :meth:`warmup`), plus the async host loop's ``host`` block.  A
+        striped engine reports only the queue, the counters and ``host``."""
         out: dict = {"pooled": self._pool is not None,
                      "queue_depth": len(self._queue),
                      "active_slots": self.active_slots,
                      "counters": dict(self._counters, cow_copies=(
                          self._pool.cow_copies if self._pool else 0))}
+        if self._host is not None:
+            out["host"] = self._host.stats()
         if self._pool is None:
             return out
         st = self._pool.stats()
@@ -422,9 +631,16 @@ class Engine:
 
     # --------------------------------------------------------------- details
 
+    def _h_done(self, h: StreamHandle) -> bool:
+        # async: the scheduler's verdict stands in for h.finished, which
+        # the consumer thread sets later, at delivery (DESIGN.md §10)
+        if self._host is not None:
+            return h._sched_fin is not None
+        return h.finished
+
     def _retire(self):
         for i, h in enumerate(self._slot_handle):
-            if h is not None and h.finished:
+            if h is not None and self._h_done(h):
                 self._release_slot(i)
 
     def _release_slot(self, i: int):
@@ -618,6 +834,18 @@ class Engine:
                                         device=self.device)
                          for k, (s, d) in shapes.items()}}
 
+    def _alloc_striped(self):
+        """Zeroed striped engine caches from shapes: the structure first
+        admission's ``_alloc_like`` builds from a prefill, without one
+        (DESIGN.md §10 warmup)."""
+        cfg = self.cfg
+        shapes = kvc.cache_shapes(self.batch_slots, self.max_len,
+                                  cfg.n_kv_heads, cfg.head_dim, self.policy,
+                                  self.params["embed"].dtype)
+        return {"scan": {k: torch.zeros((cfg.n_layers,) + s, dtype=d,
+                                        device=self.device)
+                         for k, (s, d) in shapes.items()}}
+
     def _generator(self, request_seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
         return g.manual_seed((self.seed * 1_000_003 + request_seed) % 2 ** 63)
@@ -664,8 +892,7 @@ class Engine:
             self._done[slot] = (req.eos_id is not None
                                 and int(first[row]) == req.eos_id)
             h.admit_time = now
-            h.first_token_time = self._clock()
-            self._deliver(slot, [int(first[row])])
+            self._admit_deliver(slot, h, int(first[row]))
 
     def _decode_chunk(self):
         if self._pool is not None:
@@ -674,18 +901,18 @@ class Engine:
         dev, n = self.device, self.steps_per_sync
         temps = self._temps.copy()
         gens = list(self._gens)
-        toks, _, self._caches, done, bad, live = multi_decode(
-            self.params, self.cfg, self.policy, n,
-            torch.as_tensor(self._tok, device=dev), self._caches,
+        toks, done, bad, live = self._decode_steps(
+            n, torch.as_tensor(self._tok, device=dev),
             torch.as_tensor(self._done, device=dev),
             torch.as_tensor(temps, device=dev),
-            torch.as_tensor(self._eos, device=dev), calib=self.calib,
-            backend=self.backend,
-            uniforms=lambda: self._uniforms(gens, temps))
-        # ONE device->host copy per chunk
-        host = torch.cat([toks, done[:, None].long(), bad[:, None].long(),
-                          live[:, None].long()], dim=1).cpu().numpy()
+            torch.as_tensor(self._eos, device=dev), gens, temps)
+        packed = torch.cat([toks, done[:, None].long(), bad[:, None].long(),
+                            live[:, None].long()], dim=1)
         self.n_decode_steps += n
+        if self._host is not None:
+            self._enqueue_chunk(packed)
+            return
+        host = packed.cpu().numpy()            # ONE device->host copy
         self._tok = host[:, n - 1:n].copy()
         self._done = host[:, n].astype(bool)
         for i in range(self.batch_slots):
@@ -697,6 +924,137 @@ class Engine:
                 self._finish(h, FinishReason.SHED)   # retire frees the slot
                 continue
             self._deliver(i, host[i, :n].tolist())
+
+    def _decode_steps(self, n: int, token, done, temps, eos, gens,
+                      temps_host):
+        """``n`` decode steps -> (tokens (B, n), done, bad, live): the eager
+        :func:`multi_decode` until :meth:`warmup` has captured the step,
+        then ``n`` replays of the captured :func:`decode_one` (DESIGN.md
+        §10), the uniforms buffer filled from the same generators in the
+        same slot order before each step, so streams stay identical."""
+        if self._unif is None:
+            toks, _, self._caches, done, bad, live = multi_decode(
+                self.params, self.cfg, self.policy, n, token, self._caches,
+                done, temps, eos, calib=self.calib, backend=self.backend,
+                uniforms=lambda: self._uniforms(gens, temps_host))
+            return toks, done, bad, live
+        b, dev = self.batch_slots, self.device
+        bad = torch.zeros(b, dtype=torch.bool, device=dev)
+        live = torch.zeros(b, dtype=torch.int32, device=dev)
+        toks = torch.empty((b, n), dtype=torch.int64, device=dev)
+        for s in range(n):
+            unif = self._uniforms(gens, temps_host)
+            if unif is not None:
+                self._unif.copy_(unif)
+            # the greedy rows ignore their draws (sample_per_slot), so one
+            # graph serves greedy, sampled and mixed batches alike
+            nxt, done, bad, live = self._graphs.call(
+                "decode_step", self._step, token, done, bad, live, temps,
+                eos, self._unif)
+            toks[:, s] = nxt
+            token = nxt[:, None]
+        return toks, done, bad, live
+
+    def _step(self, token, done, bad, live, temps, eos, uniforms):
+        """The captured step: :func:`decode_one` on the engine's caches."""
+        return decode_one(self.params, self.cfg, self.policy, token,
+                          self._caches, done, bad, live, temps, eos,
+                          uniforms, calib=self.calib, backend=self.backend)
+
+    def _ring_slot(self, shape) -> int:
+        """A free host buffer of the async delivery ring (``host_queue +
+        1`` of them, pinned on CUDA): waits, as backpressure, until the
+        consumer has released the buffer's previous chunk, so neither a
+        later copy nor a later replay overwrites undelivered tokens."""
+        if not self._ring:
+            pin = self.device.type == "cuda"
+            for _ in range(self._host.max_queue + 1):
+                self._ring.append(torch.empty(shape, dtype=torch.int64,
+                                              pin_memory=pin))
+                self._ring_free.append(threading.Event())
+                self._ring_free[-1].set()
+        r = self._ring_next
+        self._ring_next = (r + 1) % len(self._ring)
+        free = self._ring_free[r]
+        if not free.is_set():
+            self._host.backpressure_waits += 1
+            t0 = self._clock()
+            free.wait()
+            self._host.backpressure_s += self._clock() - t0
+        free.clear()
+        return r
+
+    def _enqueue_chunk(self, packed: torch.Tensor):
+        """Async delivery of one chunk (DESIGN.md §10): tokens and flags
+        go to a ring buffer by a non-blocking copy with a CUDA event behind
+        it; the scheduler decides every finish from the ``done``/``bad``/
+        ``live`` flags, and the consumer thread delivers the tokens."""
+        n = self.steps_per_sync
+        r = self._ring_slot(tuple(packed.shape))
+        buf = self._ring[r]
+        ready = None
+        if self.device.type == "cuda":
+            buf.copy_(packed, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            ready.synchronize()                # the flags, for the scheduler
+        else:
+            buf.copy_(packed)
+        arr = buf.numpy()
+        self._tok = arr[:, n - 1:n].copy()
+        self._done = arr[:, n].astype(bool)
+        handles, rows, counts, reasons = [], [], [], []
+        for i in range(self.batch_slots):
+            h = self._slot_handle[i]
+            if h is None or h._sched_fin is not None:
+                continue
+            self._hostlen[i] += n
+            if arr[i, n + 1]:
+                # non-finite logits: drop the chunk, shed the stream
+                consumed, reason = 0, FinishReason.SHED
+            else:
+                left = h.request.max_new - h._sched_consumed
+                n_live = int(arr[i, n + 2])
+                if arr[i, n] and n_live <= left:
+                    consumed, reason = n_live, FinishReason.EOS
+                elif left <= n_live:
+                    consumed, reason = left, FinishReason.LENGTH
+                else:
+                    consumed, reason = n_live, None
+            h._sched_consumed += consumed
+            h._sched_fin = reason
+            handles.append(h)
+            rows.append(i)
+            counts.append(consumed)
+            reasons.append(reason)
+        free = self._ring_free[r]
+        if not handles:
+            free.set()
+            return
+        self._host.put(TokenDelivery(
+            handles=handles, rows=rows, counts=counts, reasons=reasons,
+            tokens=arr, ready=ready, release=free.set))
+
+    def _admit_deliver(self, slot: int, h: StreamHandle, first: int):
+        """Deliver a request's first (admission-sampled) token: directly in
+        the synchronous loop, through the host-loop queue in async mode —
+        the transport every decode chunk takes (DESIGN.md §10)."""
+        if self._host is None:
+            h.first_token_time = self._clock()
+            self._deliver(slot, [first])
+            return
+        req = h.request
+        if req.eos_id is not None and first == req.eos_id:
+            reason = FinishReason.EOS
+        elif req.max_new <= 1:
+            reason = FinishReason.LENGTH
+        else:
+            reason = None
+        h._sched_consumed = 1
+        h._sched_fin = reason
+        self._host.put(TokenDelivery(
+            handles=[h], rows=[0], counts=[1], reasons=[reason],
+            tokens=np.asarray([[first]], np.int64)))
 
     def _deliver(self, slot: int, tokens: List[int]):
         """Append chunk tokens to a slot's handle, honoring eos/max_new."""

@@ -23,7 +23,15 @@ runs on a machine with only torch:
   Gq up to 8 and head dims 16..256 against the plain version.
 * one decode step of a smoke model: ``"cuda"`` backend vs ``"reference"``
   backend in f32, where both dequantize in f32 — ``atol=rtol=1e-4``.
+* the serving harness (DESIGN.md §10): a CUDA-graph replay of one decode
+  step BYTE-equal to an eager step in every cache leaf and the logits,
+  striped and pooled; the launch counters after N replays; every cache
+  leaf and static buffer at the same address across admissions and
+  chunks; warmed and async streams equal to eager sync ones; the pinned
+  delivery ring never handing the consumer overwritten tokens.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +45,7 @@ from repro_torch.kernels import decode_attn as DA
 from repro_torch.kernels import kv_quant as KQ
 from repro_torch.models import transformer as T
 from test_torch_util import cuda_device  # noqa: F401  (fixture)
+from test_torch_util import stall_until_backpressure
 
 pytestmark = pytest.mark.requires_cuda
 ATOL, RTOL = 3e-5, 1e-4
@@ -499,3 +508,177 @@ def test_pooled_engine_streams_equal_striped_on_the_card(cuda_device):
             assert st["prefix_hits"] > 0 and st["cow_copies"] > 0
             eng.check_invariants()
     assert runs[0] == runs[1]
+
+
+# ------------------------------------------------ serving harness (§10)
+
+HARNESS_POL = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
+                          n_sink=2)
+
+
+def _harness_engine(cuda_device, pool=None, **kw):
+    from repro_torch.serving import Engine
+    cfg = configs.get_smoke("llama2_7b")
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    eng = Engine(params, cfg, HARNESS_POL, batch_slots=3, max_len=90,
+                 steps_per_sync=4, pool_blocks=pool, pool_block_tokens=8,
+                 device=cuda_device, **kw)
+    return cfg, eng
+
+
+def _harness_traffic(cfg, temps=(0.0,)):
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, cfg.vocab_size, 40)
+    return [Request(prompt=np.concatenate(
+                [prefix, rng.integers(0, cfg.vocab_size, n)]),
+                max_new=m, seed=i, temperature=temps[i % len(temps)])
+            for i, (n, m) in enumerate([(3, 12), (3, 9), (20, 14), (7, 5),
+                                        (0, 11)])]
+
+
+def _serve(eng, reqs):
+    from repro_torch.serving import Request
+    hs = [eng.submit(Request(prompt=r.prompt, max_new=r.max_new, seed=r.seed,
+                             temperature=r.temperature, eos_id=r.eos_id))
+          for r in reqs]
+    eng.run(hs)
+    eng.close()
+    return [(h.tokens, h.finish_reason) for h in hs]
+
+
+def _leaf_bytes(t):
+    return t.view(torch.uint8) if t.dtype != torch.bool else t
+
+
+@pytest.mark.parametrize("pool", [None, 40])
+def test_graph_replayed_step_bytewise_equals_eager_step(pool, cuda_device):
+    """Caches mid-stream (two slots admitted, one chunk decoded, then the
+    Engine's copy-on-write pass and table flush for the next chunk, so no
+    write lands in a shared or unowned block): ``steps_per_sync``
+    replays of a captured ``decode_step`` against as many eager steps
+    from the same bytes — every cache leaf and the logits equal
+    bytewise."""
+    from repro_torch.serving import GraphCache
+    cfg, eng = _harness_engine(cuda_device, pool)
+    hs = [eng.submit(r) for r in _harness_traffic(cfg)[:2]]
+    eng.step()
+    assert all(not h.finished for h in hs)
+    if pool:
+        eng._pool_prewrite()
+        eng._flush_tables()
+    snap = {k: v.clone() for k, v in eng._caches["scan"].items()}
+    cg = {"scan": {k: v.clone() for k, v in snap.items()}}
+    ce = {"scan": {k: v.clone() for k, v in snap.items()}}
+    tok = torch.as_tensor(eng._tok, device=cuda_device)
+
+    def step(caches):
+        return lambda token: T.decode_step(
+            eng.params, cfg, token, caches, HARNESS_POL, calib=eng.calib,
+            backend="cuda")[0]
+
+    gc = GraphCache(cuda_device)
+    gc.warm("step", step(cg), (tok.clone(),))
+    for k, v in cg["scan"].items():           # undo the warmup iterations
+        v.copy_(snap[k])
+    te = tg = tok
+    for i in range(eng.steps_per_sync):
+        got = gc.call("step", step(cg), tg)
+        want = step(ce)(te)
+        torch.cuda.synchronize()
+        assert torch.equal(_leaf_bytes(got), _leaf_bytes(want)), i
+        for k in snap:
+            assert torch.equal(_leaf_bytes(cg["scan"][k]),
+                               _leaf_bytes(ce["scan"][k])), (i, k)
+        te = want[:, -1].argmax(-1, keepdim=True)
+        tg = got[:, -1].argmax(-1, keepdim=True)
+    assert gc.replays == eng.steps_per_sync and gc.n_graphs == 1
+
+
+def test_launch_counts_after_replays(cuda_device):
+    """A replay runs no wrapper, so the cache adds the capture's launches
+    once per replay, and the capture itself counts none."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import GraphCache
+    cfg, eng = _harness_engine(cuda_device)
+    eng.submit(_harness_traffic(cfg)[0])
+    eng.step()
+    tok = torch.as_tensor(eng._tok, device=cuda_device)
+    fn = lambda token: T.decode_step(eng.params, cfg, token, eng._caches,
+                                     HARNESS_POL, calib=eng.calib,
+                                     backend="cuda")[0]
+    gc = GraphCache(cuda_device)
+    reset_launch_counts()
+    gc.warm("step", fn, (tok,))
+    warm = launch_counts()
+    n_l = cfg.n_layers
+    assert warm["decode_attn"]["kernel"] == 3 * n_l    # warmup iterations
+    assert warm["kv_quant"]["append"] == 3 * n_l
+    reset_launch_counts()
+    for _ in range(7):
+        gc.call("step", fn, tok)
+    c = launch_counts()
+    assert c["decode_attn"] == {"kernel": 7 * n_l, "pooled": 0, "plain": 0}
+    assert c["kv_quant"] == {"kernel": 0, "plain": 0, "append": 7 * n_l,
+                             "append_plain": 0}
+
+
+@pytest.mark.parametrize("pool", [None, 40])
+def test_warmed_engine_buffers_stay_put(pool, cuda_device):
+    """The graph is bound to addresses: every cache leaf and every static
+    input keeps its data_ptr across admissions, chunks and retirements;
+    warmed streams equal the unwarmed engine's; kv_append and decode_attn
+    launches equal layers x decode steps with graphs on."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cfg, eng = _harness_engine(cuda_device, pool)
+    rep = eng.warmup()
+    assert rep["n_graphs"] == 1 and rep["post_warmup_misses"] == 0
+    entry = next(iter(eng._graphs._entries.values()))
+    ptrs = lambda: ([v.data_ptr() for v in eng._caches["scan"].values()]
+                    + [t.data_ptr() for t in entry.static_in])
+    before = ptrs()
+    reset_launch_counts()
+    warm = _serve(eng, _harness_traffic(cfg))
+    assert ptrs() == before
+    c = launch_counts()
+    n = cfg.n_layers * eng.n_decode_steps
+    assert c["kv_quant"]["append"] == n and c["kv_quant"]["append_plain"] == 0
+    assert c["decode_attn"]["pooled" if pool else "kernel"] == n
+    assert eng._graphs.replays == eng.n_decode_steps
+    assert eng.warmup_report()["post_warmup_misses"] == 0
+    _, cold = _harness_engine(cuda_device, pool)
+    assert warm == _serve(cold, _harness_traffic(cfg))
+
+
+def test_warmed_async_sampled_streams_equal_eager_sync(cuda_device):
+    """Mixed temperatures and an EOS id: warmed + async equals unwarmed +
+    sync on the card."""
+    cfg, ref = _harness_engine(cuda_device)
+    reqs = _harness_traffic(cfg, temps=(0.0, 0.8, 0.5))
+    want = _serve(ref, reqs)
+    eos = want[0][0][2]
+    reqs = [dataclasses.replace(r, eos_id=eos) for r in reqs]
+    _, ref = _harness_engine(cuda_device)
+    want = _serve(ref, reqs)
+    _, eng = _harness_engine(cuda_device, async_host=True)
+    eng.warmup()
+    assert _serve(eng, reqs) == want
+    assert any(r == "eos" for _, r in want)
+
+
+def test_pinned_ring_never_hands_over_overwritten_tokens(cuda_device):
+    """host_queue=1 (a ring of 2 pinned buffers) and a consumer that
+    holds its first item until the scheduler has had to wait: the
+    scheduler waits for a buffer's release instead of overwriting it, and
+    the delivered streams equal the sync ones."""
+    cfg, ref = _harness_engine(cuda_device)
+    reqs = _harness_traffic(cfg)
+    want = _serve(ref, reqs)
+    _, eng = _harness_engine(cuda_device, async_host=True, host_queue=1)
+    eng.warmup()
+    eng._host._fault_hook = lambda item: stall_until_backpressure(eng)
+    got = _serve(eng, reqs)
+    assert got == want
+    assert len(eng._ring) == 2
+    assert all(t.is_pinned() for t in eng._ring)
+    assert eng.stats()["host"]["backpressure_waits"] > 0

@@ -532,6 +532,7 @@ def test_pool_validation_and_rejection(params):
     assert mk().stats() == {"pooled": False, "queue_depth": 0,
                             "active_slots": 0,
                             "counters": {"admitted": 0,
+                                         "queue_wait_ticks": 0,
                                          "pool_exhausted_stalls": 0,
                                          "cow_copies": 0}}
 

@@ -1,6 +1,8 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py) —
 moving arrays between the JAX reference and the torch port as numpy — and
 the tests of that carrier (``repro_torch.convert``)."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,16 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def stall_until_backpressure(eng, timeout: float = 10.0) -> None:
+    """An async Engine's consumer hook that holds its first item until the
+    scheduler has had to wait for it (a full queue or an unreleased ring
+    buffer): backpressure then happens whatever the host's speed."""
+    deadline = time.monotonic() + timeout
+    while (eng._host.backpressure_waits == 0
+           and time.monotonic() < deadline):
+        time.sleep(0.002)
 
 
 def j2t(tree, dtype=None):
