@@ -80,11 +80,32 @@ not from the 50 MB L2, as each layer of a decode step does.
    finished, the launch identities, a clean pool audit; TTFT/TPOT
    percentiles and SLA attainment printed for information; (e) the warmup
    report (kernel load, capture and rehearsal seconds, graph count).
-8. a ``timing`` line of seconds per phase, then the kernel summary line
+8. serve_chunked — chunked prefill (DESIGN.md §7) at the same width,
+   policy, slots and max_len, ``prefill_chunk`` 512: (a) one layer's
+   chunk append (32 heads x 128, bf16) for a 3000-token prompt in chunks
+   of 512 (the tail of 440 padded to 512) through ``kv_append_chunk``, its
+   plain token loop and a ``kv_append`` loop: every leaf byte-equal after
+   every chunk, two bulk launches per evicting chunk; L2-cold device ms
+   of one chunk append against its byte bound; (b) the serve phase's 8
+   requests through warmed chunked engines, striped then pooled (768
+   blocks): every request finished, no graph miss, bulk kv_quant launches
+   == 2 x layers x evicting chunks (computed from the prompts), kv_append
+   launches == layers x decode steps, no plain call, pooled streams equal
+   to striped, final-chunk logits within relative L2 0.05 of the serve
+   phase's whole-prompt logits (top-1 agreement and stream equality
+   reported, not gated); the 3000-token prefill timed whole and chunked
+   in ABBA turns; (c) serve_graph (d)'s open-loop trace on warmed pooled
+   async engines, chunked and whole-prompt in the order chunked, whole,
+   whole, chunked, with the launch identities of each; TTFT/TPOT
+   percentiles reported, not gated.
+9. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
-   ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``), the card
-   line, and the last line ``{"ok": true, "device": {...}}``.
+   ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
+   chunk append's ``chunk_ms``, ``chunk_bound_ms``, ``chunk_plain_ms``
+   and ``chunk_rows``; launches count the serve, serve_pooled and
+   serve_chunked (b) runs), the card line, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
 """
@@ -122,7 +143,8 @@ HOLD_CYCLES = 20_000_000         # ~10 ms of sleep while calls are queued
 
 # per-kernel numbers beyond the contract's keys that the summary line carries
 KERNEL_EXTRAS = ("long_ms", "long_bound_ms", "long_library_ms", "prefill_ms",
-                 "prefill_bound_ms", "prefill_rows", "plain_wall_ms")
+                 "prefill_bound_ms", "prefill_rows", "plain_wall_ms",
+                 "chunk_ms", "chunk_bound_ms", "chunk_plain_ms", "chunk_rows")
 
 
 def emit(obj) -> None:
@@ -753,15 +775,32 @@ def _timed_chunks(eng):
     return chunks
 
 
-def _counted_prefills(eng):
+def _counted_prefills(eng, logits=None):
     """Wrap the Engine's group admission (one ``prefill_model`` call per
-    group); returns the list it appends one entry per prefill to."""
+    group); returns the list it appends one entry per prefill to.  With a
+    ``logits`` dict, each admitted request's last-token logits (f32, on
+    the host) are kept under its rid."""
     calls = []
     admit_group = eng._admit_group
 
     def counted(handles, slots):
         calls.append(len(handles))
-        admit_group(handles, slots)
+        if logits is None:
+            admit_group(handles, slots)
+            return
+        from repro_torch.models import transformer as T
+        prefill = T.prefill_model
+
+        def keep(*args, **kw):
+            out = prefill(*args, **kw)
+            for h, row in zip(handles, out[0][:, -1].float().cpu()):
+                logits[h.rid] = row
+            return out
+        T.prefill_model = keep
+        try:
+            admit_group(handles, slots)
+        finally:
+            T.prefill_model = prefill
     eng._admit_group = counted
     return calls
 
@@ -810,7 +849,8 @@ def phase_serve(state):
                  max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
                  device=dev)
     chunks = _timed_chunks(eng)
-    prefills = _counted_prefills(eng)
+    state["serve_logits"] = {}
+    prefills = _counted_prefills(eng, state["serve_logits"])
     rng, reqs = _serve_requests(cfg)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                                    # main path only
@@ -1079,10 +1119,11 @@ GRAPH_ABBA_ROUNDS = 4
 ABBA_NEW = 1024          # budget of the timing requests: 4 x 192 blocks
 
 
-def _graph_engine(state, cfg, pool_blocks=None, async_host=False):
-    """A warmed Engine (DESIGN.md §10) at the serve shape; engines of
-    earlier runs that nothing holds are collected first, so their memory
-    is free."""
+def _graph_engine(state, cfg, pool_blocks=None, async_host=False,
+                  prefill_chunk=None):
+    """A warmed Engine (DESIGN.md §10) at the serve shape (chunked
+    admission with ``prefill_chunk``); engines of earlier runs that nothing
+    holds are collected first, so their memory is free."""
     import gc
     import torch
     from repro_torch.core.policy import PAPER_POLICY
@@ -1092,7 +1133,8 @@ def _graph_engine(state, cfg, pool_blocks=None, async_host=False):
     eng = Engine(state["params"], cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
                  max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
                  pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
-                 async_host=async_host, device=torch.device("cuda"))
+                 async_host=async_host, prefill_chunk=prefill_chunk,
+                 device=torch.device("cuda"))
     rep = eng.warmup()
     check(rep["n_graphs"] == 1 and rep["post_warmup_misses"] == 0,
           f"warmup captured no decode step: {rep}")
@@ -1231,8 +1273,8 @@ def _graph_timings(eng_s, eng_p, cfg):
 def phase_serve_graph(state):
     from repro_torch import configs
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serving import (MetricsRecorder, WorkloadSpec,
-                                     poisson_trace, run_open_loop)
+    from repro_torch.serving import (MetricsRecorder, poisson_trace,
+                                     run_open_loop)
     cfg = configs.get("llama2_7b")
     eng_s, striped = _graph_serve(state, cfg, None)
     eng_p, pooled = _graph_serve(state, cfg, 768)
@@ -1251,10 +1293,7 @@ def phase_serve_graph(state):
     eng, warm = _graph_engine(state, cfg, 768, async_host=True)
     chunks = _timed_chunks(eng)
     prefills = _counted_prefills(eng)
-    spec = WorkloadSpec(n_requests=16, arrival_rate=2.0,
-                        prompt_lens=(512, 1024, 2048, 3000),
-                        max_news=(16, 32, 64), shared_prefix_ratio=0.5,
-                        shared_prefix_len=256, vocab=cfg.vocab_size, seed=0)
+    spec = _open_loop_spec(cfg)
     trace = poisson_trace(spec)
     rec = MetricsRecorder()
     reset_launch_counts()                                    # main path only
@@ -1286,6 +1325,339 @@ def phase_serve_graph(state):
                         "engine_ms_per_step": _spread(
                             [ms for ms, _ in chunks[1:]] or [0.0]),
                         "stats": st, "audit": audit, "summary": summary}})
+
+
+CHUNK = 512                       # prefill_chunk of the serve_chunked phase
+CHUNK_PROMPT = 3000               # the longest serve prompt: 5 x 512 + 440
+
+
+def _chunk_plan(lens, chunk=CHUNK):
+    """(t0, n_valid) of every chunk the Engine runs for prompts of ``lens``
+    tokens, in order."""
+    return [(t0, min(chunk, n - t0)) for n in lens
+            for t0 in range(0, n, chunk)]
+
+
+def _evicting_chunks(lens, chunk=CHUNK):
+    """Chunks of those prompts that evict at least one row (each costs two
+    bulk kv_quant launches a layer)."""
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels.kv_quant import chunk_evictions
+    return sum(lo < hi for lo, hi in (chunk_evictions(PAPER_POLICY, t0, n)
+                                      for t0, n in _chunk_plan(lens, chunk)))
+
+
+def _chunk_bound(pol, hkv, d, t0, n):
+    """Bytes and bound of one chunk append: the evicted rows read once
+    (ring or chunk) and their packed rows written, the chunk rows that
+    land in the ring or the sinks read and written, the clip factors; or
+    the f32 operations of quantizing the evicted rows."""
+    from repro_torch.core.quant import n_meta_groups, packed_nbytes
+    from repro_torch.kernels.kv_quant import chunk_evictions
+    lo, hi = chunk_evictions(pol, t0, n)
+    n_ev = max(0, hi - lo)
+    end = t0 + n
+    n_fp = max(0, min(pol.n_sink, end) - t0) + max(
+        0, end - max(pol.n_sink, end - pol.window, t0))
+    gsz = min(pol.group_size, d)
+    row = 2 * hkv * d * 2                       # K + V rows, bf16
+    packed = hkv * (packed_nbytes(d, pol.bits_k, gsz, 8)
+                    + packed_nbytes(d, pol.bits_v, gsz, 8))
+    nbytes = (n_ev * (row + packed) + 2 * n_fp * row + 4 * hkv
+              * (n_meta_groups(d, pol.bits_k, gsz)
+                 + n_meta_groups(d, pol.bits_v, gsz)))
+    return nbytes, *bound(nbytes, 7 * 2 * n_ev * hkv * d)
+
+
+def _chunk_append_case(gen, dev):
+    """(a) One layer of llama2-7b (32 heads x 128, PAPER_POLICY, max_len
+    4229, bf16): a 3000-token prompt in chunks of 512 (the tail of 440
+    padded to 512) through ``kv_append_chunk``, its plain token loop and a
+    loop of ``kv_append``: every leaf byte-equal after every chunk; then
+    L2-cold device ms of one evicting chunk append against its bound."""
+    import torch
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core.policy import PAPER_POLICY as pol
+    from repro_torch.core.quant import n_meta_groups
+    from repro_torch.kernels import kv_quant as KQ
+    hkv, d = 32, 128
+    caches = [kvc.init_cache(1, MAX_LEN, hkv, d, pol, torch.bfloat16,
+                             device=dev) for _ in range(3)]
+    route, plain, loop = caches
+    ak, av = (0.8 + 0.2 * torch.rand((hkv, n_meta_groups(d, b, 128)),
+                                     generator=gen, device=dev)
+              for b in (pol.bits_k, pol.bits_v))
+    new = lambda: torch.randn((1, CHUNK, hkv, d), generator=gen,
+                              device=dev).to(torch.bfloat16)
+    chunks, launches = [], 0
+    for t0, n in _chunk_plan([CHUNK_PROMPT]):
+        k, v = new(), new()
+        before = KQ.LAUNCHES["kernel"]
+        KQ.kv_append_chunk(route, k, v, pol, t0, n, ak, av)
+        launches += KQ.LAUNCHES["kernel"] - before
+        KQ.kv_append_chunk_plain(plain, k, v, pol, t0, n, ak, av)
+        for i in range(n):
+            KQ.kv_append(loop, k[:, i:i + 1].contiguous(),
+                         v[:, i:i + 1].contiguous(), pol, ak, av)
+        bad = (_caches_differ(route, plain, False)
+               + _caches_differ(route, loop, False))
+        check(not bad, f"kv_append_chunk t0={t0} n={n}: leaves {bad} differ "
+              f"from the plain loop or the kv_append loop")
+        chunks.append({"t0": t0, "n_valid": n, "bucket": CHUNK,
+                       "diff_leaves": 0})
+    check(launches == 2 * _evicting_chunks([CHUNK_PROMPT]),
+          f"kv_append_chunk: {launches} bulk launches for "
+          f"{_evicting_chunks([CHUNK_PROMPT])} evicting chunks")
+    # timing: a chunk at t0 = 2048 (512 rows evicted: 128 from the ring,
+    # 384 from the chunk), rotating over cache copies
+    t0 = 2048
+    k, v = new(), new()
+    for c in caches:
+        c["length"].fill_(t0)
+    nbytes, bound_ms, bound_by = _chunk_bound(pol, hkv, d, t0, CHUNK)
+    cs = copies(route)
+    ms = cuda_ms([lambda c=c: KQ.kv_append_chunk(c, k, v, pol, t0, CHUNK,
+                                                 ak, av) for c in cs])
+    del cs
+    plain_ms = cuda_ms(lambda: KQ.kv_append_chunk_plain(
+        plain, k, v, pol, t0, CHUNK, ak, av), iters=1, warmup=0)
+    loop_ms = cuda_ms(lambda: [KQ.kv_append(
+        loop, k[:, i:i + 1].contiguous(), v[:, i:i + 1].contiguous(), pol,
+        ak, av) for i in range(CHUNK)], iters=1, warmup=1)
+    del caches, route, plain, loop
+    torch.cuda.empty_cache()
+    return {"hkv": hkv, "d": d, "max_len": MAX_LEN, "prompt": CHUNK_PROMPT,
+            "chunks": chunks, "bulk_launches": launches,
+            "timed": {"t0": t0, "n_valid": CHUNK, "ms": ms,
+                      "bytes": nbytes, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bound_share": bound_ms / ms,
+                      "plain_ms": plain_ms, "kv_append_loop_ms": loop_ms,
+                      "timing": "route: device time rotating over "
+                                f"{L2_COPIES} cache copies; plain token "
+                                "loop and kv_append loop: one call between "
+                                "CUDA events (host-bound)"}}
+
+
+def _check_chunked_path(cfg, eng, counts, n_evicting, what):
+    """The main path's identities with chunked admission: two bulk
+    kv_quant launches a layer per evicting chunk, one kv_append a layer per
+    decode step on the layout's decode_attn kernel, one replay per step, no
+    plain call and no graph miss."""
+    steps = eng.n_decode_steps
+    kq, da = counts["kv_quant"], counts["decode_attn"]
+    mode = "pooled" if eng.stats()["pooled"] else "kernel"
+    check(kq["kernel"] == 2 * cfg.n_layers * n_evicting,
+          f"{what}: bulk kv_quant launches {kq['kernel']} != 2 x layers x "
+          f"evicting chunks = {2 * cfg.n_layers * n_evicting}")
+    check(kq["append"] == cfg.n_layers * steps,
+          f"{what}: kv_append launches {kq['append']} != layers x steps = "
+          f"{cfg.n_layers * steps}")
+    check(da[mode] == cfg.n_layers * steps and sum(da.values()) == da[mode],
+          f"{what}: decode_attn launches {da} != layers x steps on the "
+          f"{mode} kernel alone")
+    check(kq["plain"] == kq["append_plain"] == kq["chunk_plain"] == 0,
+          f"{what}: a plain version ran on the main path: {counts}")
+    rep = eng.warmup_report()
+    check(rep["replays"] == steps and rep["post_warmup_misses"] == 0,
+          f"{what}: {rep['replays']} replays for {steps} steps, misses "
+          f"{rep['cold_names']}")
+
+
+def _chunked_serve(state, cfg, pool_blocks):
+    """(b) The serve phase's requests through a warmed chunked Engine; the
+    final-chunk logits of each request kept by rid."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    eng, warm = _graph_engine(state, cfg, pool_blocks, prefill_chunk=CHUNK)
+    logits = {}
+    finish = eng._finish_prefill
+
+    def keep(job, lg):
+        logits[job.handle.rid] = lg[0, -1].float().cpu()
+        finish(job, lg)
+    eng._finish_prefill = keep
+    _, reqs = _serve_requests(cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    what = f"serve_chunked {'pooled' if pool_blocks else 'striped'}"
+    _check_chunked_path(cfg, eng, counts, _evicting_chunks(SERVE_LENS), what)
+    check(all(h.finished and h.finish_reason == "length"
+              and len(h.tokens) == SERVE_NEW for h in handles),
+          f"{what}: not every request finished: "
+          f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
+    if pool_blocks:
+        eng.check_invariants()
+    ttft = [(h.first_token_time - h.submit_time) * 1e3 for h in handles]
+    tokens = sum(len(h.tokens) for h in handles)
+    return ([list(h.tokens) for h in handles], [logits[h.rid]
+                                                 for h in handles],
+            {"warmup": warm, "wall_s": wall, "tokens": tokens,
+             "tokens_per_s": tokens / wall, "decode_steps":
+             eng.n_decode_steps, "ttft_ms": _spread(ttft),
+             "buckets_run": list(eng.prefill_shapes), "launches": counts})
+
+
+def _open_loop_run(state, cfg, prefill_chunk):
+    """(c) serve_graph (d)'s open-loop trace on a warmed pooled async
+    Engine, chunked or whole-prompt: the launch identities, every request
+    finished, a clean audit; the SLA summary."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (MetricsRecorder, poisson_trace,
+                                     run_open_loop)
+    eng, _ = _graph_engine(state, cfg, 768, async_host=True,
+                           prefill_chunk=prefill_chunk)
+    prefills = _counted_prefills(eng)
+    trace = poisson_trace(_open_loop_spec(cfg))
+    rec = MetricsRecorder()
+    reset_launch_counts()                                    # main path only
+    handles, makespan = run_open_loop(eng, trace, rec)
+    counts = launch_counts()
+    what = f"serve_chunked open loop chunk={prefill_chunk}"
+    if prefill_chunk:
+        _check_chunked_path(cfg, eng, counts, _evicting_chunks(
+            [len(a.request.prompt) for a in trace], prefill_chunk), what)
+    else:
+        _check_graph_path(cfg, eng, counts, prefills, what)
+    check(all(h.finished and h.finish_reason == "length"
+              and len(h.tokens) == a.request.max_new
+              for h, a in zip(handles, trace)),
+          f"{what}: not every request finished")
+    eng.check_invariants()
+    eng.close()
+    s = rec.summary(sla_ttft_ms=SLA_TTFT_MS, sla_tpot_ms=SLA_TPOT_MS)
+    out = {k: s[k] for k in ("ttft_ms", "tpot_ms", "queue_wait_ms",
+                             "e2e_ms")}
+    longest = [(h.first_token_time - h.submit_time) * 1e3
+               for h, a in zip(handles, trace)
+               if len(a.request.prompt) == max(len(b.request.prompt)
+                                               for b in trace)]
+    out.update(makespan_s=makespan, decode_steps=eng.n_decode_steps,
+               ttft_ms_longest_prompts=float(np.mean(longest)),
+               attainment=s.get("goodput", {}).get("attainment"))
+    return out
+
+
+def _open_loop_spec(cfg):
+    from repro_torch.serving import WorkloadSpec
+    return WorkloadSpec(n_requests=16, arrival_rate=2.0,
+                        prompt_lens=(512, 1024, 2048, 3000),
+                        max_news=(16, 32, 64), shared_prefix_ratio=0.5,
+                        shared_prefix_len=256, vocab=cfg.vocab_size, seed=0)
+
+
+def _prefill_ms_both_ways(state, cfg):
+    """Synced host ms of the 3000-token prompt's prefill, whole
+    (``prefill_model``) and chunked (six ``prefill_chunk`` calls, each
+    timed), alternating whole, chunked, chunked, whole."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    params = state["params"]
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                               CHUNK_PROMPT)
+    st = T.prefill_chunk_init(cfg, PAPER_POLICY, MAX_LEN, MAX_LEN,
+                              dtype=torch.bfloat16, device=dev)
+
+    def whole():
+        toks = torch.as_tensor(prompt[None], device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.prefill_model(params, cfg, toks, PAPER_POLICY, max_len=MAX_LEN,
+                        backend="cuda")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def chunked():
+        for leaf in st["caches"]["scan"].values():
+            leaf.zero_()
+        per = []
+        for t0, n in _chunk_plan([CHUNK_PROMPT]):
+            toks = np.zeros(CHUNK, np.int64)
+            toks[:n] = prompt[t0:t0 + n]
+            toks = torch.as_tensor(toks[None], device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            T.prefill_chunk(params, cfg, toks, st, PAPER_POLICY, t0, n,
+                            backend="cuda")
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t) * 1e3)
+        return per
+
+    whole()                                                   # warm-up
+    runs = {"whole": [], "chunked": []}
+    for name in ("whole", "chunked", "chunked", "whole"):
+        runs[name].append(whole() if name == "whole" else chunked())
+    del st
+    torch.cuda.empty_cache()
+    return {"whole_ms": runs["whole"],
+            "chunked_ms": [sum(p) for p in runs["chunked"]],
+            "chunked_ms_per_chunk": [[round(x, 2) for x in p]
+                                     for p in runs["chunked"]],
+            "order": "whole, chunked, chunked, whole (synced host ms)"}
+
+
+def phase_serve_chunked(state):
+    import torch
+    from repro_torch import configs
+    cfg = configs.get("llama2_7b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    append = _chunk_append_case(gen, dev)
+    # (b) chunked engines, striped then pooled
+    s_streams, s_logits, striped = _chunked_serve(state, cfg, None)
+    p_streams, p_logits, pooled = _chunked_serve(state, cfg, 768)
+    same = [a == b for a, b in zip(p_streams, s_streams)]
+    check(all(same), f"serve_chunked: pooled streams differ from striped "
+          f"chunked streams (request equal: {same})")
+    whole = [state["serve_logits"][i] for i in range(len(SERVE_LENS))]
+    rel = [float((c - w).norm() / w.norm()) for c, w in zip(s_logits, whole)]
+    top1 = [bool(c.argmax() == w.argmax()) for c, w in zip(s_logits, whole)]
+    check(max(rel) <= LOGIT_REL_TOL and all(
+        bool(torch.isfinite(c).all()) for c in s_logits),
+          f"serve_chunked: final-chunk logits vs whole-prompt relative L2 "
+          f"{max(rel):.4f} > {LOGIT_REL_TOL}")
+    streams_equal = [a == b for a, b in zip(s_streams,
+                                            state["serve_streams"])]
+    for run in (striped, pooled):
+        kq, da = run["launches"]["kv_quant"], run["launches"]["decode_attn"]
+        state["launches"]["kv_quant"] += kq["kernel"]
+        state["launches"]["kv_append"] += kq["append"]
+        state["launches"]["decode_attn"] += da["kernel"]
+        state["launches"]["decode_attn_pooled"] += da["pooled"]
+    prefill = _prefill_ms_both_ways(state, cfg)
+    # (c) the open-loop trace both ways, alternating
+    loops = {"whole": [], "chunked": []}
+    for name in ("chunked", "whole", "whole", "chunked"):
+        loops[name].append(_open_loop_run(state, cfg,
+                                          CHUNK if name == "chunked" else
+                                          None))
+    tm = state["kv_quant"]
+    timed = append["timed"]
+    tm.update(chunk_ms=timed["ms"], chunk_bound_ms=timed["bound_ms"],
+              chunk_plain_ms=timed["plain_ms"], chunk_rows=CHUNK)
+    emit({"phase": "serve_chunked", "arch": cfg.name, "max_len": MAX_LEN,
+          "prefill_chunk": CHUNK, "chunk_append": append,
+          "engines": {"striped": striped, "pooled": pooled,
+                      "pooled_streams_equal_striped": True,
+                      "evicting_chunks": _evicting_chunks(SERVE_LENS),
+                      "final_logits_rel_l2_vs_whole": rel,
+                      "final_logits_rel_tol": LOGIT_REL_TOL,
+                      "top1_agreement_vs_whole": sum(top1) / len(top1),
+                      "streams_equal_whole": streams_equal},
+          "prefill_3000": prefill,
+          "open_loop": {"spec": _spec_dict(_open_loop_spec(cfg)),
+                        "order": "chunked, whole, whole, chunked",
+                        "chunked": loops["chunked"],
+                        "whole": loops["whole"]}})
 
 
 def _spec_dict(spec):
@@ -1375,7 +1747,8 @@ def main(argv=None) -> int:
     seconds = {}
     for phase in (phase_env, phase_kv_quant, phase_kv_append,
                   phase_decode_attn, phase_decode_attn_pooled, phase_serve,
-                  phase_serve_pooled, phase_serve_graph):
+                  phase_serve_pooled, phase_serve_graph,
+                  phase_serve_chunked):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

@@ -11,7 +11,8 @@ A cache is a plain dict of tensors with the reference's key names
 (``length``, ``sink_k``, ``win_k``, ``qk_codes_hi``, ...), laid out
 ``(B, S, H_kv, ...)``; ``length`` is per-slot ``(B,)`` int32.
 
-Unlike the reference, :func:`decode_append`, :func:`reset_slot`,
+Unlike the reference, :func:`decode_append`,
+:func:`prefill_chunk_append`, :func:`reset_slot`,
 :func:`insert_slot`, :func:`pool_insert_blocks` and :func:`pool_copy_block`
 update the tensors **in place** (and return the same dict), so a layer's
 cache may be a view into a layer-stacked buffer.  :func:`prefill`
@@ -426,6 +427,27 @@ def decode_append(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
             _put_tok_where(cache[buf], sidx, x.to(cache[buf].dtype),
                            is_sink & ok)
     cache["length"].copy_(t + ok.to(t.dtype))
+    return cache
+
+
+def prefill_chunk_append(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+                         policy: QuantPolicy, n_valid,
+                         alpha_k: Optional[torch.Tensor] = None,
+                         alpha_v: Optional[torch.Tensor] = None,
+                         quant_fn: Optional[QuantFn] = None) -> Cache:
+    """In place: append a prefill chunk (k/v (B, C, H_kv, D)) token by
+    token through :func:`decode_append` (DESIGN.md §7), so every chunk
+    token follows the decode protocol: it enters the sinks or the window,
+    and the token it evicts is quantized into its packed slot.  Per-token
+    group quantization makes each packed row independent of when it was
+    quantized.  ``n_valid`` (scalar or (B,)): real tokens in the chunk;
+    slots at or past it are bucket padding and append nothing."""
+    b, c = k.shape[:2]
+    nv = torch.as_tensor(n_valid, device=k.device).expand(b)
+    _, valid = seg.chunk_segment(0, nv, c, device=k.device)    # (B, C)
+    for i in range(c):
+        decode_append(cache, k[:, i:i + 1], v[:, i:i + 1], policy, alpha_k,
+                      alpha_v, quant_fn=quant_fn, valid=valid[:, i])
     return cache
 
 

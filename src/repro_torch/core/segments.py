@@ -75,6 +75,21 @@ def window_segment(window: int, n_sink: int, length
     return pos, stored
 
 
+def chunk_segment(t0, n_valid, size: int, device=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Positions/valid-mask of a prefill chunk of ``size`` bucket slots
+    (DESIGN.md §7): slot ``i`` holds absolute token ``t0 + i`` and is real
+    iff ``i < n_valid``.  Scalar ``t0``/``n_valid`` give ``(size,)``,
+    per-slot ``(B,)`` ones give ``(B, size)``."""
+    t0 = _t(t0, device)
+    n_valid = _t(n_valid, t0.device)
+    i = torch.arange(size, dtype=torch.int32, device=t0.device)
+    pos = ((_col(t0) if t0.ndim else t0) + i).to(torch.int32)
+    valid = i < (_col(n_valid) if n_valid.ndim else n_valid)
+    shape = torch.broadcast_shapes(pos.shape, valid.shape)
+    return pos.expand(shape), valid.expand(shape)
+
+
 def block_live(ok: torch.Tensor, block_s: int) -> torch.Tensor:
     """(B, S) attendability -> (B, S // block_s) "block holds a live token"
     (the single source of decode block pruning; DESIGN.md §4)."""

@@ -17,6 +17,11 @@ quantizer:
   update), reading ``length`` on the device, so it is capturable in a CUDA
   graph.  CPU tensors take :func:`kv_append_plain`, which IS
   ``decode_append`` with the plain quantizer.
+* :func:`kv_append_chunk` — ``kv_cache.prefill_chunk_append`` of a
+  chunked-prefill chunk (DESIGN.md §7) as bulk gathers and writes around
+  ONE bulk ``kv_quant`` launch per plane (K, V) per layer, instead of a
+  launch per token; CPU tensors take :func:`kv_append_chunk_plain`, the
+  token loop.
 
 What bounds each on an H100, and the design: see the note at the top of
 ``csrc/kv_quant.cu``.  The append's argument checks, which need no card,
@@ -24,7 +29,8 @@ live in :func:`append_launch_args`.
 
 ``LAUNCHES["kernel"]`` / ``["plain"]`` count bulk kernel launches / plain
 calls; ``LAUNCHES["append"]`` / ``["append_plain"]`` the same for the
-append.
+append; ``LAUNCHES["chunk_plain"]`` counts plain chunk appends (the chunk
+append's kernel launches are the bulk ones).
 """
 from __future__ import annotations
 
@@ -34,11 +40,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import _build
-from ..core.kv_cache import decode_append, is_pooled
+from ..core.kv_cache import decode_append, is_pooled, prefill_chunk_append
 from ..core.policy import QuantPolicy, as_layer_policy
 from ..core.quant import plane_layout, quantize_groups
 
-LAUNCHES = {"kernel": 0, "plain": 0, "append": 0, "append_plain": 0}
+LAUNCHES = {"kernel": 0, "plain": 0, "append": 0, "append_plain": 0,
+            "chunk_plain": 0}
 _C = ctypes
 _FP_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -334,3 +341,152 @@ def kv_append(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     _build.check(rc, "kv_append")
     LAUNCHES["append"] += 1
     return cache
+
+
+# ------------------------------------------------------ chunk append
+
+def kv_append_chunk_plain(cache, k: torch.Tensor, v: torch.Tensor,
+                          policy: QuantPolicy, t0: int, n_valid: int,
+                          alpha_k=None, alpha_v=None):
+    """Plain version of :func:`kv_append_chunk`: the token loop
+    ``kv_cache.prefill_chunk_append`` with the plain quantizer, in place,
+    on any device (``t0`` is implied by ``cache["length"]``)."""
+    LAUNCHES["chunk_plain"] += 1
+    return prefill_chunk_append(cache, k, v, policy, n_valid, alpha_k,
+                                alpha_v)
+
+
+def chunk_evictions(policy: QuantPolicy, t0: int, n_valid: int
+                    ) -> Tuple[int, int]:
+    """Absolute positions ``[lo, hi)`` that appending tokens ``[t0, t0 +
+    n_valid)`` quantizes into the packed region: the tokens they push out
+    of the window, or (no window) the non-sink tokens themselves; empty
+    when ``lo >= hi``."""
+    policy = as_layer_policy(policy)
+    w, ns = policy.window, policy.n_sink
+    return max(ns, t0 - w), t0 + n_valid - w
+
+
+def kv_append_chunk(cache, k: torch.Tensor, v: torch.Tensor,
+                    policy: QuantPolicy, t0: int, n_valid: int,
+                    alpha_k=None, alpha_v=None, quant_fn=None):
+    """In place: append tokens ``[t0, t0 + n_valid)`` of a prefill chunk
+    (k/v (1, C, H, D), rows past ``n_valid`` bucket padding) to a batch-1
+    striped cache at length ``t0`` — the token loop's result
+    (:func:`kv_append_chunk_plain`) byte for byte, by bulk writes:
+
+    1. gather the rows the chunk evicts, in position order
+       (:func:`chunk_evictions`): positions before ``t0`` from the ring at
+       slot ``(p - n_sink) % window``, later ones from the chunk — before
+       the ring is overwritten;
+    2. quantize them with ONE bulk ``kv_quant`` launch per plane (K, V)
+       with the per-head clip factors; a chunk that evicts nothing
+       launches nothing;
+    3. write the packed rows to the contiguous range ``[lo - n_sink, hi -
+       n_sink)``;
+    4. write the last ``min(window, ·)`` chunk tokens to the ring, any
+       before ``n_sink`` to the sinks, then ``length``.
+
+    Each write covers distinct indices, so no result rests on the order
+    of duplicate-index writes.  Per-token group quantization makes a
+    packed row independent of when it is quantized, hence the byte
+    equality.  ``t0``/``n_valid`` are host ints (the caller's mirror of
+    ``length``).
+
+    CUDA tensors quantize with the bulk kernel; CPU tensors take
+    :func:`kv_append_chunk_plain` unless ``quant_fn`` (the
+    ``kv_cache.prefill`` quantizer contract) is given, which runs these
+    steps with it on any device.  An fp16 policy raises
+    NotImplementedError, and so does a pooled cache or a batch other than
+    1 (ValueError), or ``t0 + n_valid`` past the cache's capacity."""
+    if quant_fn is None:
+        if k.device.type == "cpu":
+            return kv_append_chunk_plain(cache, k, v, policy, t0, n_valid,
+                                         alpha_k, alpha_v)
+        if k.device.type != "cuda":
+            raise ValueError(f"kv_append_chunk: unsupported device "
+                             f"{k.device}")
+        from .ops import make_kernel_quant_fn
+        quant_fn = make_kernel_quant_fn()
+    policy = as_layer_policy(policy)
+    if policy.is_fp16:
+        raise NotImplementedError(
+            "kv_append_chunk: an fp16 policy has nothing to quantize; the "
+            "card path has no fp16 mode (use kv_cache.prefill_chunk_append "
+            "off the card)")
+    if is_pooled(cache):
+        raise ValueError("kv_append_chunk grows a striped cache; pooled "
+                         "caches take their blocks from it at insert")
+    if k.ndim != 4 or k.shape[0] != 1 or v.shape != k.shape:
+        raise ValueError(f"kv_append_chunk wants k/v (1, C, H, D), got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    t0, n_valid = int(t0), int(n_valid)
+    w, ns = policy.window, policy.n_sink
+    sq = cache["qk_codes_hi"].shape[1]
+    end = t0 + n_valid
+    if w == 0 and sq == 0:
+        raise ValueError("kv_append_chunk: no window and no packed region")
+    if t0 < 0 or not 0 <= n_valid <= k.shape[1] or end > ns + w + sq:
+        raise ValueError(f"kv_append_chunk: tokens [{t0}, {end}) of a "
+                         f"{k.shape[1]}-slot chunk do not fit a cache of "
+                         f"{ns + w + sq} tokens")
+    if n_valid == 0:
+        return cache
+    gsz = min(policy.group_size, k.shape[-1])
+    lo, hi = chunk_evictions(policy, t0, n_valid)
+    if w == 0 and end <= ns:
+        # the token loop quantizes each sink token into packed row 0 (its
+        # index clamps there) when there is no window; the last one stays
+        lo, hi = end - 1, end
+    if lo < hi:
+        rows = []
+        for name, x in (("k", k), ("v", v)):
+            parts = []
+            if lo < t0:                   # still in the ring: (p - ns) % w
+                parts += _ring_rows(cache[f"win_{name}"], lo, min(hi, t0),
+                                    ns, w)
+            if hi > t0:
+                part = x[:, max(lo, t0) - t0:hi - t0]
+                parts.append(part.to(cache[f"win_{name}"].dtype) if w
+                             else part)
+            rows.append(parts[0] if len(parts) == 1 else
+                        torch.cat(parts, dim=1))
+        u0 = max(lo - ns, 0)
+        for pref, bits, alpha, x in (("qk", policy.bits_k, alpha_k, rows[0]),
+                                     ("qv", policy.bits_v, alpha_v, rows[1])):
+            for kk, vv in quant_fn(x, bits, gsz, alpha,
+                                   policy.fp8_meta).items():
+                dst = cache[f"{pref}_{kk}"]
+                dst[:, u0:u0 + vv.shape[1]] = vv.to(dst.dtype)
+    if w > 0 and end > ns:
+        a = max(ns, end - w, t0)          # the ring keeps [a, end)
+        for name, x in (("k", k), ("v", v)):
+            ring = cache[f"win_{name}"]
+            for p0, p1 in _ring_runs(a, end, ns, w):
+                s0 = (p0 - ns) % w
+                ring[:, s0:s0 + p1 - p0] = x[:, p0 - t0:p1 - t0].to(
+                    ring.dtype)
+    if ns > 0 and t0 < ns:
+        e = min(ns, end)
+        for name, x in (("k", k), ("v", v)):
+            sink = cache[f"sink_{name}"]
+            sink[:, t0:e] = x[:, :e - t0].to(sink.dtype)
+    cache["length"].fill_(end)
+    return cache
+
+
+def _ring_runs(p0: int, p1: int, ns: int, w: int):
+    """Positions ``[p0, p1)`` (at most ``w`` of them) split where their
+    ring slots ``(p - ns) % w`` wrap: one or two runs of contiguous
+    slots."""
+    cut = p0 + (w - (p0 - ns) % w)
+    return [(p0, p1)] if cut >= p1 else [(p0, cut), (cut, p1)]
+
+
+def _ring_rows(ring: torch.Tensor, p0: int, p1: int, ns: int, w: int):
+    """The ring rows of positions ``[p0, p1)``, in position order."""
+    out = []
+    for a, b in _ring_runs(p0, p1, ns, w):
+        s0 = (a - ns) % w
+        out.append(ring[:, s0:s0 + b - a])
+    return out

@@ -3,11 +3,17 @@
     python -m repro_torch.launch.serve --arch llama2_7b [--smoke] [--device cpu]
 
 Builds random params from a seed (bf16 on the card, f32 on the CPU), the
-paper-style policy from the flags, and serves ``--requests`` seeded-prompt
-requests (default: two admission waves of ``--batch`` slots) through the
-port's :class:`~repro_torch.serving.Engine`, then prints the latency and
-time-to-first-token percentiles the reference CLI prints.  Without
+paper-style policy from the flags, and serves ``--requests`` requests
+(default: two admission waves of ``--batch`` slots) through the port's
+:class:`~repro_torch.serving.Engine`, then prints the latency and
+time-to-first-token percentiles the reference CLI prints.  Prompts come
+from ``SyntheticCorpus(vocab, seed=0)``, request ``i`` sampled with
+``np.random.default_rng(i)``, as the reference CLI draws them.  Without
 ``--device cpu`` it runs on the GPU and raises if there is none.
+
+``--prefill-chunk N`` streams each prompt through the cache in chunks of
+at most N tokens (DESIGN.md §7), one chunk per scheduler tick between
+decode chunks; 0 prefills whole prompts.
 
 ``--pool-blocks N`` serves from the paged block pool (DESIGN.md §9) of N
 ``--pool-block-tokens``-token blocks (max_len is rounded up so the packed
@@ -41,6 +47,7 @@ import torch
 from .. import configs
 from ..core.policy import QuantPolicy
 from ..core.quant import packed_nbytes
+from ..data import SyntheticCorpus
 from ..device import resolve_device
 from ..kernels import launch_counts
 from ..models import transformer as T
@@ -82,6 +89,11 @@ def main(argv=None):
                     help="cuda | reference (default: cuda on a card)")
     ap.add_argument("--steps-per-sync", type=int, default=8,
                     help="decode tokens per host sync")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill (DESIGN.md §7): stream prompts "
+                         "through the cache in chunks of at most this many "
+                         "tokens, one chunk per scheduler tick (0 = "
+                         "whole-prompt prefill)")
     ap.add_argument("--pool-blocks", type=int, default=0,
                     help="paged KV block pool of this many blocks "
                          "(DESIGN.md §9); 0 serves striped")
@@ -123,6 +135,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     params = T.init_params(cfg, seed=args.seed, dtype=dtype, device=dev)
     n_req = args.requests or 2 * args.batch
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
     rng = np.random.default_rng(args.seed)
     jit = args.max_new_jitter
     reqs = []
@@ -133,7 +146,7 @@ def main(argv=None):
         if args.prompt_jitter:
             plen = max(1, plen + int(rng.integers(-args.prompt_jitter,
                                                   args.prompt_jitter + 1)))
-        prompt = np.random.default_rng(i).integers(0, cfg.vocab_size, plen)
+        prompt = corpus.sample(plen, np.random.default_rng(i))
         reqs.append(Request(prompt=prompt, max_new=max_new,
                             temperature=args.temperature, eos_id=args.eos_id,
                             seed=i))
@@ -146,6 +159,7 @@ def main(argv=None):
         max_len += -(max_len - policy.n_sink - policy.window) % bt
     eng = Engine(params, cfg, policy, batch_slots=args.batch, max_len=max_len,
                  backend=args.backend, steps_per_sync=args.steps_per_sync,
+                 prefill_chunk=args.prefill_chunk or None,
                  pool_blocks=args.pool_blocks or None,
                  pool_block_tokens=args.pool_block_tokens,
                  pool_memory_bytes=int(args.pool_memory_mb * 2 ** 20) or None,
@@ -188,6 +202,10 @@ def main(argv=None):
     print(f"time-to-first-token ms: p50={_pct(ttft, 50):.0f} "
           f"p90={_pct(ttft, 90):.0f} p99={_pct(ttft, 99):.0f} "
           f"max={max(ttft, default=0):.0f}")
+    if args.prefill_chunk:
+        print(f"chunked prefill: chunk={args.prefill_chunk} "
+              f"buckets={eng.chunk_buckets} buckets run="
+              f"{eng.prefill_shapes}")
     if pooled:
         st = eng.stats()
         eng.check_invariants()
@@ -247,6 +265,10 @@ def _open_loop(eng, args, cfg, n_req, policy):
              if "pool_used_max" in s else ""))
     st = eng.stats()
     print(f"  counters: {st['counters']}")
+    if eng.prefill_chunk:
+        print(f"  chunked prefill: chunk={eng.prefill_chunk} "
+              f"buckets={eng.chunk_buckets} buckets run="
+              f"{eng.prefill_shapes}")
     if "host" in st:
         print(f"  host loop: {st['host']}")
     if "goodput" in s:

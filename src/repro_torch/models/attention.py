@@ -3,7 +3,9 @@ reference-decode paths of ``repro.models.attention``).
 
 * :func:`prefill_block_attention` — full-precision causal prefill with the
   reference's FIXED 128-wide key-block online-softmax loop (DESIGN.md §7:
-  chunked prefill depends on this reduction structure).
+  chunked prefill depends on this reduction structure), and
+  :func:`prefill_chunk_attention`, the same loop for a chunk of queries
+  over the chunked-prefill workspace.
 * :func:`decode_attention_skvq` — the ``"reference"`` backend: dequantize
   the packed region in the compute dtype and attend with the shared flash
   partials (DESIGN.md §4); a pooled cache is unpooled first (§9).  Its
@@ -80,6 +82,29 @@ def prefill_block_attention(q, k, v, cfg: ArchConfig, *, pos_q=None,
         m, l = mn, l * wa + lb * wb
     o = num / l.clamp_min(1e-30)[..., None]                        # B,K,G,S,D
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def prefill_chunk_attention(q, ws_k, ws_v, pos_q, cfg: ArchConfig,
+                            window: Optional[int] = None,
+                            frontier: Optional[int] = None):
+    """A chunk of prompt queries against the prefill workspace (DESIGN.md
+    §7): :func:`prefill_block_attention` over ``ws_k``/``ws_v`` (B, cap,
+    Hkv, D), token ``t`` at row ``t``, with the chunk's absolute positions
+    ``pos_q`` (C,) from ``segments.chunk_segment``.
+
+    Causality alone keeps every row at or past the written frontier (stale
+    rows of a recycled workspace included) away from every valid query.
+    ``frontier`` (host int ``t0 + n_valid``) cuts the key loop after the
+    last block that holds a written row: every later block is fully
+    masked for every valid query and would merge with weight
+    ``exp(_NEG - m) == 0``, an exact no-op, so valid rows are bitwise the
+    same as over the whole workspace.  Bucket-padding query rows differ;
+    their outputs are discarded."""
+    if frontier is not None:
+        rows = -(-int(frontier) // PREFILL_BLOCK) * PREFILL_BLOCK
+        ws_k, ws_v = ws_k[:, :rows], ws_v[:, :rows]
+    return prefill_block_attention(q, ws_k, ws_v, cfg, pos_q=pos_q,
+                                   window=window)
 
 
 def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,

@@ -13,9 +13,10 @@ fp window, so attention and quantization agree on the packed layout.
   (``kernels.ops.cuda_decode_attention``), ALWAYS the bulk ``kv_quant``
   kernel as its prefill quantizer, and the fused ``kv_append`` kernel
   (one launch per layer) as its decode append, so every kernel is on the
-  main path.  The counterpart of the reference's ``PallasBackend``; the
-  default on a CUDA device.  On CPU tensors the kernels run their plain
-  versions.
+  main path; chunked prefill appends through ``kv_append_chunk`` (one
+  bulk ``kv_quant`` launch per plane per layer per chunk).  The
+  counterpart of the reference's ``PallasBackend``; the default on a CUDA
+  device.  On CPU tensors the kernels run their plain versions.
 """
 from __future__ import annotations
 
@@ -91,6 +92,19 @@ class ReferenceBackend:
         from ..core.kv_cache import decode_append
         return decode_append
 
+    def chunk_append_fn(self, policy: QuantPolicy) -> Callable:
+        """The chunked-prefill append, called ``fn(cache, k, v, policy, t0,
+        n_valid, alpha_k, alpha_v)``: ``kv_cache.prefill_chunk_append``,
+        the token loop with the plain quantizer (DESIGN.md §7)."""
+        as_layer_policy(policy)
+        from ..core.kv_cache import prefill_chunk_append
+
+        def chunk_append(cache, k, v, policy, t0, n_valid, alpha_k=None,
+                         alpha_v=None):
+            return prefill_chunk_append(cache, k, v, policy, n_valid,
+                                        alpha_k, alpha_v)
+        return chunk_append
+
     def info(self) -> dict:
         """Resolved runtime facts (DESIGN.md §4)."""
         return {"name": self.name, "kernels": False}
@@ -127,6 +141,14 @@ class CudaBackend:
         as_layer_policy(policy)
         from ..kernels.kv_quant import kv_append
         return kv_append
+
+    def chunk_append_fn(self, policy: QuantPolicy) -> Callable:
+        """``kernels.kv_quant.kv_append_chunk``: a chunk's evicted rows
+        quantized by one bulk ``kv_quant`` launch per plane (DESIGN.md
+        §7)."""
+        as_layer_policy(policy)
+        from ..kernels.kv_quant import kv_append_chunk
+        return kv_append_chunk
 
     def info(self) -> dict:
         """Resolved runtime facts (DESIGN.md §4)."""

@@ -16,8 +16,10 @@ path of ``repro.models.transformer``).
   DESIGN.md §9) and each layer works on views, so :func:`decode_step`
   updates them **in place**.
 
-Only the dense family with a uniform policy is ported; ``unroll``,
-``chunk``, schedules and chunked prefill come later.
+Chunked prefill (DESIGN.md §7: :func:`prefill_chunk_init`,
+:func:`prefill_chunk`) streams a prompt through the cache a chunk at a
+time.  Only the dense family with a uniform policy is ported; ``unroll``,
+``chunk`` and schedules come later.
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ import torch
 from .config import ArchConfig
 from . import layers as L
 from . import backends as bk
-from .attention import prefill_block_attention
+from .attention import prefill_block_attention, prefill_chunk_attention
 from ..core.policy import QuantPolicy, as_layer_policy
 from ..core import kv_cache as kvc
+from ..core import segments as seg
 from ..core.quant import n_meta_groups
 from ..device import resolve_device
 
@@ -200,6 +203,102 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             cal["alpha_k"][i], cal["alpha_v"][i], quant_fn=quant_fn))
     x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
     return L.unembed(x[:, -1:], params, cfg), {"scan": _stack_caches(caches)}
+
+
+# ========================================================== chunked prefill
+
+def _check_chunkable(cfg: ArchConfig):
+    """Chunked prefill runs the dense family without M-RoPE (the
+    reference's ``_check_chunkable``)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"chunked prefill supports the dense family only, got "
+            f"family={cfg.family!r}: use whole-prompt prefill")
+    if getattr(cfg, "mrope_sections", None):
+        raise NotImplementedError(
+            "chunked prefill does not support M-RoPE position streams")
+
+
+def prefill_chunk_init(cfg: ArchConfig, policy: QuantPolicy, max_len: int,
+                       cap: int, batch: int = 1, dtype=torch.float32,
+                       device=None) -> Dict:
+    """Empty chunked-prefill state (DESIGN.md §7): ``{"caches": {"scan":
+    zeroed layer-stacked caches (L, B, ...)}, "ws": {"scan": {"k", "v":
+    (L, B, cap, H_kv, D)}}}`` in ``dtype`` on ``device``.  The workspace
+    holds the prompt's unpermuted post-RoPE K/V at row = position, for the
+    full-precision chunk attention; ``cap >= max_len`` always suffices."""
+    _check_chunkable(cfg)
+    policy = as_layer_policy(policy)
+    if cap < max_len:
+        raise ValueError(f"workspace cap ({cap}) must be >= max_len "
+                         f"({max_len})")
+    dev = resolve_device(device)
+    n = cfg.n_layers
+    shapes = kvc.cache_shapes(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                              policy, dtype)
+    ws = (n, batch, cap, cfg.n_kv_heads, cfg.head_dim)
+    return {"caches": {"scan": {k: torch.zeros((n,) + s, dtype=d, device=dev)
+                                for k, (s, d) in shapes.items()}},
+            "ws": {"scan": {"k": torch.zeros(ws, dtype=dtype, device=dev),
+                            "v": torch.zeros(ws, dtype=dtype, device=dev)}}}
+
+
+def _ws_write(ws: torch.Tensor, x: torch.Tensor, t0: int, n_valid: int):
+    """In place: the chunk's ``n_valid`` real rows of ``x`` (B, C, H, D)
+    into workspace rows ``[t0, t0 + n_valid)``; padding rows are never
+    written."""
+    ws[:, t0:t0 + n_valid] = x[:, :n_valid].to(ws.dtype)
+
+
+def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                  state: Dict, policy: QuantPolicy, t0: int, n_valid: int,
+                  calib: Optional[Dict] = None, dtype=None, backend=None):
+    """One prompt chunk against the SKVQ cache (DESIGN.md §7).
+
+    ``tokens`` (1, C): prompt tokens ``[t0, t0 + n_valid)`` padded to the
+    bucket C; ``t0``/``n_valid`` are host ints.  Per layer, in the
+    reference's order: project q/k/v with RoPE at ``t0 + i``, write the
+    real rows into the workspace, attend over it
+    (``prefill_chunk_attention``, full precision, cut at the frontier),
+    add the residual and the MLP, then append the permuted K/V to the
+    cache through the backend's ``chunk_append_fn``.  ``state`` (from
+    :func:`prefill_chunk_init`) is updated in place.  Returns (logits
+    (1, 1, V) of row ``n_valid - 1``, state): after the last chunk, the
+    prompt's last-token logits."""
+    _check_chunkable(cfg)
+    policy = as_layer_policy(policy)
+    t0, n_valid = int(t0), int(n_valid)
+    dev = tokens.device
+    backend = bk.resolve_backend(backend, dev)
+    append = backend.chunk_append_fn(policy)
+    params = _cast_params(params, dtype)
+    cal = _calib(calib, cfg, policy, dev)
+    x = L.embed(tokens, params["embed"], cfg.embed_scale)
+    if dtype is not None:
+        x = x.to(dtype)
+    b, c, _ = x.shape
+    pos, _ = seg.chunk_segment(t0, n_valid, c, device=dev)
+    rope = _rope_tables(cfg, pos)
+    group, ws = state["caches"]["scan"], state["ws"]["scan"]
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        cache = {k: v[i] for k, v in group.items()}
+        hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
+        q, k, v = _qkv(hn, p["attn"], cfg, rope)
+        _ws_write(ws["k"][i], k, t0, n_valid)
+        _ws_write(ws["v"][i], v, t0, n_valid)
+        attn = prefill_chunk_attention(q, ws["k"][i], ws["v"][i], pos, cfg,
+                                       window=_window(cfg, i),
+                                       frontier=t0 + n_valid)
+        x = x + attn.reshape(b, c, -1) @ p["attn"]["wo_attn"]
+        x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
+                      p["mlp"], cfg)
+        append(cache, _apply_perm(k, cal["perm_k"][i]).to(x.dtype),
+               _apply_perm(v, cal["perm_v"][i]).to(x.dtype), policy, t0,
+               n_valid, cal["alpha_k"][i], cal["alpha_v"][i])
+    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    last = x[:, max(0, min(n_valid, c) - 1)][:, None]
+    return L.unembed(last, params, cfg), state
 
 
 # ================================================================= decode

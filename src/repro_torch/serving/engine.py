@@ -4,9 +4,12 @@
 * :class:`Request` — prompt, max_new, temperature, eos_id, seed.
 * :class:`Engine` — ``submit() -> StreamHandle``, ``step()``, ``run()``
   over ``batch_slots`` decode lanes.  Admission prefills queued requests
-  whole-prompt (equal prompt lengths batch together) into free slots only;
-  retirement zeroes the slot.  Decode runs ``steps_per_sync`` tokens per
-  host sync (:func:`multi_decode`): tokens, EOS pinning and the per-slot
+  whole-prompt (equal prompt lengths batch together) into free slots only,
+  or, with ``prefill_chunk``, streams one prompt at a time through the
+  cache in bucket-padded chunks, at most one chunk per ``step()``
+  between decode chunks (DESIGN.md §7); retirement zeroes the slot.
+  Decode runs ``steps_per_sync`` tokens per host sync
+  (:func:`multi_decode`): tokens, EOS pinning and the per-slot
   ``live``/``done``/``bad`` flags stay on the device, and one copy per
   chunk brings them to the host.
 * :class:`ServeSession` — the lock-step array shim over :class:`Engine`.
@@ -39,10 +42,10 @@ attends through the block-table mode of the decode_attn kernel.
 Greedy streams match the reference engine token for token.  Sampling
 (temperature > 0) uses a per-slot ``torch.Generator`` seeded from the
 engine and request seeds, so a stream is reproducible per seed but is not
-``jax.random``'s.  Chunked prefill (with or without a pool), the host
-spill tier, preemption, deadlines, chaos injection, detokenization and the
-rest of the degradation ladder of the reference are not ported yet; the
-Engine does not accept their arguments.
+``jax.random``'s.  The host spill tier, preemption, deadlines, chaos
+injection, detokenization and the rest of the degradation ladder of the
+reference are not ported yet; the Engine does not accept their
+arguments.
 """
 from __future__ import annotations
 
@@ -194,6 +197,31 @@ class StreamHandle:
 
 # -------------------------------------------------------------------- engine
 
+def default_chunk_buckets(prefill_chunk: int) -> tuple:
+    """Power-of-2 bucket ladder ``(…, C/4, C/2, C)`` down to 8 (DESIGN.md
+    §7): every prompt runs as full-``C`` chunks plus one tail chunk padded
+    to the smallest bucket that fits it, at most 2x padding on the tail."""
+    out, b = [], prefill_chunk
+    while b >= 8:
+        out.append(b)
+        b //= 2
+    if not out:
+        out = [prefill_chunk]
+    return tuple(sorted(out))
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    """Chunked-prefill progress (DESIGN.md §7): ``handle`` prefills into
+    reserved slot ``slot``; ``pos`` prompt tokens are already in ``state``
+    (the growing caches + the fp workspace).  One job runs at a time,
+    advanced by at most one chunk per :meth:`Engine.step`."""
+    handle: StreamHandle
+    slot: int
+    pos: int
+    state: Dict
+
+
 class Engine:
     """Continuous-batching engine over ``batch_slots`` decode lanes
     (DESIGN.md §6).
@@ -206,6 +234,16 @@ class Engine:
     ``device`` defaults to CUDA and raises without a card unless
     ``device="cpu"``; params and calib move to it.  ``clock`` (default
     ``time.monotonic``) stamps every latency mark (DESIGN.md §11).
+
+    ``prefill_chunk`` (DESIGN.md §7) switches admission to chunked
+    prefill: one queued prompt at a time reserves a free slot and streams
+    through the SKVQ cache in chunks of at most ``prefill_chunk`` tokens,
+    each padded to a ``chunk_buckets`` size (default: the halving ladder
+    :func:`default_chunk_buckets`), at most one chunk per ``step()``
+    before the decode chunk, so a long prompt no longer stalls every
+    active stream for its whole prefill.  The caches and the workspace of
+    one job are recycled for the next.  With a pool, the job's prefix
+    keys are registered only once its blocks are on the device.
 
     ``pool_blocks`` switches the packed planes to the shared paged pool of
     that many ``pool_block_tokens``-token blocks (DESIGN.md §9); it needs
@@ -234,6 +272,7 @@ class Engine:
     def __init__(self, params, cfg: ArchConfig, policy, batch_slots: int,
                  max_len: int, calib=None, seed: int = 0, backend=None,
                  steps_per_sync: int = 8, dtype=None,
+                 prefill_chunk: Optional[int] = None, chunk_buckets=None,
                  pool_blocks: Optional[int] = None,
                  pool_block_tokens: int = 16,
                  pool_memory_bytes: Optional[int] = None,
@@ -243,6 +282,29 @@ class Engine:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if max_len < 1:
             raise ValueError(f"max_len must be >= 1, got {max_len}")
+        if prefill_chunk is None and chunk_buckets is not None:
+            raise ValueError("chunk_buckets requires prefill_chunk to be set")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, "
+                                 f"got {prefill_chunk}")
+            T._check_chunkable(cfg)       # fail at build time, not mid-serve
+            if chunk_buckets is None:
+                chunk_buckets = default_chunk_buckets(prefill_chunk)
+            chunk_buckets = tuple(sorted(int(b) for b in chunk_buckets))
+            if not chunk_buckets or chunk_buckets[-1] != prefill_chunk:
+                raise ValueError(
+                    f"chunk_buckets {chunk_buckets} must be non-empty and "
+                    f"its largest entry must equal prefill_chunk "
+                    f"({prefill_chunk})")
+            if chunk_buckets[0] < 1:
+                raise ValueError(f"chunk_buckets entries must be >= 1, "
+                                 f"got {chunk_buckets}")
+        self.prefill_chunk = prefill_chunk
+        self.chunk_buckets = chunk_buckets
+        self._prefill_job: Optional[_PrefillJob] = None
+        self._chunk_state: Optional[Dict] = None  # recycled between jobs
+        self._chunk_shapes: set = set()           # buckets run so far
         self.device = resolve_device(device)
         self.cfg = cfg
         self.policy = as_layer_policy(policy)
@@ -290,6 +352,8 @@ class Engine:
         self.pool_block_tokens = int(pool_block_tokens)
         self._pool: Optional[BlockPool] = None
         self._pending_insert: Dict[int, list] = {}  # slot -> miss pairs
+        # slot -> (key, phys) of a chunked job, registered once on device
+        self._pending_register: Dict[int, list] = {}
         self._hostlen = np.zeros((b,), np.int64)    # device length mirror
         self._stall_reason: Optional[str] = None
         if pool_blocks is None and pool_memory_bytes is not None:
@@ -385,6 +449,13 @@ class Engine:
         """Slots holding a request (DESIGN.md §6)."""
         return sum(h is not None for h in self._slot_handle)
 
+    @property
+    def prefill_shapes(self) -> tuple:
+        """Chunk buckets run so far (chunked-prefill mode; DESIGN.md §7):
+        always a subset of ``chunk_buckets``, however ragged the
+        traffic."""
+        return tuple(sorted(self._chunk_shapes))
+
     def now(self) -> float:
         """Current engine time from the injectable clock (DESIGN.md §11):
         what external callers (the load generator, metrics recorders)
@@ -418,11 +489,15 @@ class Engine:
            would, and capture ONE decode step (:func:`decode_one` on those
            caches, striped or pooled) as a CUDA graph; every later chunk
            replays it ``steps_per_sync`` times.
-        3. ``prompt_lens``: one throwaway batch-of-1 prefill per length
-           (PyTorch compiles nothing per shape, but cuBLAS and the
-           allocator settle at first use).
-        4. ``rehearse``: one throwaway request through the real scheduler
-           (prefill, admission, one replayed chunk, retirement).
+        3. Whole-prompt mode: one throwaway batch-of-1 prefill per
+           ``prompt_lens`` entry (PyTorch compiles nothing per shape, but
+           cuBLAS and the allocator settle at first use).  Chunked mode
+           (DESIGN.md §7): one throwaway chunk per ``chunk_buckets`` entry
+           on the recycled prefill state, which is then zeroed;
+           ``prompt_lens`` is not needed.
+        4. ``rehearse``: a throwaway request (one per chunk bucket in
+           chunked mode) through the real scheduler (prefill, admission,
+           one replayed chunk, retirement).
 
         The capture's warmup iterations and the rehearsal really run on
         the caches, so after each the caches are zeroed in place and the
@@ -458,12 +533,20 @@ class Engine:
         self._graphs.warm("decode_step", self._step, static)
         self._restore()
         t0 = self._clock()
-        for plen in prompt_lens or ():
-            T.prefill_model(
-                self.params, self.cfg,
-                torch.zeros((1, int(plen)), dtype=torch.int64, device=dev),
-                self.policy, calib=self.calib, max_len=self.max_len,
-                backend=self.backend)
+        if self.prefill_chunk is not None:
+            st = self._take_chunk_state()
+            for bucket in self.chunk_buckets:
+                self._run_chunk(st, np.zeros(bucket, np.int64), 0,
+                                min(bucket, self.max_len))
+            self._chunk_state = st        # zeroed when the next job takes it
+        else:
+            for plen in prompt_lens or ():
+                T.prefill_model(
+                    self.params, self.cfg,
+                    torch.zeros((1, int(plen)), dtype=torch.int64,
+                                device=dev),
+                    self.policy, calib=self.calib, max_len=self.max_len,
+                    backend=self.backend)
         self._warm_s["prefill_s"] = self._clock() - t0
         if rehearse:
             t0 = self._clock()
@@ -483,18 +566,22 @@ class Engine:
         return out
 
     def _rehearse(self):
-        """Run one tiny request through the real scheduler (DESIGN.md
-        §10)."""
-        plen = min(8, self.max_len - 2)
-        if plen < 1:
-            return
-        prompt = (np.arange(plen, dtype=np.int64) % 17) + 1
-        try:
-            h = self.submit(Request(prompt=prompt, max_new=2,
-                                    seed=0x7FFF0000))
-        except ValueError:
-            return                # e.g. a pool too small: nothing to run
-        self.run([h])
+        """Run tiny requests through the real scheduler (DESIGN.md §10):
+        one, or one per chunk bucket in chunked mode."""
+        if self.chunk_buckets is not None:
+            lens = [b for b in self.chunk_buckets if b + 2 <= self.max_len]
+        else:
+            lens = [p for p in (min(8, self.max_len - 2),) if p >= 1]
+        handles = []
+        for plen in lens:
+            prompt = (np.arange(plen, dtype=np.int64) % 17) + 1
+            try:
+                handles.append(self.submit(Request(
+                    prompt=prompt, max_new=2, seed=0x7FFF0000)))
+            except ValueError:
+                continue          # e.g. a pool too small: nothing to run
+        if handles:
+            self.run(handles)
 
     def _restore(self):
         """Zero the caches in place (the graph is bound to them) and start
@@ -511,6 +598,7 @@ class Engine:
         self._graphs.replays = 0
         self._tok[:] = 0
         self._hostlen[:] = 0
+        self._pending_register.clear()
         for k in self._counters:
             self._counters[k] = 0
         if self._host is not None:
@@ -553,17 +641,20 @@ class Engine:
         return handle
 
     def step(self) -> bool:
-        """One scheduler tick: retire -> admit -> one decode chunk
-        (DESIGN.md §6).  False when there is nothing left to do; a queue
-        that waits for pool blocks keeps returning True."""
+        """One scheduler tick: retire -> admit -> [one prefill chunk] ->
+        one decode chunk (DESIGN.md §6, §7).  In chunked mode at most one
+        prefill chunk runs a tick, before the decode chunk of the active
+        slots.  False when there is nothing left to do; a queue that waits
+        for pool blocks, or a prefill in flight, keeps returning True."""
         self._tick += 1
         self._retire()
         self._admit()
         self._counters["queue_wait_ticks"] += len(self._queue)
+        self._prefill_tick()
         active = [i for i in range(self.batch_slots)
                   if self._slot_handle[i] is not None]
         if not active:
-            return bool(self._queue)
+            return self._prefill_job is not None or bool(self._queue)
         if any(not self._h_done(self._slot_handle[i]) for i in active):
             self._decode_chunk()
         self._retire()
@@ -576,8 +667,8 @@ class Engine:
         def pending():
             if handles is not None:
                 return any(not self._h_done(h) for h in handles)
-            return bool(self._queue) or any(
-                h is not None for h in self._slot_handle)
+            return (bool(self._queue) or self._prefill_job is not None
+                    or any(h is not None for h in self._slot_handle))
 
         while pending():
             if not self.step():
@@ -651,6 +742,7 @@ class Engine:
         self._temps[i] = 0.0
         self._gens[i] = None
         self._pending_insert.pop(i, None)
+        self._pending_register.pop(i, None)
         if self._pool is not None:
             self._pool.release_slot(i)    # deref blocks; shared ones live on
         self._hostlen[i] = 0
@@ -664,9 +756,27 @@ class Engine:
         admission is FIFO in blocks: the head request is admitted only
         when the pool covers its prompt blocks (minus resident prefix
         hits) plus its decode reservation."""
+        job = self._prefill_job
         free = [i for i in range(self.batch_slots)
-                if self._slot_handle[i] is None]
+                if self._slot_handle[i] is None
+                and not (job is not None and job.slot == i)]
         if not free or not self._queue:
+            return
+        if self.prefill_chunk is not None:
+            if job is not None:
+                return                    # one chunked job at a time
+            if self._pool is not None:
+                self._stall_reason = None
+                plan = self._plan_pool_admission(self._queue[0].request)
+                if plan is None:
+                    self._note_stall()          # FIFO: the head waits
+                    return
+                # the content lands at _finish_prefill: defer registration
+                self._commit_pool_admission(free[0], plan, register=False)
+            h = self._queue.pop(0)
+            h.admit_time = self._clock()
+            self._prefill_job = _PrefillJob(handle=h, slot=free[0], pos=0,
+                                            state=self._take_chunk_state())
             return
         if self._pool is not None:
             taken: List[tuple] = []
@@ -736,10 +846,15 @@ class Engine:
         tail_phys = pool.lookup(tail_key) if tail_key else None
         return hits, tail_key, tail_phys, eventual, n_hit
 
-    def _commit_pool_admission(self, slot: int, plan):
+    def _commit_pool_admission(self, slot: int, plan,
+                               register: bool = True):
         """Apply a plan: ref prefix hits, alloc misses into the slot's
         table, reserve the remaining decode blocks, register the miss keys
-        and remember which blocks the prefill must insert."""
+        and remember which blocks the prefill must insert.  With
+        ``register=False`` (a chunked job, whose blocks are written only at
+        its last chunk) the miss keys wait in ``_pending_register`` until
+        :meth:`_apply_pool_insert`, so no admission takes a prefix hit on a
+        block whose content is not on the device yet."""
         hits, tail_key, tail_phys, eventual, n_hit = plan
         pool = self._pool
         miss_pairs, reg = [], []
@@ -768,18 +883,24 @@ class Engine:
         # decode still needs (eventual - full hits - allocated now) blocks;
         # a shared tail counts: its first write goes copy-on-write
         pool.set_reservation(slot, max(0, eventual - n_hit - len(miss_pairs)))
-        for key, phys in reg:
-            pool.register(key, phys)
+        if register:
+            for key, phys in reg:
+                pool.register(key, phys)
+        else:
+            self._pending_register[slot] = reg
         self._pending_insert[slot] = miss_pairs
 
     def _apply_pool_insert(self, slot: int, src_caches, row: int):
         """Quantize-once commit: copy the slot's miss blocks from its
-        freshly prefilled striped cache into the pool; hits are resident
-        already and are never inserted again."""
+        freshly prefilled striped cache into the pool (hits are resident
+        already and are never inserted again), then register any deferred
+        prefix keys, now that their content is on the device."""
         pairs = self._pending_insert.pop(slot, None)
         if pairs:
             kvc.pool_insert_blocks(self._caches["scan"], src_caches["scan"],
                                    pairs, src_slot=row, pool_axis=1)
+        for key, phys in self._pending_register.pop(slot, ()):
+            self._pool.register(key, phys)
 
     def _cow_cap(self) -> int:
         # a span of sps tokens touches at most ceil((sps-1)/bt)+1 blocks
@@ -893,6 +1014,82 @@ class Engine:
                                 and int(first[row]) == req.eos_id)
             h.admit_time = now
             self._admit_deliver(slot, h, int(first[row]))
+
+    # ------------------------------------------- chunked prefill (§7)
+
+    def _prefill_tick(self):
+        """Advance the job in flight by one chunk (DESIGN.md §7): the
+        smallest bucket that covers the rest of the prompt (capped at
+        ``prefill_chunk``), the chunk padded up to it.  After the last
+        chunk the reserved slot is activated (:meth:`_finish_prefill`)."""
+        job = self._prefill_job
+        if job is None:
+            return
+        prompt = job.handle.request.prompt
+        n = min(self.prefill_chunk, len(prompt) - job.pos)
+        bucket = next(b for b in self.chunk_buckets if b >= n)
+        toks = np.zeros(bucket, np.int64)
+        toks[:n] = prompt[job.pos:job.pos + n]
+        logits = self._run_chunk(job.state, toks, job.pos, n)
+        job.pos += n
+        if job.pos >= len(prompt):
+            self._prefill_job = None
+            self._finish_prefill(job, logits)
+
+    def _run_chunk(self, state, toks: np.ndarray, t0: int, n: int):
+        """One eager ``prefill_chunk`` of the bucket-padded ``toks``."""
+        self._chunk_shapes.add(len(toks))
+        logits, _ = T.prefill_chunk(
+            self.params, self.cfg,
+            torch.as_tensor(toks[None], device=self.device), state,
+            self.policy, t0, n, calib=self.calib, backend=self.backend)
+        return logits
+
+    def _take_chunk_state(self) -> Dict:
+        """Prefill state for a new job, recycling the last job's buffers:
+        the caches are zeroed in place; the workspace is reused dirty,
+        since causality keeps every read of it on rows the new prompt has
+        already written (DESIGN.md §7)."""
+        st, self._chunk_state = self._chunk_state, None
+        if st is None:
+            return T.prefill_chunk_init(
+                self.cfg, self.policy, self.max_len, self.max_len, batch=1,
+                dtype=self.params["embed"].dtype, device=self.device)
+        for leaf in st["caches"]["scan"].values():
+            leaf.zero_()
+        return st
+
+    def _finish_prefill(self, job: _PrefillJob, logits):
+        """Activate the reserved slot from a completed chunked prefill:
+        sample the first token, insert the grown cache in place (the
+        captured decode graph holds these addresses), insert the pool's
+        miss blocks and register the deferred keys, then deliver."""
+        h, slot = job.handle, job.slot
+        req = h.request
+        caches = job.state["caches"]          # (L, 1, ...); ws stays
+        temp = max(float(req.temperature), 0.0)
+        gen = self._generator(req.seed)
+        first = int(sample_per_slot(
+            logits[:, -1].to(torch.float32),
+            torch.tensor([temp], dtype=torch.float32, device=self.device),
+            self._uniforms([gen], [temp]))[0])
+        if self._caches is None:
+            self._caches = (self._alloc_pooled() if self._pool is not None
+                            else _alloc_like(caches, self.batch_slots))
+        kvc.insert_slot(self._caches, slot, caches, src_slot=0, batch_axis=1)
+        if self._pool is not None:
+            self._apply_pool_insert(slot, caches, 0)
+            self._hostlen[slot] = len(req.prompt)
+            self._pool.dirty = True       # unmask the slot's table row
+        self._chunk_state = job.state     # recycled by the next job
+        self._counters["admitted"] += 1
+        self._slot_handle[slot] = h
+        self._tok[slot, 0] = first
+        self._temps[slot] = temp
+        self._gens[slot] = gen
+        self._eos[slot] = -1 if req.eos_id is None else req.eos_id
+        self._done[slot] = req.eos_id is not None and first == req.eos_id
+        self._admit_deliver(slot, h, first)
 
     def _decode_chunk(self):
         if self._pool is not None:

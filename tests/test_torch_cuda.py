@@ -29,6 +29,10 @@ runs on a machine with only torch:
   leaf and static buffer at the same address across admissions and
   chunks; warmed and async streams equal to eager sync ones; the pinned
   delivery ring never handing the consumer overwritten tokens.
+* chunked prefill (DESIGN.md §7): the chunk append's bulk route BYTE-equal
+  to its plain token loop and to a loop of ``kv_append`` after every
+  chunk; warmed chunked Engines, striped and pooled, with equal streams
+  and the launch identities.
 """
 import dataclasses
 
@@ -620,7 +624,7 @@ def test_launch_counts_after_replays(cuda_device):
     c = launch_counts()
     assert c["decode_attn"] == {"kernel": 7 * n_l, "pooled": 0, "plain": 0}
     assert c["kv_quant"] == {"kernel": 0, "plain": 0, "append": 7 * n_l,
-                             "append_plain": 0}
+                             "append_plain": 0, "chunk_plain": 0}
 
 
 @pytest.mark.parametrize("pool", [None, 40])
@@ -682,3 +686,91 @@ def test_pinned_ring_never_hands_over_overwritten_tokens(cuda_device):
     assert len(eng._ring) == 2
     assert all(t.is_pinned() for t in eng._ring)
     assert eng.stats()["host"]["backpressure_waits"] > 0
+
+
+# --------------------------------------------------- chunked prefill (§7)
+
+@pytest.mark.parametrize("d,hkv,gs", [(128, 32, 128), (64, 8, 64)])
+@pytest.mark.parametrize("window,n_sink", [(32, 5), (0, 5), (32, 0)])
+def test_kv_append_chunk_matches_plain_and_kv_append_loop(d, hkv, gs, window,
+                                                          n_sink,
+                                                          cuda_device):
+    """The chunk append's bulk route on the card leaves every leaf of a
+    bf16 cache byte-equal to its plain token loop and to a loop of the
+    fused ``kv_append`` kernel, after every chunk: chunks that straddle
+    the sinks, shorter and longer than the window, padded tails; two bulk
+    launches for a chunk that evicts, none for one that does not."""
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=gs, window=window,
+                      n_sink=n_sink)
+    max_len = 301
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    caches = [kvc.init_cache(1, max_len, hkv, d, pol, torch.bfloat16,
+                             device=cuda_device) for _ in range(3)]
+    route, plain, loop = caches
+    ak, av = (0.8 + 0.2 * torch.rand((hkv, n_meta_groups(d, b, gs)),
+                                     generator=gen, device=cuda_device)
+              for b in (pol.bits_k, pol.bits_v))
+    t0 = 0
+    for n, c in ((3, 8), (1, 8), (20, 32), (64, 64), (6, 8), (100, 128),
+                 (64, 64), (43, 64)):
+        k, v = (torch.randn((1, c, hkv, d), generator=gen,
+                            device=cuda_device).to(torch.bfloat16)
+                for _ in range(2))
+        before = KQ.LAUNCHES["kernel"]
+        KQ.kv_append_chunk(route, k, v, pol, t0, n, ak, av)
+        lo, hi = KQ.chunk_evictions(pol, t0, n)
+        # no window: the token loop also quantizes a chunk that ends
+        # inside the sinks (into packed row 0, where its index clamps)
+        quantizes = lo < hi or (window == 0 and t0 + n <= n_sink)
+        assert KQ.LAUNCHES["kernel"] - before == (2 if quantizes else 0)
+        KQ.kv_append_chunk_plain(plain, k, v, pol, t0, n, ak, av)
+        for i in range(n):
+            KQ.kv_append(loop, k[:, i:i + 1].contiguous(),
+                         v[:, i:i + 1].contiguous(), pol, ak, av)
+        torch.cuda.synchronize()
+        for key in route:
+            for other, what in ((plain, "plain"), (loop, "kv_append loop")):
+                a, b = route[key], other[key]
+                if a.dtype == torch.bfloat16:
+                    a, b = a.view(torch.int16), b.view(torch.int16)
+                assert torch.equal(a, b), (key, what, t0, n)
+        t0 += n
+    assert t0 == max_len and int(route["length"]) == max_len
+
+
+def test_chunked_engine_on_the_card(cuda_device):
+    """Warmed chunked Engines on the card, striped and pooled: equal greedy
+    streams, no post-warmup graph miss, two bulk kv_quant launches per
+    layer per evicting chunk, one kv_append per layer per decode step, no
+    plain call."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, Request
+    cfg = configs.get_smoke("llama2_7b")
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (70, 9, 33, 50)]
+    runs = []
+    for pool in (None, 40):
+        eng = Engine(params, cfg, HARNESS_POL, batch_slots=2, max_len=90,
+                     steps_per_sync=4, prefill_chunk=16, pool_blocks=pool,
+                     pool_block_tokens=8, device=cuda_device)
+        eng.warmup()
+        reset_launch_counts()
+        hs = [eng.submit(Request(prompt=p, max_new=10, seed=i))
+              for i, p in enumerate(prompts)]
+        eng.run(hs)
+        c = launch_counts()["kv_quant"]
+        chunks = 0
+        for p in prompts:
+            for t0 in range(0, len(p), 16):
+                lo, hi = KQ.chunk_evictions(HARNESS_POL, t0,
+                                            min(16, len(p) - t0))
+                chunks += lo < hi
+        assert c["kernel"] == 2 * cfg.n_layers * chunks
+        assert c["append"] == cfg.n_layers * eng.n_decode_steps
+        assert c["plain"] == c["append_plain"] == c["chunk_plain"] == 0
+        assert eng.warmup_report()["post_warmup_misses"] == 0
+        if pool:
+            eng.check_invariants()
+        runs.append([h.tokens for h in hs])
+    assert runs[0] == runs[1]
