@@ -95,16 +95,38 @@ not from the 50 MB L2, as each layer of a decode step does.
    phase's whole-prompt logits (top-1 agreement and stream equality
    reported, not gated); the 3000-token prefill timed whole and chunked
    in ABBA turns; (c) serve_graph (d)'s open-loop trace on warmed pooled
-   async engines, chunked and whole-prompt in the order chunked, whole,
-   whole, chunked, with the launch identities of each; TTFT/TPOT
-   percentiles reported, not gated.
-9. a ``timing`` line of seconds per phase, then the kernel summary line
+   async engines, chunked then whole-prompt, with the launch identities of
+   each; TTFT/TPOT percentiles reported, not gated.
+9. serve_schedule — per-layer policy schedules (DESIGN.md §8): (a) both
+   kernels at the widths of the bits ladder, new on the card: the bulk
+   kv_quant at K 4-bit and V 2-bit (128 and 91,744 rows; 0 differing
+   bytes), kv_append at (4, 4) and (2, 2) for 300 steps in both layouts
+   (byte-equal, graph replay included), decode_attn at (4, 4) and (2, 2)
+   striped and pooled at the serve shape (f32 tolerance; times, bound,
+   SDPA); (b) first_last_fp16(PAPER_POLICY, 2) and the ladder ((4,4),
+   (2,2), (2,1.5)) with the serve phase's 8 requests through warmed
+   striped, pooled (768 blocks, one pool per quantized band) and chunked
+   (512) engines and an eager first wave: pooled streams == striped,
+   replayed == eager, final-chunk logits within relative L2 0.05 of
+   whole-prompt, 0 graph misses, the launch identities over the quantized
+   layers (28 and 32) with the fp16 route on exactly the guard layers, no
+   plain call; cuda-vs-reference logits of one step at 4 x 2048
+   (relative L2 gated, top-1 agreement reported); (c) a uniform schedule's
+   streams bitwise the bare policy's; (d) every striped engine's cache
+   bytes by band equal to ``schedule_cache_nbytes``, beside bf16 and the
+   peak; the replayed step of each schedule at 4 x 2048 in ABBA turns
+   against uniform; (e) granite_8b at full width (36 layers, Hkv 8, Gq 4,
+   D 128; llama2-7b's weights freed first): 4 requests through a warmed
+   engine with the launch identities, cuda-vs-reference logits, and
+   decode_attn at that shape against its plain version and SDPA.
+10. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
    chunk append's ``chunk_ms``, ``chunk_bound_ms``, ``chunk_plain_ms``
-   and ``chunk_rows``; launches count the serve, serve_pooled and
-   serve_chunked (b) runs), the card line, and the last line
+   and ``chunk_rows``; every entry the ``widths`` of serve_schedule (a)
+   and (e); launches count the serve, serve_pooled (b), serve_chunked (b)
+   and serve_schedule (b), (e) runs), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
@@ -144,7 +166,8 @@ HOLD_CYCLES = 20_000_000         # ~10 ms of sleep while calls are queued
 # per-kernel numbers beyond the contract's keys that the summary line carries
 KERNEL_EXTRAS = ("long_ms", "long_bound_ms", "long_library_ms", "prefill_ms",
                  "prefill_bound_ms", "prefill_rows", "plain_wall_ms",
-                 "chunk_ms", "chunk_bound_ms", "chunk_plain_ms", "chunk_rows")
+                 "chunk_ms", "chunk_bound_ms", "chunk_plain_ms", "chunk_rows",
+                 "widths")
 
 
 def emit(obj) -> None:
@@ -237,50 +260,51 @@ def _edge_rows(gen, d, dev):
     return torch.stack(rows)
 
 
-def phase_kv_quant(state):
+def _kv_quant_rows(gen, dev, d, gs, bits, dtype):
+    """128 rows x ``d`` (a decode step's rows; edge rows first) through the
+    bulk kernel and its plain version: 0 differing bytes; L2-warm times and
+    the byte bound."""
     import torch
     from repro_torch.core.quant import (dequantize_groups, n_meta_groups,
                                         plane_layout)
     from repro_torch.kernels import kv_quant as KQ
+    x = torch.randn((128, d), generator=gen, device=dev)
+    x[:8] = _edge_rows(gen, d, dev)
+    x = x.to(dtype)
+    g = n_meta_groups(d, bits, gs)
+    alpha = 0.8 + 0.2 * torch.rand((128, g), generator=gen, device=dev)
+    got = KQ.kv_quant(x, bits, gs, alpha)
+    want = KQ.kv_quant_plain(x, bits, gs, alpha)
+    diff = sum(int((got[k].view(torch.uint8) != want[k].view(torch.uint8)
+                    ).sum()) for k in want)
+    check(diff == 0, f"kv_quant d={d} bits={bits} {dtype}: {diff} bytes "
+          f"differ from the plain version")
+    # the same bytes dequantize to the same values: err is 0.0
+    deq = [dequantize_groups(qt, d, bits, gs, True, torch.float32)
+           for qt in (got, want)]
+    err = float((deq[0] - deq[1]).abs().max())
+    ms = cuda_ms(lambda: KQ.kv_quant(x, bits, gs, alpha))
+    plain_ms = cuda_ms(lambda: KQ.kv_quant_plain(x, bits, gs, alpha))
+    out_b = sum(v.numel() * v.element_size() for v in got.values())
+    in_b = x.numel() * x.element_size() + alpha.numel() * 4
+    # per element: min, max, subtract, divide, round, 2 clamps
+    bound_ms, bound_by = bound(in_b + out_b, 7 * x.numel())
+    return {"d": d, "bits": bits, "dtype": str(dtype)[6:], "rows": 128,
+            "planes": len(plane_layout(d, bits, gs)), "diff_bytes": diff,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_kv_quant(state):
+    import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows, worst = [], 0.0
-    for d, gs in ((128, 128), (64, 64)):              # llama2-7b, GQA smoke
-        for bits in (2.0, 1.5):
-            for dtype in (torch.bfloat16, torch.float32):
-                x = torch.randn((128, d), generator=gen, device=dev)
-                x[:8] = _edge_rows(gen, d, dev)
-                x = x.to(dtype)
-                g = n_meta_groups(d, bits, gs)
-                alpha = 0.8 + 0.2 * torch.rand((128, g), generator=gen,
-                                               device=dev)
-                got = KQ.kv_quant(x, bits, gs, alpha)
-                want = KQ.kv_quant_plain(x, bits, gs, alpha)
-                diff = sum(int((got[k].view(torch.uint8)
-                                != want[k].view(torch.uint8)).sum())
-                           for k in want)
-                check(diff == 0, f"kv_quant d={d} bits={bits} {dtype}: "
-                      f"{diff} bytes differ from the plain version")
-                # the same bytes dequantize to the same values: err is 0.0
-                deq = [dequantize_groups(qt, d, bits, gs, True, torch.float32)
-                       for qt in (got, want)]
-                err = float((deq[0] - deq[1]).abs().max())
-                worst = max(worst, err)
-                ms = cuda_ms(lambda: KQ.kv_quant(x, bits, gs, alpha))
-                plain_ms = cuda_ms(lambda: KQ.kv_quant_plain(x, bits, gs,
-                                                             alpha))
-                out_b = sum(v.numel() * v.element_size() for v in got.values())
-                in_b = x.numel() * x.element_size() + alpha.numel() * 4
-                # per element: min, max, subtract, divide, round, 2 clamps
-                bound_ms, bound_by = bound(in_b + out_b, 7 * x.numel())
-                rows.append({"d": d, "bits": bits, "dtype": str(dtype)[6:],
-                             "rows": 128, "planes": len(plane_layout(d, bits,
-                                                                     gs)),
-                             "diff_bytes": diff, "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by})
+    rows = [_kv_quant_rows(gen, dev, d, gs, bits, dtype)
+            for d, gs in ((128, 128), (64, 64))      # llama2-7b, GQA smoke
+            for bits in (2.0, 1.5)
+            for dtype in (torch.bfloat16, torch.float32)]
     prefill = [_kv_quant_prefill(gen, dev, bits) for bits in (2.0, 1.5)]
-    worst = max([worst] + [r["max_abs_err"] for r in prefill])
+    worst = max(r["max_abs_err"] for r in rows + prefill)
     emit({"phase": "kv_quant", "cases": rows, "prefill": prefill,
           "timing": f"device time, rotating over {L2_COPIES} input copies"})
     main = rows[0]                       # K plane of a decode step, bf16
@@ -333,13 +357,15 @@ def _kv_quant_prefill(gen, dev, bits):
             "bound_share": bound_ms / ms}
 
 
-def _append_policy(gs):
+def _policy(gs=128, bits=(2.0, 1.5)):
+    """PAPER_POLICY at group ``gs`` and widths ``bits`` (K, V)."""
     import dataclasses
     from repro_torch.core.policy import PAPER_POLICY
-    return dataclasses.replace(PAPER_POLICY, group_size=gs)
+    return dataclasses.replace(PAPER_POLICY, group_size=gs, bits_k=bits[0],
+                               bits_v=bits[1])
 
 
-def _append_caches(gen, dev, hkv, d, gs, pooled):
+def _append_caches(gen, dev, hkv, d, gs, pooled, bits=(2.0, 1.5)):
     """A kernel and a plain cache with identical seeded contents at the
     serve capacity (max_len 4229; pooled: 256 blocks of 16 per slot over a
     seeded permutation of 4 * 256 + 1 physical blocks), slots at 0 (sinks
@@ -349,7 +375,7 @@ def _append_caches(gen, dev, hkv, d, gs, pooled):
     import torch
     from repro_torch.core import kv_cache as kvc
     from repro_torch.core.quant import n_meta_groups
-    pol, b = _append_policy(gs), 4
+    pol, b = _policy(gs, bits), 4
     if pooled:
         nb = (MAX_LEN - pol.n_sink - pol.window) // POOL_BT
         cache = kvc.init_pooled_cache(b, MAX_LEN, hkv, d, pol, b * nb,
@@ -422,11 +448,12 @@ def _host_ms(fn, n: int = 30) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def _append_case(gen, dev, hkv, d, gs, pooled):
+def _append_case(gen, dev, hkv, d, gs, pooled, widths=(2.0, 1.5)):
     import torch
     from repro_torch.core.quant import dequantize_groups
     from repro_torch.kernels import kv_quant as KQ
-    pol, kc, pc, (ak, av) = _append_caches(gen, dev, hkv, d, gs, pooled)
+    pol, kc, pc, (ak, av) = _append_caches(gen, dev, hkv, d, gs, pooled,
+                                           widths)
     b = kc["length"].shape[0]
     start = kc["length"].tolist()
     new = lambda: torch.randn((b, 1, hkv, d), generator=gen, device=dev
@@ -438,8 +465,9 @@ def _append_case(gen, dev, hkv, d, gs, pooled):
         KQ.kv_append(kc, kn, vn, pol, ak, av, valid=valid)
         KQ.kv_append_plain(pc, kn, vn, pol, ak, av, valid=valid)
         bad = _caches_differ(kc, pc, pooled)
-        check(not bad, f"kv_append hkv={hkv} d={d} pooled={pooled} step "
-              f"{step}: leaves {bad} differ from the plain version")
+        check(not bad, f"kv_append hkv={hkv} d={d} bits={widths} pooled="
+              f"{pooled} step {step}: leaves {bad} differ from the plain "
+              f"version")
     end = kc["length"].tolist()
     cap = MAX_LEN - pol.n_sink - pol.window
     check(start[0] == 0 and end[0] > pol.n_sink + pol.window
@@ -481,7 +509,7 @@ def _append_case(gen, dev, hkv, d, gs, pooled):
     check(not bad, f"kv_append CUDA-graph replay differs from eager: {bad}")
     del gc, ec, kc, pc, graph
     torch.cuda.empty_cache()
-    return {"b": b, "hkv": hkv, "d": d, "group": gs,
+    return {"b": b, "hkv": hkv, "d": d, "group": gs, "bits": list(widths),
             "layout": "pooled" if pooled else "striped",
             "steps": APPEND_STEPS, "lengths_start": start,
             "lengths_end": end, "packed_capacity": cap, "diff_leaves": 0,
@@ -513,14 +541,15 @@ def phase_kv_append(state):
         max_abs_err=max(r["max_abs_err"] for r in rows), library_ms=None)
 
 
-def _attn_case(gen, dev, b, hkv, gq, d, live, max_len=MAX_LEN):
+def _attn_case(gen, dev, b, hkv, gq, d, live, max_len=MAX_LEN,
+               bits=(2.0, 1.5)):
     """Packed planes of a ``max_len``-token cache (the serve phase's: 4096
-    packed tokens) with ``live`` packed tokens per slot, built by the
-    port's own prefill + masks."""
+    packed tokens) at widths ``bits`` with ``live`` packed tokens per slot,
+    built by the port's own prefill + masks."""
     import torch
     from repro_torch.core import kv_cache as kvc
-    from repro_torch.core.policy import PAPER_POLICY as POL
     from repro_torch.kernels import ops
+    POL = _policy(128, bits)
     from repro_torch.core import segments as seg
     k = torch.randn((b, max_len, hkv, d), generator=gen, device=dev,
                     dtype=torch.bfloat16)
@@ -805,20 +834,27 @@ def _counted_prefills(eng, logits=None):
     return calls
 
 
-def _check_main_path(cfg, counts, steps, prefills, what):
-    """The main path's launch counts: one fused append per layer per decode
-    step, two bulk quantizer launches per layer per prefill, and no call of
-    any plain version."""
-    kq = counts["kv_quant"]
-    check(kq["append"] == cfg.n_layers * steps,
-          f"{what}: kv_append launches {kq['append']} != layers x steps = "
-          f"{cfg.n_layers * steps}")
-    check(kq["kernel"] == 2 * cfg.n_layers * prefills,
-          f"{what}: bulk kv_quant launches {kq['kernel']} != 2 x layers x "
-          f"prefills = {2 * cfg.n_layers * prefills}")
+def _check_main_path(cfg, counts, steps, prefills, what, n_quant=None):
+    """The main path's launch counts: one fused append per quantized layer
+    per decode step, two bulk quantizer launches per quantized layer per
+    prefill, no call of any plain version, and the fp16 route on exactly
+    the other layers (``n_quant`` quantized layers of ``cfg.n_layers``;
+    all by default)."""
+    nq = cfg.n_layers if n_quant is None else n_quant
+    kq, f16 = counts["kv_quant"], counts["fp16"]
+    check(kq["append"] == nq * steps,
+          f"{what}: kv_append launches {kq['append']} != quantized layers "
+          f"x steps = {nq * steps}")
+    check(kq["kernel"] == 2 * nq * prefills,
+          f"{what}: bulk kv_quant launches {kq['kernel']} != 2 x quantized "
+          f"layers x prefills = {2 * nq * prefills}")
     check(counts["decode_attn"]["plain"] == 0 and kq["plain"] == 0
           and kq["append_plain"] == 0,
           f"{what}: the wrong version ran on the main path: {counts}")
+    nf = cfg.n_layers - nq
+    check(f16["attend"] == f16["append"] == nf * steps,
+          f"{what}: fp16 route calls {f16} != fp16 layers x steps = "
+          f"{nf * steps}")
 
 
 def _serve_requests(cfg):
@@ -872,7 +908,8 @@ def phase_serve(state):
           f"= {cfg.n_layers * steps}")
     _check_main_path(cfg, counts, steps, len(prefills), "serve")
     peak = torch.cuda.max_memory_allocated()
-    state["launches"] = {k: v["kernel"] for k, v in counts.items()}
+    state["launches"] = {k: counts[k]["kernel"]
+                         for k in ("decode_attn", "kv_quant")}
     state["launches"]["kv_append"] = counts["kv_quant"]["append"]
     state["serve_streams"] = [list(h.tokens) for h in handles]
     ttft = [(h.first_token_time - h.submit_time) * 1e3 for h in handles]
@@ -1120,9 +1157,10 @@ ABBA_NEW = 1024          # budget of the timing requests: 4 x 192 blocks
 
 
 def _graph_engine(state, cfg, pool_blocks=None, async_host=False,
-                  prefill_chunk=None):
+                  prefill_chunk=None, policy=None):
     """A warmed Engine (DESIGN.md §10) at the serve shape (chunked
-    admission with ``prefill_chunk``); engines of earlier runs that nothing
+    admission with ``prefill_chunk``; PAPER_POLICY unless ``policy``, a
+    policy or a schedule, is given); engines of earlier runs that nothing
     holds are collected first, so their memory is free."""
     import gc
     import torch
@@ -1130,7 +1168,8 @@ def _graph_engine(state, cfg, pool_blocks=None, async_host=False,
     from repro_torch.serving import Engine
     gc.collect()
     torch.cuda.empty_cache()
-    eng = Engine(state["params"], cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
+    eng = Engine(state["params"], cfg, policy or PAPER_POLICY,
+                 batch_slots=SERVE_SLOTS,
                  max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
                  pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
                  async_host=async_host, prefill_chunk=prefill_chunk,
@@ -1141,18 +1180,23 @@ def _graph_engine(state, cfg, pool_blocks=None, async_host=False,
     return eng, rep
 
 
+def _n_quant(eng) -> int:
+    """Quantized layers of an engine's schedule."""
+    return sum(not p.is_fp16 for p in eng.schedule)
+
+
 def _check_graph_path(cfg, eng, counts, prefills, what):
     """The launch identities with graphs on: every decode step a replay,
-    one decode_attn launch per layer per step on the layout's kernel, and
-    the main path's kv_quant identities."""
-    steps = eng.n_decode_steps
+    one decode_attn launch per quantized layer per step on the layout's
+    kernel, and the main path's kv_quant and fp16-route identities."""
+    steps, nq = eng.n_decode_steps, _n_quant(eng)
     da = counts["decode_attn"]
     mode = "pooled" if eng.stats()["pooled"] else "kernel"
-    check(da[mode] == cfg.n_layers * steps and da["plain"] == 0
+    check(da[mode] == nq * steps and da["plain"] == 0
           and sum(da.values()) == da[mode],
-          f"{what}: decode_attn launches {da} != layers x steps = "
-          f"{cfg.n_layers * steps} on the {mode} kernel alone")
-    _check_main_path(cfg, counts, steps, len(prefills), what)
+          f"{what}: decode_attn launches {da} != quantized layers x steps = "
+          f"{nq * steps} on the {mode} kernel alone")
+    _check_main_path(cfg, counts, steps, len(prefills), what, nq)
     rep = eng.warmup_report()
     check(rep["replays"] == steps, f"{what}: {rep['replays']} replays for "
           f"{steps} decode steps")
@@ -1438,25 +1482,32 @@ def _chunk_append_case(gen, dev):
                                 "CUDA events (host-bound)"}}
 
 
-def _check_chunked_path(cfg, eng, counts, n_evicting, what):
+def _check_chunked_path(cfg, eng, counts, n_evicting, what, n_chunks=0):
     """The main path's identities with chunked admission: two bulk
-    kv_quant launches a layer per evicting chunk, one kv_append a layer per
-    decode step on the layout's decode_attn kernel, one replay per step, no
-    plain call and no graph miss."""
-    steps = eng.n_decode_steps
-    kq, da = counts["kv_quant"], counts["decode_attn"]
+    kv_quant launches a quantized layer per evicting chunk, one kv_append a
+    quantized layer per decode step on the layout's decode_attn kernel, the
+    fp16 route on the other layers (one chunk append per chunk of the
+    ``n_chunks``, one attend and one append per step), one replay per
+    step, no plain call and no graph miss."""
+    steps, nq = eng.n_decode_steps, _n_quant(eng)
+    nf = cfg.n_layers - nq
+    kq, da, f16 = counts["kv_quant"], counts["decode_attn"], counts["fp16"]
     mode = "pooled" if eng.stats()["pooled"] else "kernel"
-    check(kq["kernel"] == 2 * cfg.n_layers * n_evicting,
-          f"{what}: bulk kv_quant launches {kq['kernel']} != 2 x layers x "
-          f"evicting chunks = {2 * cfg.n_layers * n_evicting}")
-    check(kq["append"] == cfg.n_layers * steps,
-          f"{what}: kv_append launches {kq['append']} != layers x steps = "
-          f"{cfg.n_layers * steps}")
-    check(da[mode] == cfg.n_layers * steps and sum(da.values()) == da[mode],
-          f"{what}: decode_attn launches {da} != layers x steps on the "
-          f"{mode} kernel alone")
+    check(kq["kernel"] == 2 * nq * n_evicting,
+          f"{what}: bulk kv_quant launches {kq['kernel']} != 2 x quantized "
+          f"layers x evicting chunks = {2 * nq * n_evicting}")
+    check(kq["append"] == nq * steps,
+          f"{what}: kv_append launches {kq['append']} != quantized layers x "
+          f"steps = {nq * steps}")
+    check(da[mode] == nq * steps and sum(da.values()) == da[mode],
+          f"{what}: decode_attn launches {da} != quantized layers x steps on "
+          f"the {mode} kernel alone")
     check(kq["plain"] == kq["append_plain"] == kq["chunk_plain"] == 0,
           f"{what}: a plain version ran on the main path: {counts}")
+    check(f16["attend"] == f16["append"] == nf * steps
+          and f16["chunk_append"] == nf * n_chunks,
+          f"{what}: fp16 route calls {f16} != {nf} fp16 layers x {steps} "
+          f"steps / {n_chunks} chunks")
     rep = eng.warmup_report()
     check(rep["replays"] == steps and rep["post_warmup_misses"] == 0,
           f"{what}: {rep['replays']} replays for {steps} steps, misses "
@@ -1634,9 +1685,9 @@ def phase_serve_chunked(state):
         state["launches"]["decode_attn"] += da["kernel"]
         state["launches"]["decode_attn_pooled"] += da["pooled"]
     prefill = _prefill_ms_both_ways(state, cfg)
-    # (c) the open-loop trace both ways, alternating
+    # (c) the open-loop trace both ways, one run each
     loops = {"whole": [], "chunked": []}
-    for name in ("chunked", "whole", "whole", "chunked"):
+    for name in ("chunked", "whole"):
         loops[name].append(_open_loop_run(state, cfg,
                                           CHUNK if name == "chunked" else
                                           None))
@@ -1655,9 +1706,393 @@ def phase_serve_chunked(state):
                       "streams_equal_whole": streams_equal},
           "prefill_3000": prefill,
           "open_loop": {"spec": _spec_dict(_open_loop_spec(cfg)),
-                        "order": "chunked, whole, whole, chunked",
+                        "order": "chunked, whole",
                         "chunked": loops["chunked"],
                         "whole": loops["whole"]}})
+
+
+# ------------------------------------------------ serve_schedule (DESIGN.md §8)
+
+GUARD_LAYERS = 2
+LADDER = ((4.0, 4.0), (2.0, 2.0), (2.0, 1.5))
+WIDTHS = ((4.0, 4.0), (2.0, 2.0))   # the ladder's widths new on the card
+EAGER_NEW = 16          # the eager check: the first wave, 16 new tokens
+GRANITE_LENS, GRANITE_NEW = [512, 1024, 1536, 2048], 32
+
+
+def _schedules():
+    """The two presets of the phase, materialized by each Engine."""
+    from repro_torch.core.policy import PAPER_POLICY, PolicySchedule
+    return {"first_last_fp16": PolicySchedule.first_last_fp16(
+                PAPER_POLICY, GUARD_LAYERS),
+            "ladder": PolicySchedule.bits_ladder(PAPER_POLICY, LADDER)}
+
+
+def _clone(tree):
+    import torch
+    if torch.is_tensor(tree):
+        return tree.clone()
+    return {k: _clone(v) for k, v in tree.items()}
+
+
+def _width_kernels(gen, dev):
+    """(a) Both kernels at the ladder's widths against their plain
+    versions: the bulk kv_quant at K 4-bit and V 2-bit (128 rows and one
+    layer of the 3000-token prefill), kv_append at (4, 4) and (2, 2) for
+    300 steps in both layouts, decode_attn at (4, 4) and (2, 2) striped and
+    pooled at the serve shape."""
+    import torch
+    kq = []
+    for bits in (4.0, 2.0):
+        kq.append(_kv_quant_rows(gen, dev, 128, 128, bits, torch.bfloat16))
+        kq.append(_kv_quant_prefill(gen, dev, bits))
+    app = [_append_case(gen, dev, 32, 128, 128, pooled, bits)
+           for bits in WIDTHS for pooled in (False, True)]
+    attn, live = [], [500, 1500, 2900, 3900]
+    for bits in WIDTHS:
+        name = f"K{bits[0]:g}V{bits[1]:g}"
+        pol, q, k_qt, v_qt, mask, bounds, bs = _attn_case(
+            gen, dev, len(live), 32, 1, 128, live, MAX_LEN, bits)
+        row = _attn_row(f"decode_attn {name}", pol, q, k_qt, v_qt, mask,
+                        bounds, bs, live)
+        attn.append(dict(row, bits=list(bits), layout="striped"))
+        nb = k_qt["codes_hi"].shape[1] // POOL_BT
+        k_p, v_p, table = _pool(dev, len(live), nb, k_qt, v_qt, 3, 8)
+        del k_qt, v_qt
+        row = _attn_row(f"decode_attn pooled {name}", pol, q, k_p, v_p, mask,
+                        bounds, bs, live, table=table)
+        attn.append(dict(row, bits=list(bits), layout="pooled", bt=POOL_BT,
+                         nb=nb))
+        del q, k_p, v_p, mask, bounds, table
+        torch.cuda.empty_cache()
+    return {"kv_quant": kq, "kv_append": app, "decode_attn": attn}
+
+
+def _band_bytes(eng, cfg):
+    """(d) The engine's cache bytes by band (``length`` excluded); for a
+    striped engine they must equal ``schedule_cache_nbytes`` x slots."""
+    from repro_torch.core import kv_cache as kvc
+    layer = kvc.schedule_cache_nbytes(eng.schedule, cfg.n_layers, MAX_LEN,
+                                      cfg.n_kv_heads, cfg.head_dim,
+                                      eng.params["embed"].dtype)
+    group, out = eng._caches["scan"], {}
+    for bs, be, pol in eng.schedule.bands():
+        band = group if "length" in group else group[f"L{bs:03d}"]
+        got = sum(v.numel() * v.element_size() for k, v in band.items()
+                  if k != "length")
+        out[f"L{bs:03d}"] = {"layers": be - bs, "bits": [pol.bits_k,
+                                                         pol.bits_v],
+                             "pooled": "block_tbl" in band, "bytes": got,
+                             "schedule_cache_nbytes": SERVE_SLOTS
+                             * sum(layer[bs:be])}
+    return out
+
+
+def _sched_serve(state, cfg, sched, what, pool_blocks=None, chunk=None):
+    """(b) The serve phase's 8 requests through a warmed Engine under
+    ``sched`` (striped, pooled with ``pool_blocks``, or chunked at
+    ``chunk``): every step a replay, the launch identities over the
+    quantized layers, every request finished, a clean audit per band.
+    Returns the engine, streams, last-token logits by rid (whole-prompt or
+    final-chunk) and a report."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    eng, warm = _graph_engine(state, cfg, pool_blocks, prefill_chunk=chunk,
+                              policy=sched)
+    logits = {}
+    prefills = _counted_prefills(eng, logits)
+    if chunk:
+        finish = eng._finish_prefill
+
+        def keep(job, lg):
+            logits[job.handle.rid] = lg[0, -1].float().cpu()
+            finish(job, lg)
+        eng._finish_prefill = keep
+    _, reqs = _serve_requests(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    if chunk:
+        _check_chunked_path(cfg, eng, counts, _evicting_chunks(SERVE_LENS),
+                            what, n_chunks=len(_chunk_plan(SERVE_LENS)))
+    else:
+        _check_graph_path(cfg, eng, counts, prefills, what)
+    check(all(h.finished and h.finish_reason == "length"
+              and len(h.tokens) == SERVE_NEW for h in handles),
+          f"{what}: not every request finished: "
+          f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
+    quant = [f"scan/L{bs:03d}" for bs, _, p in eng.schedule.bands()
+             if not p.is_fp16]
+    audit = eng.check_invariants()
+    if pool_blocks:
+        check(sorted(audit) == quant, f"{what}: pools {sorted(audit)} != "
+              f"one per quantized band {quant}")
+    tokens = sum(len(h.tokens) for h in handles)
+    rep = {"warmup": warm, "decode_steps": eng.n_decode_steps,
+           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+           "launches": counts, "peak_mem_bytes":
+           torch.cuda.max_memory_allocated(), "band_bytes":
+           _band_bytes(eng, cfg), "bf16_cache_bytes":
+           T.bf16_cache_bytes(cfg, SERVE_SLOTS, MAX_LEN)}
+    if pool_blocks:
+        st = eng.stats()
+        rep.update(pool_bytes=eng.backend_info["pool_bytes"],
+                   pool_bands=sorted(st["bands"]),
+                   peak_resident_bytes=st["peak_resident_bytes"],
+                   striped_worst_case_bytes=st["striped_worst_case_bytes"])
+    return eng, [list(h.tokens) for h in handles], logits, rep
+
+
+def _sched_eager(state, cfg, sched, what):
+    """Replayed against eager: the first wave's 4 requests through an
+    unwarmed Engine for EAGER_NEW tokens, with the eager path's launch
+    identities; returns the streams."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine
+    eng = Engine(state["params"], cfg, sched, batch_slots=SERVE_SLOTS,
+                 max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
+                 device=torch.device("cuda"))
+    prefills = _counted_prefills(eng)
+    _, reqs = _serve_requests(cfg)
+    reset_launch_counts()                                    # main path only
+    handles = [eng.submit(dataclasses.replace(r, max_new=EAGER_NEW))
+               for r in reqs[:SERVE_SLOTS]]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    _check_main_path(cfg, launch_counts(), eng.n_decode_steps, len(prefills),
+                     what, _n_quant(eng))
+    return [list(h.tokens) for h in handles]
+
+
+def _backend_logits(params, cfg, policy, seed=2, context=STEP_CONTEXT):
+    """One decode step of a 4-slot batch at ``context`` tokens on the cuda
+    and the reference backends from the same prefilled cache: relative L2
+    of the logits (gated) and top-1 agreement (reported)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    batch = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (SERVE_SLOTS, context)), device=dev)
+    _, base = T.prefill_model(params, cfg, batch, policy, max_len=MAX_LEN,
+                              backend="cuda")
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1)),
+                          device=dev)
+    lc, _ = T.decode_step(params, cfg, tok, _clone(base), policy,
+                          backend="cuda")
+    lr, _ = T.decode_step(params, cfg, tok, base, policy,
+                          backend="reference")
+    lc, lr = lc[:, -1].float(), lr[:, -1].float()
+    check(bool(torch.isfinite(lc).all() and torch.isfinite(lr).all()),
+          "decode logits not finite")
+    rel = float((lc - lr).norm() / lr.norm())
+    check(rel <= LOGIT_REL_TOL, f"cuda vs reference logits: relative L2 "
+          f"{rel:.4f} > {LOGIT_REL_TOL}")
+    return {"logits_rel_l2": rel, "top1_agreement":
+            float((lc.argmax(-1) == lr.argmax(-1)).float().mean())}
+
+
+def _one_schedule(state, cfg, name, sched):
+    """(b) + (d) for one schedule: striped, pooled (768 blocks), eager and
+    chunked (512) runs and the cuda-vs-reference step; returns the warmed
+    striped engine (for the turns against uniform) and the report."""
+    import gc
+    import torch
+    eng_s, streams, whole, striped = _sched_serve(state, cfg, sched,
+                                                  f"{name} striped")
+    for band, b in striped["band_bytes"].items():
+        check(b["bytes"] == b["schedule_cache_nbytes"],
+              f"{name}: band {band} holds {b['bytes']} bytes != "
+              f"schedule_cache_nbytes {b['schedule_cache_nbytes']}")
+    eng_p, p_streams, _, pooled = _sched_serve(state, cfg, sched,
+                                               f"{name} pooled", 768)
+    del eng_p
+    same = [a == b for a, b in zip(p_streams, streams)]
+    check(all(same), f"{name}: pooled streams differ from striped "
+          f"(request equal: {same})")
+    gc.collect()
+    eager = _sched_eager(state, cfg, sched, f"{name} eager")
+    same = [a == b[:EAGER_NEW] for a, b in zip(eager, streams)]
+    check(all(same), f"{name}: replayed streams differ from eager "
+          f"(request equal: {same})")
+    eng_c, c_streams, final, chunked = _sched_serve(
+        state, cfg, sched, f"{name} chunked", chunk=CHUNK)
+    del eng_c
+    rel = [float((final[i] - whole[i]).norm() / whole[i].norm())
+           for i in range(len(SERVE_LENS))]
+    check(max(rel) <= LOGIT_REL_TOL and all(
+        bool(torch.isfinite(v).all()) for v in final.values()),
+          f"{name}: final-chunk logits vs whole-prompt relative L2 "
+          f"{max(rel):.4f} > {LOGIT_REL_TOL}")
+    chunked.update(final_logits_rel_l2_vs_whole=rel,
+                   streams_equal_whole=[a == b for a, b in
+                                        zip(c_streams, streams)])
+    backends = _backend_logits(state["params"], cfg, sched)
+    for run in (striped, pooled, chunked):
+        kq, da = run["launches"]["kv_quant"], run["launches"]["decode_attn"]
+        state["launches"]["kv_quant"] += kq["kernel"]
+        state["launches"]["kv_append"] += kq["append"]
+        state["launches"]["decode_attn"] += da["kernel"]
+        state["launches"]["decode_attn_pooled"] += da["pooled"]
+    bands = [(bs, be, p.bits_k, p.bits_v, p.window, p.n_sink)
+             for bs, be, p in eng_s.schedule.bands()]
+    return eng_s, {"bands": bands, "quantized_layers": _n_quant(eng_s),
+                   "avg_bits": eng_s.schedule.avg_bits(cfg.head_dim),
+                   "striped": striped, "pooled": dict(
+                       pooled, streams_equal_striped=True),
+                   "eager_first_wave_equal": True, "chunked": chunked,
+                   "cuda_vs_reference": backends}
+
+
+def _granite(state):
+    """(e) granite_8b at full width (36 layers, 8 kv heads of 128, Gq 4),
+    random bf16 weights from seed 0, PAPER_POLICY: 4 requests through a
+    warmed Engine with the launch identities, cuda-vs-reference logits at
+    4 x 1024, and decode_attn at Hkv 8 / Gq 4 / D 128 against its plain
+    version and SDPA."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, Request
+    state.pop("params", None)                 # free the llama2-7b weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = configs.get("granite_8b")
+    t0 = time.monotonic()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    eng = Engine(params, cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
+                 max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
+                 device=dev)
+    warm = eng.warmup()
+    check(warm["n_graphs"] == 1 and warm["post_warmup_misses"] == 0,
+          f"granite: warmup captured no decode step: {warm}")
+    prefills = _counted_prefills(eng)
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new=GRANITE_NEW, seed=i)
+            for i, n in enumerate(GRANITE_LENS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    _check_graph_path(cfg, eng, counts, prefills, "granite")
+    check(all(h.finished and h.finish_reason == "length"
+              and len(h.tokens) == GRANITE_NEW
+              and all(0 <= t < cfg.vocab_size for t in h.tokens)
+              for h in handles),
+          f"granite: not every request finished: "
+          f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
+    peak = torch.cuda.max_memory_allocated()
+    steps = eng.n_decode_steps
+    del eng
+    gc.collect()
+    backends = _backend_logits(params, cfg, PAPER_POLICY, seed=5,
+                               context=1024)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    live = [500, 1500, 2900, 3900]
+    pol, q, k_qt, v_qt, mask, bounds, bs = _attn_case(
+        gen, dev, len(live), cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+        cfg.head_dim, live)
+    attn = _attn_row("decode_attn granite", pol, q, k_qt, v_qt, mask, bounds,
+                     bs, live)
+    kq, da = counts["kv_quant"], counts["decode_attn"]
+    state["launches"]["kv_quant"] += kq["kernel"]
+    state["launches"]["kv_append"] += kq["append"]
+    state["launches"]["decode_attn"] += da["kernel"]
+    return {"arch": cfg.name, "layers": cfg.n_layers, "hkv": cfg.n_kv_heads,
+            "gq": cfg.n_heads // cfg.n_kv_heads, "d": cfg.head_dim,
+            "params_init_s": init_s, "warmup": warm, "prompt_lens":
+            GRANITE_LENS, "max_new": GRANITE_NEW, "decode_steps": steps,
+            "wall_s": wall, "launches": counts, "peak_mem_bytes": peak,
+            "cuda_vs_reference": backends,
+            "decode_attn": dict(attn, bits=[pol.bits_k, pol.bits_v])}
+
+
+def _width_row(row, **extra):
+    keys = ("bits", "layout", "rows", "hkv", "gq", "d", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict({k: row[k] for k in keys if k in row}, **extra)
+
+
+def phase_serve_schedule(state):
+    """Per-layer policy schedules (DESIGN.md §8) on the card: (a) both
+    kernels at the ladder's widths; (b) first_last_fp16(PAPER_POLICY, 2)
+    and the default ladder through warmed engines striped, pooled and
+    chunked, with an eager first wave and the cuda-vs-reference step; (c) a
+    uniform schedule bitwise the bare policy; (d) cache bytes by band; the
+    replayed step of each schedule at 4 x 2048 in turns against uniform;
+    (e) granite_8b."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY, PolicySchedule
+    cfg = configs.get("llama2_7b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    widths = _width_kernels(gen, dev)
+    # (c) uniform schedule == bare policy (the eager serve phase's streams)
+    uni = PolicySchedule.uniform(PAPER_POLICY, cfg.n_layers)
+    eng_u, u_streams, _, uniform = _sched_serve(state, cfg, uni, "uniform")
+    same = [a == b for a, b in zip(u_streams, state["serve_streams"])]
+    check(all(same), f"uniform schedule streams differ from the bare "
+          f"policy's (request equal: {same})")
+    engines, scheds = {}, {}
+    for name, sched in _schedules().items():
+        engines[name], scheds[name] = _one_schedule(state, cfg, name, sched)
+    # the replayed step of each schedule at 4 x 2048 against uniform
+    for eng in [eng_u] + list(engines.values()):
+        _load_slots(eng, cfg)
+    turns = {name: _abba({"uniform": eng_u._decode_chunk,
+                          name: eng._decode_chunk})
+             for name, eng in engines.items()}
+    del eng_u, engines, eng
+    gc.collect()
+    granite = _granite(state)
+    for key, rows in (("kv_quant", widths["kv_quant"]),
+                      ("kv_append", widths["kv_append"])):
+        st = state[key]
+        st["widths"] = [_width_row(r) for r in rows]
+        st["max_abs_err"] = max([st["max_abs_err"]]
+                                + [r["max_abs_err"] for r in rows])
+    for key, layout in (("decode_attn", "striped"),
+                        ("decode_attn_pooled", "pooled")):
+        rows = [r for r in widths["decode_attn"] if r["layout"] == layout]
+        if layout == "striped":
+            rows.append(dict(granite["decode_attn"], layout="granite"))
+        st = state[key]
+        st["widths"] = [_width_row(r) for r in rows]
+        st["max_abs_err"] = max([st["max_abs_err"]]
+                                + [r["max_abs_err"] for r in rows])
+    emit({"phase": "serve_schedule", "arch": cfg.name, "max_len": MAX_LEN,
+          "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
+          "kernels": widths,
+          "uniform": dict(uniform, streams_equal_bare_policy=True),
+          "schedules": scheds, "abba_vs_uniform_4x2048": turns,
+          "granite_8b": granite})
 
 
 def _spec_dict(spec):
@@ -1748,7 +2183,7 @@ def main(argv=None) -> int:
     for phase in (phase_env, phase_kv_quant, phase_kv_append,
                   phase_decode_attn, phase_decode_attn_pooled, phase_serve,
                   phase_serve_pooled, phase_serve_graph,
-                  phase_serve_chunked):
+                  phase_serve_chunked, phase_serve_schedule):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

@@ -9,8 +9,9 @@ import importlib
 
 from ..models.config import ArchConfig
 
-ARCHS = ("llama3p2_1b", "llama2_7b")
-ALIASES = {"llama3.2-1b": "llama3p2_1b", "llama2-7b": "llama2_7b"}
+ARCHS = ("llama3p2_1b", "llama2_7b", "granite_8b")
+ALIASES = {"llama3.2-1b": "llama3p2_1b", "llama2-7b": "llama2_7b",
+           "granite-8b": "granite_8b"}
 
 
 def _module(name: str):

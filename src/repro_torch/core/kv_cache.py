@@ -32,7 +32,7 @@ import torch
 
 from ..device import resolve_device
 from . import segments as seg
-from .policy import QuantPolicy, as_layer_policy
+from .policy import QuantPolicy, as_layer_policy, as_schedule
 from .quant import quantize_groups, plane_layout
 
 Cache = Dict[str, torch.Tensor]
@@ -441,13 +441,39 @@ def prefill_chunk_append(cache: Cache, k: torch.Tensor, v: torch.Tensor,
     and the token it evicts is quantized into its packed slot.  Per-token
     group quantization makes each packed row independent of when it was
     quantized.  ``n_valid`` (scalar or (B,)): real tokens in the chunk;
-    slots at or past it are bucket padding and append nothing."""
+    slots at or past it are bucket padding and append nothing.
+
+    An fp16 policy writes the chunk in bulk (:func:`_fp16_chunk_write`),
+    the token loop's result without the loop."""
     b, c = k.shape[:2]
     nv = torch.as_tensor(n_valid, device=k.device).expand(b)
+    if as_layer_policy(policy).is_fp16:
+        return _fp16_chunk_write(cache, k, v, nv)
     _, valid = seg.chunk_segment(0, nv, c, device=k.device)    # (B, C)
     for i in range(c):
         decode_append(cache, k[:, i:i + 1], v[:, i:i + 1], policy, alpha_k,
                       alpha_v, quant_fn=quant_fn, valid=valid[:, i])
+    return cache
+
+
+def _fp16_chunk_write(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+                      nv: torch.Tensor) -> Cache:
+    """In place: chunk token ``i`` of row ``b`` to cache row ``length[b] +
+    i`` of ``k``/``v`` for ``i < nv[b]``, then ``length += nv``: a gather
+    over the whole buffer (every row written at most once, no duplicate
+    index, no host read), equal to :func:`decode_append`'s fp16 branch
+    applied token by token."""
+    b, c = k.shape[:2]
+    t = slot_lengths(cache, b)
+    s = cache["k"].shape[1]
+    i = torch.arange(s, device=k.device)[None, :] - t[:, None].long()
+    take = ((i >= 0) & (i < nv[:, None]))[..., None, None]     # (B, S, 1, 1)
+    idx = i.clamp(0, c - 1)[..., None, None].expand(
+        (b, s) + tuple(k.shape[2:]))
+    for buf, x in (("k", k), ("v", v)):
+        src = torch.gather(x.to(cache[buf].dtype), 1, idx)
+        cache[buf].copy_(torch.where(take, src, cache[buf]))
+    cache["length"].copy_(t + nv.to(t.dtype))
     return cache
 
 
@@ -460,3 +486,14 @@ def policy_cache_nbytes(max_len: int, n_kv: int, head_dim: int,
     shapes = cache_shapes(1, max_len, n_kv, head_dim, policy, dtype)
     return sum(math.prod(s) * torch.empty((), dtype=d).element_size()
                for name, (s, d) in shapes.items() if name != "length")
+
+
+def schedule_cache_nbytes(schedule, n_layers: int, max_len: int, n_kv: int,
+                          head_dim: int, dtype=torch.bfloat16):
+    """Per-layer cache bytes of a whole schedule (policy, schedule or
+    preset): one :func:`policy_cache_nbytes` entry per layer (DESIGN.md §8
+    accounting; ``Engine.backend_info`` and the serve CLI read it)."""
+    sched = as_schedule(schedule, n_layers)
+    per_policy = {p: policy_cache_nbytes(max_len, n_kv, head_dim, p, dtype)
+                  for p in sched.distinct()}
+    return tuple(per_policy[p] for p in sched.layers)

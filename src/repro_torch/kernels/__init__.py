@@ -6,19 +6,24 @@ counters.  Kernels build from ``csrc/`` at first use
 from __future__ import annotations
 
 
+def _counters():
+    from . import decode_attn, kv_quant, ops
+    return (("decode_attn", decode_attn.LAUNCHES),
+            ("kv_quant", kv_quant.LAUNCHES), ("fp16", ops.FP16_CALLS))
+
+
 def launch_counts() -> dict:
     """{kernel: {"kernel": n, "plain": n}} for both sources; decode_attn
     also counts its block-table launches under ``"pooled"``, kv_quant its
-    fused decode appends under ``"append"`` (plain: ``"append_plain"``)."""
-    from . import decode_attn, kv_quant
-    return {"decode_attn": dict(decode_attn.LAUNCHES),
-            "kv_quant": dict(kv_quant.LAUNCHES)}
+    fused decode appends under ``"append"`` (plain: ``"append_plain"``).
+    ``"fp16"`` counts the calls of the fp16 layers' route, which launches
+    no kernel (``kernels.ops.FP16_CALLS``: attend, append, chunk_append)."""
+    return {name: dict(d) for name, d in _counters()}
 
 
 def reset_launch_counts() -> None:
     """Set every launch counter to 0."""
-    from . import decode_attn, kv_quant
-    for d in (decode_attn.LAUNCHES, kv_quant.LAUNCHES):
+    for _, d in _counters():
         for k in d:
             d[k] = 0
 
@@ -35,8 +40,6 @@ def add_launch_counts(delta: dict, times: int = 1) -> None:
     recorded without running the wrappers that count them, so the graph
     cache adds the capture's delta once per replay here (and takes it
     back off after the capture, which launches nothing)."""
-    from . import decode_attn, kv_quant
-    for name, d in (("decode_attn", decode_attn.LAUNCHES),
-                    ("kv_quant", kv_quant.LAUNCHES)):
+    for name, d in _counters():
         for c, n in delta.get(name, {}).items():
             d[c] += n * times

@@ -12,9 +12,16 @@ A pooled cache (DESIGN.md §9) keeps its planes pool-major and hands the
 kernel its ``block_tbl``: the mask and bounds are computed in logical
 coordinates at the striped tile, and nothing is gathered on the host side.
 
-Not ported yet: the fp16-policy fallback and the ``local_slice``/
-``packed_override`` levers with their pre-append ``extra_kv``/``q_pos``
-protocol.
+A layer whose policy is fp16 (a guard layer of a schedule, DESIGN.md §8)
+has nothing packed, so no kernel runs for it, as in the JAX package: the
+route is chosen by the policy, never by a failed launch.
+:func:`cuda_decode_attention` attends over its dense cache with the shared
+``segments.partial_attend``/``finalize``, and :func:`fp16_append` /
+:func:`fp16_chunk_append` write its rows with ``kv_cache``'s fp16
+branches; ``FP16_CALLS`` counts the three (``launch_counts()["fp16"]``).
+
+Not ported yet: the ``local_slice``/``packed_override`` levers with their
+pre-append ``extra_kv``/``q_pos`` protocol.
 """
 from __future__ import annotations
 
@@ -23,11 +30,38 @@ import torch
 from ..core.policy import QuantPolicy
 from ..core.quant import n_meta_groups, packed_nbytes
 from ..core import segments as seg
+from ..core import kv_cache as kvc
 from ..core.kv_cache import is_pooled, slot_lengths
 from .decode_attn import BLOCK_S, decode_attn
 from .kv_quant import kv_quant
 
 _FAR = 2 ** 30  # position of padded packed slots (always masked out)
+FP16_CALLS = {"attend": 0, "append": 0, "chunk_append": 0}
+
+
+def _need_fp16(policy: QuantPolicy, what: str):
+    if not policy.is_fp16:
+        raise ValueError(f"{what} is the fp16 route; a quantized policy "
+                         f"takes the kernels")
+
+
+def fp16_append(cache, k_new, v_new, policy: QuantPolicy, alpha_k=None,
+                alpha_v=None, valid=None):
+    """The decode append of an fp16 layer (DESIGN.md §8): row ``length`` of
+    ``k``/``v`` by a device-side index, no host read, so it is captured in
+    the step's graph (``kv_cache.decode_append``'s fp16 branch)."""
+    _need_fp16(policy, "fp16_append")
+    FP16_CALLS["append"] += 1
+    return kvc.decode_append(cache, k_new, v_new, policy, valid=valid)
+
+
+def fp16_chunk_append(cache, k, v, policy: QuantPolicy, t0, n_valid,
+                      alpha_k=None, alpha_v=None):
+    """The chunked-prefill append of an fp16 layer: the chunk's rows
+    written in bulk (``kv_cache.prefill_chunk_append``'s fp16 branch)."""
+    _need_fp16(policy, "fp16_chunk_append")
+    FP16_CALLS["chunk_append"] += 1
+    return kvc.prefill_chunk_append(cache, k, v, policy, n_valid)
 
 
 def _block_pad(s_eff: int, block_s: int):
@@ -95,15 +129,25 @@ def cuda_decode_attention(q, cache, policy: QuantPolicy, *, scale: float,
     per-slot block bounds ``[lo, hi)`` and the kernel skips dead tiles,
     bit-identically to the full walk.  A pooled cache takes the kernel's
     block-table mode at the same tile as a striped cache of the same
-    capacity, so the two give bitwise equal results (DESIGN.md §9)."""
-    if policy.is_fp16:
-        raise NotImplementedError("the fp16-policy fallback of the decode "
-                                  "wrapper is not ported yet")
+    capacity, so the two give bitwise equal results (DESIGN.md §9).
+
+    An fp16 policy has nothing packed: it attends over the dense ``k``/
+    ``v`` cache with the shared flash partial, no kernel (the JAX
+    package's fallback, ``repro.kernels.ops``)."""
     from ..models.attention import fp_segment_partial
     b, _, hq, d = q.shape
     lens = slot_lengths(cache, b)
     t_now = lens - 1
     weff = seg.effective_window(window)
+    if policy.is_fp16:
+        FP16_CALLS["attend"] += 1
+        hkv = cache["k"].shape[2]
+        qg = q.reshape(b, hkv, hq // hkv, d)
+        pos = torch.arange(cache["k"].shape[1], device=q.device)
+        ok = seg.attend_ok(pos, pos[None, :] < lens[:, None], t_now, weff)
+        part = seg.partial_attend(qg, cache["k"].to(dtype),
+                                  cache["v"].to(dtype), ok, scale, softcap)
+        return seg.finalize([part]).reshape(b, 1, hq, d).to(q.dtype)
     hkv = (cache["win_k"] if "win_k" in cache else cache["qk_codes_hi"]
            ).shape[2]
     qg = q.reshape(b, hkv, hq // hkv, d)

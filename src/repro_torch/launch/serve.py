@@ -15,12 +15,19 @@ from ``SyntheticCorpus(vocab, seed=0)``, request ``i`` sampled with
 at most N tokens (DESIGN.md §7), one chunk per scheduler tick between
 decode chunks; 0 prefills whole prompts.
 
+``--policy-schedule first_last_fp16|ladder`` serves a per-layer schedule
+(DESIGN.md §8): ``--guard-layers`` fp16 guard layers at each end (clamped
+so that one layer stays quantized), or the 4/4 -> base -> base bits ladder
+over even thirds of the layers; the CLI prints the schedule's table
+(avg-bits and cache bytes per layer band).
+
 ``--pool-blocks N`` serves from the paged block pool (DESIGN.md §9) of N
-``--pool-block-tokens``-token blocks (max_len is rounded up so the packed
-region tiles into whole blocks) and prints the pool summary: prefix hit
-rate, copy-on-write copies, and peak and resident packed bytes against the
-striped worst case.  ``--pool-memory-mb`` sizes the pool from a byte
-budget instead (DESIGN.md §10).
+``--pool-block-tokens``-token blocks per quantized band (max_len is
+rounded up so the packed region tiles into whole blocks) and prints the
+pool summary: prefix hit rate, copy-on-write copies, and peak and
+resident packed bytes against the striped worst case.
+``--pool-memory-mb`` sizes the pool from a byte budget instead
+(DESIGN.md §10).
 
 ``--open-loop`` switches to the throughput harness of DESIGN.md §10:
 requests arrive on a seeded Poisson clock at ``--arrival-rate`` req/s
@@ -45,7 +52,8 @@ import numpy as np
 import torch
 
 from .. import configs
-from ..core.policy import QuantPolicy
+from ..core.kv_cache import schedule_cache_nbytes
+from ..core.policy import PolicySchedule, QuantPolicy, as_schedule
 from ..core.quant import packed_nbytes
 from ..data import SyntheticCorpus
 from ..device import resolve_device
@@ -57,6 +65,43 @@ from ..serving import (Engine, MetricsRecorder, Request, WorkloadSpec,
 
 def _pct(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if len(xs) else 0.0
+
+
+def _print_schedule_table(schedule, cfg, max_len, dtype):
+    """Per-band avg-bits and cache bytes (DESIGN.md §8 accounting): one row
+    per contiguous equal-policy band; cache KB is the exact allocation of
+    ONE layer of the band at ``max_len`` in the served cache dtype, and the
+    total line sums every layer."""
+    nbytes = schedule_cache_nbytes(schedule, cfg.n_layers, max_len,
+                                   cfg.n_kv_heads, cfg.head_dim, dtype=dtype)
+    print("  layers      bits_k  bits_v  window  sinks  avg_bits  "
+          "cache_KB/layer")
+    for bs, be, p in schedule.bands():
+        span = f"{bs}" if be == bs + 1 else f"{bs}-{be - 1}"
+        print(f"  {span:<10}  {p.bits_k:<6g}  {p.bits_v:<6g}  {p.window:<6d}"
+              f"  {p.n_sink:<5d}  {p.avg_bits(cfg.head_dim):<8.3f}"
+              f"  {nbytes[bs] / 1024:.1f}")
+    print(f"  schedule avg_bits={schedule.avg_bits(cfg.head_dim):.3f} "
+          f"total cache KB/slot={sum(nbytes) / 1024:.1f}")
+
+
+def _schedule(args, cfg, policy) -> PolicySchedule:
+    """The ``--policy-schedule`` preset over ``cfg``'s layers, as the
+    reference CLI builds it."""
+    if args.policy_schedule == "first_last_fp16":
+        # one interior layer must stay quantized (the preset refuses an
+        # all-fp16 schedule): clamp for shallow smoke archs
+        guard = min(args.guard_layers, max((cfg.n_layers - 1) // 2, 0))
+        if guard != args.guard_layers:
+            print(f"note: --guard-layers {args.guard_layers} clamped to "
+                  f"{guard} ({cfg.n_layers}-layer arch needs 2*guard < "
+                  f"layers)")
+        return PolicySchedule.first_last_fp16(policy, guard, cfg.n_layers)
+    if args.policy_schedule == "ladder":
+        return PolicySchedule.bits_ladder(
+            policy, ((4.0, 4.0), (args.bits_k, args.bits_v),
+                     (args.bits_k, args.bits_v)), cfg.n_layers)
+    return as_schedule(policy, cfg.n_layers)
 
 
 def main(argv=None):
@@ -85,6 +130,15 @@ def main(argv=None):
     ap.add_argument("--group-size", type=int, default=64)
     ap.add_argument("--window", type=int, default=32)
     ap.add_argument("--sinks", type=int, default=5)
+    ap.add_argument("--policy-schedule", default="uniform",
+                    choices=("uniform", "first_last_fp16", "ladder"),
+                    help="per-layer policy schedule preset (DESIGN.md §8): "
+                         "uniform = every layer runs the --bits-* policy; "
+                         "first_last_fp16 = --guard-layers fp16 guard layers "
+                         "at each end; ladder = 4/4 -> base -> base bits "
+                         "over even layer thirds")
+    ap.add_argument("--guard-layers", type=int, default=2,
+                    help="fp16 guard layers per end (first_last_fp16 preset)")
     ap.add_argument("--backend", default=None,
                     help="cuda | reference (default: cuda on a card)")
     ap.add_argument("--steps-per-sync", type=int, default=8,
@@ -132,6 +186,7 @@ def main(argv=None):
                          group_size=min(args.group_size, cfg.head_dim),
                          window=0 if is_fp16 else args.window,
                          n_sink=0 if is_fp16 else args.sinks)
+    schedule = _schedule(args, cfg, policy)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     params = T.init_params(cfg, seed=args.seed, dtype=dtype, device=dev)
     n_req = args.requests or 2 * args.batch
@@ -153,11 +208,17 @@ def main(argv=None):
     max_len = (args.prompt_len + args.prompt_jitter + args.new_tokens + jit
                + args.steps_per_sync)
     pooled = bool(args.pool_blocks or args.pool_memory_mb)
-    if pooled and not policy.is_fp16:
-        # round up so the packed region (max_len - n_sink - window) tiles
+    if pooled:
+        # round max_len up so every quantized band's packed region
+        # (max_len - n_sink - window) tiles into whole pool blocks
         bt = args.pool_block_tokens
-        max_len += -(max_len - policy.n_sink - policy.window) % bt
-    eng = Engine(params, cfg, policy, batch_slots=args.batch, max_len=max_len,
+        for _ in range(bt):
+            if all(p.is_fp16 or (max_len - p.n_sink - p.window) % bt == 0
+                   for p in schedule.distinct()):
+                break
+            max_len += 1
+    eng = Engine(params, cfg, schedule, batch_slots=args.batch,
+                 max_len=max_len,
                  backend=args.backend, steps_per_sync=args.steps_per_sync,
                  prefill_chunk=args.prefill_chunk or None,
                  pool_blocks=args.pool_blocks or None,
@@ -190,7 +251,9 @@ def main(argv=None):
                            policy.meta_dtype_bits))
     print(f"arch={cfg.name} policy=K{args.bits_k}V{args.bits_v} "
           f"g{policy.group_size} w{policy.window} slots={args.batch} "
-          f"requests={n_req} device={dev}")
+          f"requests={n_req} device={dev} "
+          f"schedule={args.policy_schedule}")
+    _print_schedule_table(schedule, cfg, max_len, dtype)
     info = eng.backend_info
     print(f"backend: name={info['name']} kernels={info['kernels']} "
           f"launches={launch_counts()}")

@@ -16,7 +16,11 @@ fp window, so attention and quantization agree on the packed layout.
   main path; chunked prefill appends through ``kv_append_chunk`` (one
   bulk ``kv_quant`` launch per plane per layer per chunk).  The
   counterpart of the reference's ``PallasBackend``; the default on a CUDA
-  device.  On CPU tensors the kernels run their plain versions.
+  device.  On CPU tensors the kernels run their plain versions.  A layer
+  whose policy is fp16 (a schedule's guard layer, DESIGN.md §8) has no
+  packed planes: its route is chosen by the policy, statically, and runs
+  torch ops (``kernels.ops``' fp16 route), as the JAX package computes
+  fp16 layers outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -129,24 +133,32 @@ class CudaBackend:
             softcap=cfg.attn_softcap, window=window, dtype=dtype)
 
     def quant_fn(self, policy: QuantPolicy) -> Optional[Callable]:
-        """The bulk ``kv_quant`` kernel, always (DESIGN.md §3 plane
-        layout)."""
-        as_layer_policy(policy)
+        """The bulk ``kv_quant`` kernel for every quantized policy
+        (DESIGN.md §3 plane layout); None for an fp16 one, whose prefill
+        quantizes nothing."""
+        if as_layer_policy(policy).is_fp16:
+            return None
         from ..kernels.ops import make_kernel_quant_fn
         return make_kernel_quant_fn()
 
     def append_fn(self, policy: QuantPolicy) -> Callable:
         """The fused ``kv_append`` kernel: the whole decode append of a
-        layer in one launch (DESIGN.md §1)."""
-        as_layer_policy(policy)
+        layer in one launch (DESIGN.md §1); an fp16 policy's row write
+        (``kernels.ops.fp16_append``)."""
+        if as_layer_policy(policy).is_fp16:
+            from ..kernels.ops import fp16_append
+            return fp16_append
         from ..kernels.kv_quant import kv_append
         return kv_append
 
     def chunk_append_fn(self, policy: QuantPolicy) -> Callable:
         """``kernels.kv_quant.kv_append_chunk``: a chunk's evicted rows
         quantized by one bulk ``kv_quant`` launch per plane (DESIGN.md
-        §7)."""
-        as_layer_policy(policy)
+        §7); an fp16 policy's bulk row write
+        (``kernels.ops.fp16_chunk_append``)."""
+        if as_layer_policy(policy).is_fp16:
+            from ..kernels.ops import fp16_chunk_append
+            return fp16_chunk_append
         from ..kernels.kv_quant import kv_append_chunk
         return kv_append_chunk
 

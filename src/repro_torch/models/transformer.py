@@ -10,16 +10,22 @@ path of ``repro.models.transformer``).
 * Prefill runs full-precision attention first and then quantizes all but
   the sinks and the window (paper Sec. 3.2).  A decode step appends and
   quantizes in place, then attends through the backend (DESIGN.md §4).
-* The layer loop is a Python loop (the reference's ``lax.scan``); caches
-  are layer-stacked ``{"scan": {key: (L, B, ...)}}`` (a pooled cache's
-  planes are ``(L, NP+1, BT, ...)`` beside ``block_tbl`` ``(L, B, NB)``,
-  DESIGN.md §9) and each layer works on views, so :func:`decode_step`
-  updates them **in place**.
+* ``policy`` may be a :class:`~repro_torch.core.policy.PolicySchedule`
+  (or a preset): the layers run in contiguous equal-policy bands
+  (DESIGN.md §8), each with its own cache layout, quantizer, append and
+  calibration slice.  The layer loop is a Python loop (the reference's
+  ``lax.scan`` per band); a band's caches are layer-stacked ``{key: (L_band,
+  B, ...)}`` (a pooled band's planes are ``(L_band, NP+1, BT, ...)`` beside
+  ``block_tbl`` ``(L_band, B, NB)``, DESIGN.md §9).  One band keeps the
+  flat ``{"scan": {key: ...}}`` structure, so a uniform schedule is
+  bitwise the bare policy; several bands are keyed by their first layer
+  (``{"scan": {"L000": {...}, "L001": {...}}}``).  Each layer works on
+  views, so :func:`decode_step` updates the caches **in place**.
 
 Chunked prefill (DESIGN.md §7: :func:`prefill_chunk_init`,
 :func:`prefill_chunk`) streams a prompt through the cache a chunk at a
-time.  Only the dense family with a uniform policy is ported; ``unroll``,
-``chunk`` and schedules come later.
+time, band by band.  Only the dense family is ported; ``unroll`` and
+``chunk`` come later.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ from .config import ArchConfig
 from . import layers as L
 from . import backends as bk
 from .attention import prefill_block_attention, prefill_chunk_attention
-from ..core.policy import QuantPolicy, as_layer_policy
+from ..core.policy import (PolicySchedule, QuantPolicy, as_layer_policy,
+                           as_schedule)
 from ..core import kv_cache as kvc
 from ..core import segments as seg
 from ..core.quant import n_meta_groups
@@ -104,7 +111,9 @@ def _cast_params(params, dtype):
 def identity_calib(cfg: ArchConfig, policy: QuantPolicy,
                    n_layers: Optional[int] = None, device=None
                    ) -> Dict[str, torch.Tensor]:
-    """Stacked no-op calibration (identity perms, alpha = 1)."""
+    """Stacked no-op calibration (identity perms, alpha = 1).  ``policy`` is
+    one layer's policy: the alpha group counts depend on it, so a
+    non-uniform schedule builds one table per band (:func:`_band_calib`)."""
     policy = as_layer_policy(policy)
     dev = resolve_device(device)
     n = cfg.n_layers if n_layers is None else n_layers
@@ -116,6 +125,13 @@ def identity_calib(cfg: ArchConfig, policy: QuantPolicy,
     return {"perm_k": eye, "perm_v": eye.clone(),
             "alpha_k": torch.ones((n, h, gk), dtype=torch.float32, device=dev),
             "alpha_v": torch.ones((n, h, gv), dtype=torch.float32, device=dev)}
+
+
+def stacked_calib(calib, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """A calibration object (anything with ``stacked()``) -> the stacked
+    ``(L, ...)`` table the passes take (the reference's
+    ``stacked_calib``)."""
+    return calib.stacked()
 
 
 def _apply_perm(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -133,12 +149,61 @@ def _inverse_perm(perm: torch.Tensor) -> torch.Tensor:
         perm.shape[-1], device=perm.device).expand_as(perm).contiguous())
 
 
-def _calib(calib, cfg: ArchConfig, policy: QuantPolicy, device):
-    c = identity_calib(cfg, policy, device=device) if calib is None else calib
-    out = dict(c)
-    out["perm_k"] = c["perm_k"].long()
-    out["perm_v"] = c["perm_v"].long()
-    return out
+# ========================================================= schedule banding
+# A schedule splits the layers into contiguous equal-policy BANDS (DESIGN.md
+# §8): one band = one cache layout.  One band keeps the flat cache group, so
+# a uniform schedule is bitwise the bare policy; several bands key the group
+# by band.
+
+def _band_key(start: int) -> str:
+    """Cache-group key of the band starting at layer ``start`` (zero-padded
+    so that lexicographic order is layer order)."""
+    return f"L{start:03d}"
+
+
+def _first_stack(group):
+    """The first band's stacked caches of a group (flat or band-keyed)."""
+    return group if "length" in group else group[min(group)]
+
+
+def _band_cache(group, bands, start):
+    """The stacked caches of the band at ``start`` within its group."""
+    return group if len(bands) == 1 else group[_band_key(start)]
+
+
+def _band_out(outs, bands, g0):
+    """A group's per-band outputs: one band keeps the flat structure,
+    several are band-keyed."""
+    return outs[_band_key(g0)] if len(bands) == 1 else outs
+
+
+def _band_calib(calib, cfg: ArchConfig, pol: QuantPolicy, start: int,
+                stop: int, device):
+    """The band's calibration: the caller's stacked ``(L, ...)`` table cut
+    to ``[start, stop)`` (perms as int64), or an identity table built with
+    the band's policy (alpha group counts differ across policies)."""
+    if calib is None:
+        return identity_calib(cfg, pol, n_layers=stop - start, device=device)
+    return {k: v[start:stop].long() if k.startswith("perm") else
+            v[start:stop] for k, v in calib.items()}
+
+
+def _check_calib_schedule(calib, sched: PolicySchedule, cfg: ArchConfig):
+    """One stacked calibration table serves only a schedule whose QUANTIZED
+    layers share one quantization layout: alpha tables carry no layout, so
+    slicing one across mixed-bits bands would misalign clip factors
+    (DESIGN.md §8).  fp16 layers are exempt (their alphas are never read)."""
+    if calib is None:
+        return
+    layouts = {(p.bits_k, p.bits_v, min(p.group_size, cfg.head_dim),
+                p.fp8_meta) for p in sched if not p.is_fp16}
+    if len(layouts) > 1:
+        raise ValueError(
+            f"a stacked calibration table cannot serve a schedule mixing "
+            f"{len(layouts)} quantization layouts (distinct bits/group/meta "
+            f"among quantized layers) — per-layer alpha plane layouts "
+            f"differ; calibrate each layer against its own policy or pass "
+            f"calib=None")
 
 
 # =========================================================== attention sub
@@ -167,42 +232,57 @@ def _stack_caches(per_layer):
 
 # ================================================================ prefill
 
+def _bands(cfg: ArchConfig, policy, calib):
+    """The schedule's bands over every layer, after the calib check."""
+    sched = as_schedule(policy, cfg.n_layers)
+    _check_calib_schedule(calib, sched, cfg)
+    return sched.bands()
+
+
 def prefill_model(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                  policy: QuantPolicy, calib: Optional[Dict] = None,
+                  policy, calib: Optional[Dict] = None,
                   max_len: Optional[int] = None, dtype=None, backend=None):
     """Paper Sec. 3.2 prefill of ``tokens`` (B, S): full-precision attention
     (fixed 128-wide key blocks, DESIGN.md §7), then quantize all but the
-    sinks and the window through the backend's quantizer.
+    sinks and the window through the backend's quantizer, band by band
+    with each band's policy (DESIGN.md §8).
 
-    Returns (last-token logits (B, 1, V), {"scan": layer-stacked caches})."""
+    Returns (last-token logits (B, 1, V), {"scan": caches}): layer-stacked,
+    band-keyed when the schedule has more than one band."""
     _check_dense(cfg)
-    policy = as_layer_policy(policy)
+    bands = _bands(cfg, policy, calib)
     dev = tokens.device
     backend = bk.resolve_backend(backend, dev)
-    quant_fn = backend.quant_fn(policy)
     params = _cast_params(params, dtype)
-    cal = _calib(calib, cfg, policy, dev)
     x = L.embed(tokens, params["embed"], cfg.embed_scale)
     if dtype is not None:
         x = x.to(dtype)
     b, s, _ = x.shape
     ml = max_len or (s + 64)
     rope = _rope_tables(cfg, torch.arange(s, dtype=torch.int32, device=dev))
-    caches = []
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
-        hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
-        q, k, v = _qkv(hn, p["attn"], cfg, rope)
-        attn = prefill_block_attention(q, k, v, cfg, window=_window(cfg, i))
-        x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
-        x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
-                      p["mlp"], cfg)
-        caches.append(kvc.prefill(
-            _apply_perm(k, cal["perm_k"][i]).to(x.dtype),
-            _apply_perm(v, cal["perm_v"][i]).to(x.dtype), ml, policy,
-            cal["alpha_k"][i], cal["alpha_v"][i], quant_fn=quant_fn))
+    outs = {}
+    for bs, be, pol in bands:
+        quant_fn = backend.quant_fn(pol)
+        cal = _band_calib(calib, cfg, pol, bs, be, dev)
+        caches = []
+        for i in range(bs, be):
+            p = _layer(params["layers"], i)
+            hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
+            q, k, v = _qkv(hn, p["attn"], cfg, rope)
+            attn = prefill_block_attention(q, k, v, cfg,
+                                           window=_window(cfg, i))
+            x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
+            x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
+                          p["mlp"], cfg)
+            j = i - bs
+            caches.append(kvc.prefill(
+                _apply_perm(k, cal["perm_k"][j]).to(x.dtype),
+                _apply_perm(v, cal["perm_v"][j]).to(x.dtype), ml, pol,
+                cal["alpha_k"][j], cal["alpha_v"][j], quant_fn=quant_fn))
+        outs[_band_key(bs)] = _stack_caches(caches)
     x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
-    return L.unembed(x[:, -1:], params, cfg), {"scan": _stack_caches(caches)}
+    return (L.unembed(x[:, -1:], params, cfg),
+            {"scan": _band_out(outs, bands, 0)})
 
 
 # ========================================================== chunked prefill
@@ -219,28 +299,36 @@ def _check_chunkable(cfg: ArchConfig):
             "chunked prefill does not support M-RoPE position streams")
 
 
-def prefill_chunk_init(cfg: ArchConfig, policy: QuantPolicy, max_len: int,
-                       cap: int, batch: int = 1, dtype=torch.float32,
+def prefill_chunk_init(cfg: ArchConfig, policy, max_len: int, cap: int,
+                       batch: int = 1, dtype=torch.float32,
                        device=None) -> Dict:
     """Empty chunked-prefill state (DESIGN.md §7): ``{"caches": {"scan":
     zeroed layer-stacked caches (L, B, ...)}, "ws": {"scan": {"k", "v":
-    (L, B, cap, H_kv, D)}}}`` in ``dtype`` on ``device``.  The workspace
-    holds the prompt's unpermuted post-RoPE K/V at row = position, for the
-    full-precision chunk attention; ``cap >= max_len`` always suffices."""
+    (L, B, cap, H_kv, D)}}}`` in ``dtype`` on ``device``, each band-keyed
+    as :func:`prefill_model` keys its caches when the schedule has several
+    bands (DESIGN.md §8).  The workspace holds the prompt's unpermuted
+    post-RoPE K/V at row = position, for the full-precision chunk
+    attention; ``cap >= max_len`` always suffices."""
     _check_chunkable(cfg)
-    policy = as_layer_policy(policy)
     if cap < max_len:
         raise ValueError(f"workspace cap ({cap}) must be >= max_len "
                          f"({max_len})")
+    bands = as_schedule(policy, cfg.n_layers).bands()
     dev = resolve_device(device)
-    n = cfg.n_layers
-    shapes = kvc.cache_shapes(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                              policy, dtype)
-    ws = (n, batch, cap, cfg.n_kv_heads, cfg.head_dim)
-    return {"caches": {"scan": {k: torch.zeros((n,) + s, dtype=d, device=dev)
-                                for k, (s, d) in shapes.items()}},
-            "ws": {"scan": {"k": torch.zeros(ws, dtype=dtype, device=dev),
-                            "v": torch.zeros(ws, dtype=dtype, device=dev)}}}
+    couts, wouts = {}, {}
+    for bs, be, pol in bands:
+        n = be - bs
+        shapes = kvc.cache_shapes(batch, max_len, cfg.n_kv_heads,
+                                  cfg.head_dim, pol, dtype)
+        ws = (n, batch, cap, cfg.n_kv_heads, cfg.head_dim)
+        couts[_band_key(bs)] = {k: torch.zeros((n,) + s, dtype=d,
+                                               device=dev)
+                                for k, (s, d) in shapes.items()}
+        wouts[_band_key(bs)] = {
+            "k": torch.zeros(ws, dtype=dtype, device=dev),
+            "v": torch.zeros(ws, dtype=dtype, device=dev)}
+    return {"caches": {"scan": _band_out(couts, bands, 0)},
+            "ws": {"scan": _band_out(wouts, bands, 0)}}
 
 
 def _ws_write(ws: torch.Tensor, x: torch.Tensor, t0: int, n_valid: int):
@@ -251,7 +339,7 @@ def _ws_write(ws: torch.Tensor, x: torch.Tensor, t0: int, n_valid: int):
 
 
 def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                  state: Dict, policy: QuantPolicy, t0: int, n_valid: int,
+                  state: Dict, policy, t0: int, n_valid: int,
                   calib: Optional[Dict] = None, dtype=None, backend=None):
     """One prompt chunk against the SKVQ cache (DESIGN.md §7).
 
@@ -261,41 +349,45 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     real rows into the workspace, attend over it
     (``prefill_chunk_attention``, full precision, cut at the frontier),
     add the residual and the MLP, then append the permuted K/V to the
-    cache through the backend's ``chunk_append_fn``.  ``state`` (from
-    :func:`prefill_chunk_init`) is updated in place.  Returns (logits
-    (1, 1, V) of row ``n_valid - 1``, state): after the last chunk, the
-    prompt's last-token logits."""
+    cache through the backend's ``chunk_append_fn`` for the layer's band
+    (DESIGN.md §8).  ``state`` (from :func:`prefill_chunk_init` with the
+    same schedule) is updated in place.  Returns (logits (1, 1, V) of row
+    ``n_valid - 1``, state): after the last chunk, the prompt's last-token
+    logits."""
     _check_chunkable(cfg)
-    policy = as_layer_policy(policy)
+    bands = _bands(cfg, policy, calib)
     t0, n_valid = int(t0), int(n_valid)
     dev = tokens.device
     backend = bk.resolve_backend(backend, dev)
-    append = backend.chunk_append_fn(policy)
     params = _cast_params(params, dtype)
-    cal = _calib(calib, cfg, policy, dev)
     x = L.embed(tokens, params["embed"], cfg.embed_scale)
     if dtype is not None:
         x = x.to(dtype)
     b, c, _ = x.shape
     pos, _ = seg.chunk_segment(t0, n_valid, c, device=dev)
     rope = _rope_tables(cfg, pos)
-    group, ws = state["caches"]["scan"], state["ws"]["scan"]
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
-        cache = {k: v[i] for k, v in group.items()}
-        hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
-        q, k, v = _qkv(hn, p["attn"], cfg, rope)
-        _ws_write(ws["k"][i], k, t0, n_valid)
-        _ws_write(ws["v"][i], v, t0, n_valid)
-        attn = prefill_chunk_attention(q, ws["k"][i], ws["v"][i], pos, cfg,
-                                       window=_window(cfg, i),
-                                       frontier=t0 + n_valid)
-        x = x + attn.reshape(b, c, -1) @ p["attn"]["wo_attn"]
-        x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
-                      p["mlp"], cfg)
-        append(cache, _apply_perm(k, cal["perm_k"][i]).to(x.dtype),
-               _apply_perm(v, cal["perm_v"][i]).to(x.dtype), policy, t0,
-               n_valid, cal["alpha_k"][i], cal["alpha_v"][i])
+    for bs, be, pol in bands:
+        append = backend.chunk_append_fn(pol)
+        cal = _band_calib(calib, cfg, pol, bs, be, dev)
+        group = _band_cache(state["caches"]["scan"], bands, bs)
+        ws = _band_cache(state["ws"]["scan"], bands, bs)
+        for i in range(bs, be):
+            j = i - bs
+            p = _layer(params["layers"], i)
+            cache = {k: v[j] for k, v in group.items()}
+            hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
+            q, k, v = _qkv(hn, p["attn"], cfg, rope)
+            _ws_write(ws["k"][j], k, t0, n_valid)
+            _ws_write(ws["v"][j], v, t0, n_valid)
+            attn = prefill_chunk_attention(q, ws["k"][j], ws["v"][j], pos,
+                                           cfg, window=_window(cfg, i),
+                                           frontier=t0 + n_valid)
+            x = x + attn.reshape(b, c, -1) @ p["attn"]["wo_attn"]
+            x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
+                          p["mlp"], cfg)
+            append(cache, _apply_perm(k, cal["perm_k"][j]).to(x.dtype),
+                   _apply_perm(v, cal["perm_v"][j]).to(x.dtype), pol, t0,
+                   n_valid, cal["alpha_k"][j], cal["alpha_v"][j])
     x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
     last = x[:, max(0, min(n_valid, c) - 1)][:, None]
     return L.unembed(last, params, cfg), state
@@ -304,50 +396,55 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 # ================================================================= decode
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
-                caches, policy: QuantPolicy, calib: Optional[Dict] = None,
+                caches, policy, calib: Optional[Dict] = None,
                 dtype=None, backend=None):
     """One decode step for ``token`` (B, 1) at each slot's own position.
 
-    Appends + quantizes the evicted token in every layer through the
-    backend's ``append_fn``, then attends through ``backend`` (DESIGN.md
-    §4).  ``caches`` is updated **in place**
-    and returned with the logits (B, 1, V)."""
+    Band by band (DESIGN.md §8), each layer appends + quantizes the
+    evicted token through the backend's ``append_fn`` for the band's
+    policy, then attends through ``backend`` with that policy (DESIGN.md
+    §4): each band's route and kernel launch plan are fixed by its policy,
+    so a captured step stays static.  ``caches`` (as
+    :func:`prefill_model` builds them) are updated **in place** and
+    returned with the logits (B, 1, V)."""
     _check_dense(cfg)
-    policy = as_layer_policy(policy)
+    bands = _bands(cfg, policy, calib)
     dev = token.device
     backend = bk.resolve_backend(backend, dev)
-    append = backend.append_fn(policy)
     params = _cast_params(params, dtype)
-    cal = _calib(calib, cfg, policy, dev)
-    perm_q = _expand_perm(cal["perm_k"], cfg.n_heads)
-    inv_v = _expand_perm(_inverse_perm(cal["perm_v"]), cfg.n_heads)
     x = L.embed(token, params["embed"], cfg.embed_scale)
     if dtype is not None:
         x = x.to(dtype)
     b = x.shape[0]
-    group = caches["scan"]
-    t = group["length"][0]                          # (B,) per-slot position
+    t = _first_stack(caches["scan"])["length"][0]    # (B,) per-slot position
     rope = _rope_tables(cfg, t[:, None])
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
-        cache = {k: v[i] for k, v in group.items()}
-        hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
-        q, k, v = _qkv(hn, p["attn"], cfg, rope)
-        append(cache, _apply_perm(k, cal["perm_k"][i]),
-               _apply_perm(v, cal["perm_v"][i]), policy, cal["alpha_k"][i],
-               cal["alpha_v"][i])
-        attn = backend.attend(_apply_perm(q, perm_q[i]), cache, cfg, policy,
-                              window=_window(cfg, i), dtype=x.dtype)
-        attn = _apply_perm(attn, inv_v[i])
-        x = x + attn.reshape(b, 1, -1) @ p["attn"]["wo_attn"]
-        x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
-                      p["mlp"], cfg)
+    for bs, be, pol in bands:
+        append = backend.append_fn(pol)
+        cal = _band_calib(calib, cfg, pol, bs, be, dev)
+        perm_q = _expand_perm(cal["perm_k"], cfg.n_heads)
+        inv_v = _expand_perm(_inverse_perm(cal["perm_v"]), cfg.n_heads)
+        group = _band_cache(caches["scan"], bands, bs)
+        for i in range(bs, be):
+            j = i - bs
+            p = _layer(params["layers"], i)
+            cache = {k: v[j] for k, v in group.items()}
+            hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
+            q, k, v = _qkv(hn, p["attn"], cfg, rope)
+            append(cache, _apply_perm(k, cal["perm_k"][j]),
+                   _apply_perm(v, cal["perm_v"][j]), pol, cal["alpha_k"][j],
+                   cal["alpha_v"][j])
+            attn = backend.attend(_apply_perm(q, perm_q[j]), cache, cfg, pol,
+                                  window=_window(cfg, i), dtype=x.dtype)
+            attn = _apply_perm(attn, inv_v[j])
+            x = x + attn.reshape(b, 1, -1) @ p["attn"]["wo_attn"]
+            x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
+                          p["mlp"], cfg)
     x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
     return L.unembed(x, params, cfg), caches
 
 
 def cache_bytes(caches) -> int:
-    """Bytes held by a (nested) cache dict."""
+    """Bytes held by a (nested, band-keyed or flat) cache dict."""
     if torch.is_tensor(caches):
         return caches.numel() * caches.element_size()
     return sum(cache_bytes(v) for v in caches.values())

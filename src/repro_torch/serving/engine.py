@@ -31,13 +31,19 @@ The per-slot cache length (``cache["length"]`` is ``(B,)``) is what lets
 slots at different positions decode in one batched step.  All engine time
 flows through the injectable ``clock=`` (DESIGN.md §11).
 
+``policy`` may be a per-layer schedule (DESIGN.md §8): fp16 guard layers
+and bits ladders run as contiguous equal-policy bands with band-keyed
+caches; a uniform schedule is bitwise the bare policy.
+
 With ``pool_blocks`` (or ``pool_memory_bytes``) the packed planes of every
-layer live in one shared pool of physical blocks (DESIGN.md §9): each slot
-owns a block table, admission looks prompt blocks up by content hash (a
-hit refs a resident block, only a miss is inserted from the prefill),
-admission is FIFO in blocks, a copy-on-write pass before every decode
-chunk makes private the blocks its ring evictions will write, and decode
-attends through the block-table mode of the decode_attn kernel.
+quantized band live in a shared pool of physical blocks, one pool per
+band with the same block count (DESIGN.md §9); fp16 bands stay striped.
+Each slot owns a block table per band, admission looks prompt blocks up
+by content hash (a hit refs a resident block, only a miss is inserted
+from the prefill), admission is FIFO in blocks and checks every band's
+demand, a copy-on-write pass before every decode chunk makes private the
+blocks its ring evictions will write, and decode attends through the
+block-table mode of the decode_attn kernel.
 
 Greedy streams match the reference engine token for token.  Sampling
 (temperature > 0) uses a per-slot ``torch.Generator`` seeded from the
@@ -61,7 +67,7 @@ import torch
 from ..core import kv_cache as kvc
 from ..core import segments as seg
 from ..core.block_pool import BlockPool, prefix_block_keys
-from ..core.policy import as_layer_policy
+from ..core.policy import QuantPolicy, as_schedule
 from ..device import resolve_device
 from ..models.config import ArchConfig
 from ..models import backends as bk
@@ -226,8 +232,11 @@ class Engine:
     """Continuous-batching engine over ``batch_slots`` decode lanes
     (DESIGN.md §6).
 
-    ``policy`` is one :class:`~repro_torch.core.policy.QuantPolicy` for
-    every layer.  ``backend`` is ``"cuda"``, ``"reference"``, an instance,
+    ``policy`` is a :class:`~repro_torch.core.policy.QuantPolicy`, a
+    :class:`~repro_torch.core.policy.PolicySchedule` or a preset
+    (DESIGN.md §8); ``engine.schedule`` is the materialized schedule, and
+    ``engine.policy`` the bare policy given, or that schedule.
+    ``backend`` is ``"cuda"``, ``"reference"``, an instance,
     or None for the device's default (``"cuda"`` on a card).  ``max_len``
     is the per-slot cache capacity: ``len(prompt) + max_new <= max_len``
     is checked at submit.  ``dtype`` casts the params once, here.
@@ -245,14 +254,15 @@ class Engine:
     one job are recycled for the next.  With a pool, the job's prefix
     keys are registered only once its blocks are on the device.
 
-    ``pool_blocks`` switches the packed planes to the shared paged pool of
-    that many ``pool_block_tokens``-token blocks (DESIGN.md §9); it needs
-    ``pool_block_tokens >= 8``, the dense family and a packed capacity
-    ``max_len - n_sink - window`` that is a multiple of
-    ``pool_block_tokens``.  ``pool_memory_bytes`` sizes the pool from a
-    byte budget instead (an explicit ``pool_blocks`` overrides it, with a
-    warning).  ``stats()`` reports occupancy, prefix hit rate, copy-on-
-    write copies and resident bytes; ``check_invariants()`` audits the
+    ``pool_blocks`` switches the packed planes to shared paged pools of
+    that many ``pool_block_tokens``-token blocks, one per quantized band
+    (DESIGN.md §9); it needs ``pool_block_tokens >= 8``, the dense family
+    and, in every quantized band, a packed capacity ``max_len - n_sink -
+    window`` that is a multiple of ``pool_block_tokens``.
+    ``pool_memory_bytes`` sizes the pools from a byte budget instead (an
+    explicit ``pool_blocks`` overrides it, with a warning).  ``stats()``
+    reports occupancy, prefix hit rate, copy-on-write copies and resident
+    bytes, summed and per band; ``check_invariants()`` audits every band's
     pool after a drain.
 
     ``async_host`` delivers tokens on the background host loop (DESIGN.md
@@ -307,11 +317,14 @@ class Engine:
         self._chunk_shapes: set = set()           # buckets run so far
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.policy = as_layer_policy(policy)
+        self.schedule = as_schedule(policy, cfg.n_layers)
+        # a bare policy comes back as given; anything else as the
+        # materialized schedule (DESIGN.md §8)
+        self.policy = policy if isinstance(policy, QuantPolicy) \
+            else self.schedule
+        T._check_calib_schedule(calib, self.schedule, cfg)
         self.params = _to(T._cast_params(params, dtype), self.device)
-        self.calib = T._calib(None if calib is None else
-                              _to(calib, self.device), cfg, self.policy,
-                              self.device)
+        self.calib = None if calib is None else _to(calib, self.device)
         self.backend = bk.resolve_backend(backend, self.device)
         self.max_len = max_len
         self.seed = seed
@@ -347,13 +360,16 @@ class Engine:
         self._ring_free: List[threading.Event] = []
         self._ring_next = 0
 
-        # ----- paged block pool (DESIGN.md §9): one band, every layer -----
+        # ----- paged block pool (DESIGN.md §9): one pool per quantized band
         self.pool_blocks = pool_blocks
         self.pool_block_tokens = int(pool_block_tokens)
-        self._pool: Optional[BlockPool] = None
-        self._pending_insert: Dict[int, list] = {}  # slot -> miss pairs
-        # slot -> (key, phys) of a chunked job, registered once on device
-        self._pending_register: Dict[int, list] = {}
+        self._pools: Dict[tuple, BlockPool] = {}   # (group, bkey) -> pool
+        self._pool_bands: List[tuple] = []  # (group, bkey, bs, be, pol, nb)
+        # slot -> {(group, bkey): miss pairs}
+        self._pending_insert: Dict[int, dict] = {}
+        # slot -> {(group, bkey): (key, phys)} of a chunked job, registered
+        # once its blocks are on the device
+        self._pending_register: Dict[int, dict] = {}
         self._hostlen = np.zeros((b,), np.int64)    # device length mirror
         self._stall_reason: Optional[str] = None
         if pool_blocks is None and pool_memory_bytes is not None:
@@ -367,76 +383,107 @@ class Engine:
 
     # ------------------------------------------------------ pool set-up (§9)
 
-    def _pool_band(self):
-        """(table blocks per slot, bytes of one block across all layers)
-        of the one pooled band, validated once here (DESIGN.md §9)."""
-        cfg, bt, pol = self.cfg, self.pool_block_tokens, self.policy
+    def _enumerate_pool_bands(self) -> List[tuple]:
+        """Quantized bands with a packed region to pool, with their block
+        bytes: ``(group, bkey, bs, be, pol, nb, nbytes)`` rows, validated
+        once here (DESIGN.md §9; the ``pool_memory_bytes`` sizing of §10
+        reads them too).  fp16 bands, and bands whose window and sinks
+        cover ``max_len``, stay striped."""
+        cfg, bt = self.cfg, self.pool_block_tokens
         if bt < 8:
             raise ValueError(f"pool_block_tokens must be >= 8, got {bt}")
         if cfg.family != "dense":
             raise ValueError(
                 f"the paged KV block pool supports the dense family only, "
                 f"got family={cfg.family!r}")
-        sq = 0 if pol.is_fp16 else max(0, self.max_len - pol.n_sink
-                                       - pol.window)
-        if sq == 0:
+        rows: List[tuple] = []
+        for bs, be, pol in self.schedule.bands():
+            if pol.is_fp16:
+                continue
+            sq = max(0, self.max_len - pol.n_sink - pol.window)
+            if sq == 0:
+                continue
+            if sq % bt:
+                raise ValueError(
+                    f"band L{bs:03d} packed capacity {sq} (max_len="
+                    f"{self.max_len} - n_sink={pol.n_sink} - window="
+                    f"{pol.window}) is not a multiple of pool_block_tokens="
+                    f"{bt}; choose max_len so every quantized band's packed "
+                    f"region tiles into whole pool blocks")
+            nbytes = kvc.pool_block_nbytes(cfg.n_kv_heads, cfg.head_dim,
+                                           pol, bt) * (be - bs)
+            rows.append(("scan", T._band_key(bs), bs, be, pol, sq // bt,
+                         nbytes))
+        if not rows:
             raise ValueError(
-                "pool_blocks was set but the policy has no packed region to "
-                "pool (it is fp16, or its window+sinks cover max_len); drop "
-                "pool_blocks to serve striped")
-        if sq % bt:
-            raise ValueError(
-                f"packed capacity {sq} (max_len={self.max_len} - n_sink="
-                f"{pol.n_sink} - window={pol.window}) is not a multiple of "
-                f"pool_block_tokens={bt}; choose max_len so the packed "
-                f"region tiles into whole pool blocks")
-        nbytes = kvc.pool_block_nbytes(cfg.n_kv_heads, cfg.head_dim, pol,
-                                       bt) * cfg.n_layers
-        return sq // bt, nbytes
+                "pool_blocks was set but there is no packed region to pool "
+                "(every band is fp16 or its window+sinks cover max_len); "
+                "drop pool_blocks to serve striped")
+        return rows
 
     def _size_pool_blocks(self, budget: int) -> int:
-        """Blocks affordable under a ``pool_memory_bytes`` budget
-        (DESIGN.md §10), warning when the division leaves a remainder."""
+        """Blocks per band affordable under a ``pool_memory_bytes`` budget
+        (DESIGN.md §10): the budget over the summed per-band block bytes
+        (every band's pool holds the same count), warning when the
+        division leaves a remainder."""
         if budget < 1:
             raise ValueError(f"pool_memory_bytes must be >= 1, got {budget}")
-        per_block = self._pool_band()[1]
+        per_block = sum(r[6] for r in self._enumerate_pool_bands())
         blocks = budget // per_block
         if blocks < 1:
             raise ValueError(
                 f"pool_memory_bytes={budget} cannot fit a single pool "
-                f"block: one block across all layers costs {per_block} "
-                f"bytes; raise the budget or coarsen the policy")
+                f"block: one block across all quantized bands costs "
+                f"{per_block} bytes; raise the budget or coarsen the policy")
         waste = budget - blocks * per_block
         if waste:
             warnings.warn(
                 f"pool_memory_bytes={budget} rounds down to "
-                f"pool_blocks={blocks} ({per_block} bytes/block; {waste} "
-                f"bytes of the budget unusable)", stacklevel=3)
+                f"pool_blocks={blocks} ({per_block} bytes/block across "
+                f"bands; {waste} bytes of the budget unusable)",
+                stacklevel=3)
         return int(blocks)
 
     def _init_pool(self):
         if self.pool_blocks < 1:
             raise ValueError(f"pool_blocks must be >= 1, "
                              f"got {self.pool_blocks}")
-        nb, nbytes = self._pool_band()
-        self._pool = BlockPool(self.pool_blocks, self.batch_slots, nb,
-                               block_nbytes=nbytes)
+        self._pools, self._pool_bands = {}, []
+        for group, bkey, bs, be, pol, nb, nbytes in \
+                self._enumerate_pool_bands():
+            self._pools[(group, bkey)] = BlockPool(
+                self.pool_blocks, self.batch_slots, nb, block_nbytes=nbytes)
+            self._pool_bands.append((group, bkey, bs, be, pol, nb))
 
     # ------------------------------------------------------------ public API
 
     @property
     def backend_info(self) -> dict:
-        """Backend, policy and device facts (DESIGN.md §4)."""
+        """Backend, policy and device facts (DESIGN.md §4) and the
+        schedule's accounting (DESIGN.md §8): per-layer avg-bits and cache
+        bytes per slot at ``max_len``, and the pools' bytes per band."""
+        cfg, sched = self.cfg, self.schedule
+        layer_bytes = kvc.schedule_cache_nbytes(
+            sched, cfg.n_layers, self.max_len, cfg.n_kv_heads, cfg.head_dim,
+            dtype=self.params["embed"].dtype)
         out = dict(self.backend.info())
         out.update({"device": str(self.device), "policy": self.policy,
                     "batch_slots": self.batch_slots, "max_len": self.max_len,
                     "steps_per_sync": self.steps_per_sync,
-                    "pooled": self._pool is not None})
-        if self._pool is not None:
+                    "schedule_uniform": sched.is_uniform,
+                    "n_policies": len(sched.distinct()),
+                    "avg_bits": sched.avg_bits(cfg.head_dim),
+                    "layer_avg_bits": sched.layer_avg_bits(cfg.head_dim),
+                    "layer_cache_bytes": layer_bytes,
+                    "cache_bytes_per_slot": sum(layer_bytes),
+                    "pooled": bool(self._pools)})
+        if self._pools:
             out.update({"pool_blocks": self.pool_blocks,
                         "pool_block_tokens": self.pool_block_tokens,
-                        "pool_bytes": self.pool_blocks
-                        * self._pool.block_nbytes})
+                        "pool_bands": {f"{g}/{k}": p.block_nbytes
+                                       for (g, k), p in self._pools.items()},
+                        "pool_bytes": sum(self.pool_blocks * p.block_nbytes
+                                          for p in self._pools.values())})
         return out
 
     @property
@@ -517,8 +564,7 @@ class Engine:
                 _build.load(name)
         self._warm_s["build_s"] = self._clock() - t0
         if self._caches is None:
-            self._caches = (self._alloc_pooled() if self._pool is not None
-                            else self._alloc_striped())
+            self._caches = self._alloc_caches()
         b, dev = self.batch_slots, self.device
         if self._unif is None:
             self._unif = torch.zeros((b, self.cfg.vocab_size),
@@ -545,7 +591,7 @@ class Engine:
                     self.params, self.cfg,
                     torch.zeros((1, int(plen)), dtype=torch.int64,
                                 device=dev),
-                    self.policy, calib=self.calib, max_len=self.max_len,
+                    self.schedule, calib=self.calib, max_len=self.max_len,
                     backend=self.backend)
         self._warm_s["prefill_s"] = self._clock() - t0
         if rehearse:
@@ -586,10 +632,9 @@ class Engine:
     def _restore(self):
         """Zero the caches in place (the graph is bound to them) and start
         the pool, every counter and the host loop's accounting afresh."""
-        for leaf in self._caches["scan"].values():
-            leaf.zero_()
-        if self._pool is not None:
-            self._init_pool()     # fresh free list, registry and counters
+        _zero(self._caches)
+        if self._pools:
+            self._init_pool()     # fresh free lists, registries, counters
         self._next_rid = 0
         self._tick = 0
         self._last_stall_tick = -1
@@ -624,13 +669,15 @@ class Engine:
                 f"Request.prompt length ({prompt.size}) + Request.max_new "
                 f"({request.max_new}) exceeds the engine's per-slot cache "
                 f"capacity max_len={self.max_len}")
-        if self._pool is not None:
-            need = self._eventual_blocks(prompt.size, request.max_new)
+        for group, bkey, bs, be, pol, nb in self._pool_bands:
+            need = self._eventual_blocks(prompt.size, request.max_new, pol,
+                                         nb)
             if need > self.pool_blocks:
-                st = self._pool.stats()
+                st = self._pools[(group, bkey)].stats()
                 raise ValueError(
-                    f"Request needs up to {need} pool blocks but the "
-                    f"engine's pool only has pool_blocks={self.pool_blocks} "
+                    f"Request needs up to {need} pool blocks in band "
+                    f"{bkey} ({group}) but the engine's pool only has "
+                    f"pool_blocks={self.pool_blocks} "
                     f"({st['used']} used, {st['free']} free, "
                     f"{st['reserved']} reserved); raise pool_blocks or "
                     f"shorten the request — it could never be admitted")
@@ -676,49 +723,59 @@ class Engine:
         self.drain()
 
     def stats(self) -> dict:
-        """Pool occupancy + sharing counters (DESIGN.md §9): blocks used/
-        free/reserved, prefix hit rate, copy-on-write copies, resident and
-        peak packed bytes against the striped worst case (``batch_slots``
-        full stripes), and the cumulative ``counters`` of DESIGN.md §10
+        """Pool occupancy + sharing counters (DESIGN.md §9), summed over the
+        quantized bands and per band under ``bands``: blocks used/free/
+        reserved, prefix hit rate, copy-on-write copies, resident and peak
+        packed bytes against the striped worst case (``batch_slots`` full
+        stripes), and the cumulative ``counters`` of DESIGN.md §10
         (requests admitted, request-ticks spent queued, ticks the FIFO head
         stalled on an exhausted pool, CoW copies; restored by
         :meth:`warmup`), plus the async host loop's ``host`` block.  A
         striped engine reports only the queue, the counters and ``host``."""
-        out: dict = {"pooled": self._pool is not None,
+        out: dict = {"pooled": bool(self._pools),
                      "queue_depth": len(self._queue),
                      "active_slots": self.active_slots,
-                     "counters": dict(self._counters, cow_copies=(
-                         self._pool.cow_copies if self._pool else 0))}
+                     "counters": dict(self._counters, cow_copies=sum(
+                         p.cow_copies for p in self._pools.values()))}
         if self._host is not None:
             out["host"] = self._host.stats()
-        if self._pool is None:
+        if not self._pools:
             return out
-        st = self._pool.stats()
-        h, m = st["prefix_hits"], st["prefix_misses"]
-        out.update({k: st[k] for k in (
-            "blocks", "used", "free", "reserved", "peak_used",
-            "prefix_hits", "prefix_misses", "cow_copies",
-            "resident_bytes")})
+        bands = {}
+        agg = {k: 0 for k in ("blocks", "used", "free", "reserved",
+                              "peak_used", "prefix_hits", "prefix_misses",
+                              "cow_copies", "resident_bytes")}
+        striped_worst = peak_bytes = 0
+        for group, bkey, bs, be, pol, nb in self._pool_bands:
+            pool = self._pools[(group, bkey)]
+            st = pool.stats()
+            st["n_table"] = nb
+            bands[f"{group}/{bkey}"] = st
+            for k in agg:
+                agg[k] += st[k]
+            striped_worst += self.batch_slots * nb * pool.block_nbytes
+            peak_bytes += pool.peak_used * pool.block_nbytes
+        h, m = agg["prefix_hits"], agg["prefix_misses"]
+        out.update(agg)
         out.update({
             "prefix_hit_rate": h / (h + m) if h + m else 0.0,
-            "peak_resident_bytes": self._pool.peak_used
-            * self._pool.block_nbytes,
-            "striped_worst_case_bytes": self.batch_slots
-            * self._pool.n_table * self._pool.block_nbytes,
+            "peak_resident_bytes": peak_bytes,
+            "striped_worst_case_bytes": striped_worst,
             "pool_blocks": self.pool_blocks,
-            "pool_block_tokens": self.pool_block_tokens})
+            "pool_block_tokens": self.pool_block_tokens,
+            "bands": bands})
         if self._stall_reason:
             out["admission_stall"] = self._stall_reason
         return out
 
     def check_invariants(self) -> dict:
-        """Leak/consistency audit of the pool after a drain (DESIGN.md
-        §11): refcounts, free list, tables, reservations and registry
-        (:meth:`BlockPool.check_invariants`).  Raises ``RuntimeError`` on
-        the first violation; ``{}`` for a striped engine."""
-        if self._pool is None:
-            return {}
-        return {"scan/L000": self._pool.check_invariants()}
+        """Leak/consistency audit of every band's pool after a drain
+        (DESIGN.md §11): refcounts, free list, tables, reservations and
+        registry (:meth:`BlockPool.check_invariants`), keyed
+        ``"group/bkey"``.  Raises ``RuntimeError`` on the first violation;
+        ``{}`` for a striped engine."""
+        return {f"{group}/{bkey}": pool.check_invariants()
+                for (group, bkey), pool in self._pools.items()}
 
     # --------------------------------------------------------------- details
 
@@ -743,8 +800,8 @@ class Engine:
         self._gens[i] = None
         self._pending_insert.pop(i, None)
         self._pending_register.pop(i, None)
-        if self._pool is not None:
-            self._pool.release_slot(i)    # deref blocks; shared ones live on
+        for pool in self._pools.values():
+            pool.release_slot(i)          # deref blocks; shared ones live on
         self._hostlen[i] = 0
         if self._caches is not None:
             kvc.reset_slot(self._caches, i, batch_axis=1)
@@ -765,7 +822,7 @@ class Engine:
         if self.prefill_chunk is not None:
             if job is not None:
                 return                    # one chunked job at a time
-            if self._pool is not None:
+            if self._pools:
                 self._stall_reason = None
                 plan = self._plan_pool_admission(self._queue[0].request)
                 if plan is None:
@@ -778,7 +835,7 @@ class Engine:
             self._prefill_job = _PrefillJob(handle=h, slot=free[0], pos=0,
                                             state=self._take_chunk_state())
             return
-        if self._pool is not None:
+        if self._pools:
             taken: List[tuple] = []
             self._stall_reason = None
             while self._queue and len(taken) < len(free):
@@ -812,95 +869,114 @@ class Engine:
             self._last_stall_tick = self._tick
             self._counters["pool_exhausted_stalls"] += 1
 
-    def _eventual_blocks(self, plen: int, max_new: int) -> int:
-        """Worst-case pool blocks a request will ever hold: every packed
-        position its stream can reach, including up to ``steps_per_sync
-        - 1`` clipped overshoot writes, all inside the slot's table."""
-        bt, pol = self.pool_block_tokens, self.policy
+    def _eventual_blocks(self, plen: int, max_new: int, pol, nb: int
+                         ) -> int:
+        """Worst-case pool blocks a request will ever hold in one band:
+        every packed position its stream can reach, including up to
+        ``steps_per_sync - 1`` clipped overshoot writes, all inside the
+        band's ``nb``-block table."""
+        bt = self.pool_block_tokens
         qc_end = min(max(0, plen + max_new + self.steps_per_sync
-                         - pol.n_sink - pol.window),
-                     self._pool.n_table * bt)
+                         - pol.n_sink - pol.window), nb * bt)
         return -(-qc_end // bt)
 
     def _plan_pool_admission(self, req: Request):
-        """Dry-run admission of one request: prefix-key lookups and the
-        block budget.  None (with ``_stall_reason`` set) if the pool lacks
-        blocks; nothing is allocated before :meth:`_commit_pool_admission`."""
-        pool, pol = self._pool, self.policy
-        full_keys, tail_key = prefix_block_keys(
-            req.prompt.tolist(), pol.n_sink, pol.window,
-            self.pool_block_tokens, seed=f"scan:L000:{pol}")
-        hits = [(lb, key, pool.lookup(key))
-                for lb, key in enumerate(full_keys)]
-        n_hit = sum(1 for _, _, p in hits if p is not None)
-        eventual = self._eventual_blocks(len(req.prompt), req.max_new)
-        if eventual - n_hit > pool.available():
-            st = pool.stats()
-            self._stall_reason = (
-                f"queued: the head request needs {eventual - n_hit} blocks "
-                f"but only {pool.available()} are uncommitted "
-                f"({st['used']}/{st['blocks']} used, {st['reserved']} "
-                f"reserved for in-flight decodes, {st['resident_bytes']} "
-                f"resident bytes)")
-            return None
-        tail_phys = pool.lookup(tail_key) if tail_key else None
-        return hits, tail_key, tail_phys, eventual, n_hit
+        """Dry-run admission of one request: per band, the prefix-key
+        lookups and the block budget.  None (with ``_stall_reason`` set) if
+        any band lacks blocks; nothing is allocated before
+        :meth:`_commit_pool_admission`."""
+        plans = {}
+        for group, bkey, bs, be, pol, nb in self._pool_bands:
+            pool = self._pools[(group, bkey)]
+            full_keys, tail_key = prefix_block_keys(
+                req.prompt.tolist(), pol.n_sink, pol.window,
+                self.pool_block_tokens, seed=f"{group}:{bkey}:{pol}")
+            hits = [(lb, key, pool.lookup(key))
+                    for lb, key in enumerate(full_keys)]
+            n_hit = sum(1 for _, _, p in hits if p is not None)
+            eventual = self._eventual_blocks(len(req.prompt), req.max_new,
+                                             pol, nb)
+            if eventual - n_hit > pool.available():
+                st = pool.stats()
+                self._stall_reason = (
+                    f"queued: the head request needs {eventual - n_hit} "
+                    f"blocks in band {bkey} ({group}) but only "
+                    f"{pool.available()} are uncommitted ({st['used']}/"
+                    f"{st['blocks']} used, {st['reserved']} reserved for "
+                    f"in-flight decodes, {st['resident_bytes']} resident "
+                    f"bytes)")
+                return None
+            tail_phys = pool.lookup(tail_key) if tail_key else None
+            plans[(group, bkey)] = (hits, tail_key, tail_phys, eventual,
+                                    n_hit)
+        return plans
 
-    def _commit_pool_admission(self, slot: int, plan,
+    def _commit_pool_admission(self, slot: int, plans,
                                register: bool = True):
-        """Apply a plan: ref prefix hits, alloc misses into the slot's
-        table, reserve the remaining decode blocks, register the miss keys
-        and remember which blocks the prefill must insert.  With
+        """Apply a plan, band by band: ref prefix hits, alloc misses into
+        the slot's table, reserve the remaining decode blocks, register the
+        miss keys and remember which blocks the prefill must insert.  With
         ``register=False`` (a chunked job, whose blocks are written only at
         its last chunk) the miss keys wait in ``_pending_register`` until
         :meth:`_apply_pool_insert`, so no admission takes a prefix hit on a
         block whose content is not on the device yet."""
-        hits, tail_key, tail_phys, eventual, n_hit = plan
-        pool = self._pool
-        miss_pairs, reg = [], []
+        pend, pend_reg = {}, {}
+        for band, (hits, tail_key, tail_phys, eventual, n_hit) in \
+                plans.items():
+            pool = self._pools[band]
+            miss_pairs, reg = [], []
 
-        def take(lb, key):
-            fresh = pool.alloc(slot)
-            pool.assign(slot, lb, fresh)
-            pool.misses += 1
-            miss_pairs.append((lb, fresh))
-            reg.append((key, fresh))
+            def take(lb, key, pool=pool, miss_pairs=miss_pairs, reg=reg):
+                fresh = pool.alloc(slot)
+                pool.assign(slot, lb, fresh)
+                pool.misses += 1
+                miss_pairs.append((lb, fresh))
+                reg.append((key, fresh))
 
-        for lb, key, phys in hits:
-            if phys is not None:
-                pool.ref(phys)
-                pool.assign(slot, lb, phys)
-                pool.hits += 1
+            for lb, key, phys in hits:
+                if phys is not None:
+                    pool.ref(phys)
+                    pool.assign(slot, lb, phys)
+                    pool.hits += 1
+                else:
+                    take(lb, key)
+            if tail_key is not None:
+                if tail_phys is not None:
+                    pool.ref(tail_phys)
+                    pool.assign(slot, len(hits), tail_phys)
+                    pool.hits += 1
+                else:
+                    take(len(hits), tail_key)
+            # decode still needs (eventual - full hits - allocated now)
+            # blocks; a shared tail counts: its first write goes CoW
+            pool.set_reservation(slot, max(0, eventual - n_hit
+                                           - len(miss_pairs)))
+            if register:
+                for key, phys in reg:
+                    pool.register(key, phys)
             else:
-                take(lb, key)
-        if tail_key is not None:
-            if tail_phys is not None:
-                pool.ref(tail_phys)
-                pool.assign(slot, len(hits), tail_phys)
-                pool.hits += 1
-            else:
-                take(len(hits), tail_key)
-        # decode still needs (eventual - full hits - allocated now) blocks;
-        # a shared tail counts: its first write goes copy-on-write
-        pool.set_reservation(slot, max(0, eventual - n_hit - len(miss_pairs)))
-        if register:
-            for key, phys in reg:
-                pool.register(key, phys)
-        else:
-            self._pending_register[slot] = reg
-        self._pending_insert[slot] = miss_pairs
+                pend_reg[band] = reg
+            pend[band] = miss_pairs
+        if not register:
+            self._pending_register[slot] = pend_reg
+        self._pending_insert[slot] = pend
 
     def _apply_pool_insert(self, slot: int, src_caches, row: int):
-        """Quantize-once commit: copy the slot's miss blocks from its
-        freshly prefilled striped cache into the pool (hits are resident
-        already and are never inserted again), then register any deferred
-        prefix keys, now that their content is on the device."""
-        pairs = self._pending_insert.pop(slot, None)
-        if pairs:
-            kvc.pool_insert_blocks(self._caches["scan"], src_caches["scan"],
-                                   pairs, src_slot=row, pool_axis=1)
-        for key, phys in self._pending_register.pop(slot, ()):
-            self._pool.register(key, phys)
+        """Quantize-once commit, band by band: copy the slot's miss blocks
+        from its freshly prefilled striped cache into the band's pool (hits
+        are resident already and are never inserted again), then register
+        any deferred prefix keys, now that their content is on the
+        device."""
+        pend = self._pending_insert.pop(slot, {})
+        pend_reg = self._pending_register.pop(slot, {})
+        for (group, bkey), pairs in pend.items():
+            if pairs:
+                kvc.pool_insert_blocks(
+                    _band(self._caches, group, bkey),
+                    _band(src_caches, group, bkey), pairs,
+                    src_slot=row, pool_axis=1)
+            for key, phys in pend_reg.get((group, bkey), ()):
+                self._pools[(group, bkey)].register(key, phys)
 
     def _cow_cap(self) -> int:
         # a span of sps tokens touches at most ceil((sps-1)/bt)+1 blocks
@@ -909,63 +985,69 @@ class Engine:
         return self.batch_slots * ((sps - 1 + bt - 1) // bt + 1)
 
     def _pool_prewrite(self):
-        """Copy-on-write pass before a decode chunk: every packed block the
-        next ``steps_per_sync`` ring evictions can touch becomes private to
-        its slot.  Shared blocks are copied to fresh ones (drawing on the
-        slot's reservation); private ones drop their prefix-hash key."""
-        sps, bt, pol = self.steps_per_sync, self.pool_block_tokens, self.policy
-        pool = self._pool
-        pairs = []
-        for i in range(self.batch_slots):
-            if self._slot_handle[i] is None:
-                continue
-            u_lo = int(self._hostlen[i]) - pol.n_sink - pol.window
-            for lb in seg.blocks_spanned(u_lo, u_lo + sps, bt, pool.n_table):
-                work = pool.ensure_writable(i, lb)
-                if work is not None and work[0] == "copy":
-                    pairs.append((work[1], work[2]))
-        if pairs:
-            arr = np.zeros((self._cow_cap(), 2), np.int64)
-            arr[:len(pairs)] = pairs
-            kvc.pool_copy_block(self._caches["scan"], arr, pool_axis=1)
+        """Copy-on-write pass before a decode chunk, band by band: every
+        packed block the next ``steps_per_sync`` ring evictions can touch
+        becomes private to its slot.  Shared blocks are copied to fresh
+        ones (drawing on the slot's reservation); private ones drop their
+        prefix-hash key."""
+        sps, bt = self.steps_per_sync, self.pool_block_tokens
+        for group, bkey, bs, be, pol, nb in self._pool_bands:
+            pool = self._pools[(group, bkey)]
+            pairs = []
+            for i in range(self.batch_slots):
+                if self._slot_handle[i] is None:
+                    continue
+                u_lo = int(self._hostlen[i]) - pol.n_sink - pol.window
+                for lb in seg.blocks_spanned(u_lo, u_lo + sps, bt, nb):
+                    work = pool.ensure_writable(i, lb)
+                    if work is not None and work[0] == "copy":
+                        pairs.append((work[1], work[2]))
+            if pairs:
+                arr = np.zeros((self._cow_cap(), 2), np.int64)
+                arr[:len(pairs)] = pairs
+                kvc.pool_copy_block(_band(self._caches, group, bkey), arr,
+                                    pool_axis=1)
 
     def _flush_tables(self):
-        """Push a dirty host table to the device ``block_tbl`` leaf of
-        every layer.  Rows of slots with no request are masked to the null
-        block, so a free-wheeling device row never writes a live block."""
-        pool = self._pool
-        if not pool.dirty:
-            return
+        """Push each band's dirty host table to the device ``block_tbl``
+        leaf of the band's layers.  Rows of slots with no request are
+        masked to the null block, so a free-wheeling device row never
+        writes a live block."""
         live = np.array([h is not None for h in self._slot_handle], np.int32)
-        tbl = torch.as_tensor(pool.tables * live[:, None], device=self.device)
-        dst = self._caches["scan"]["block_tbl"]
-        dst.copy_(tbl[None].expand_as(dst))
-        pool.dirty = False
+        for group, bkey, bs, be, pol, nb in self._pool_bands:
+            pool = self._pools[(group, bkey)]
+            if not pool.dirty:
+                continue
+            tbl = torch.as_tensor(pool.tables * live[:, None],
+                                  device=self.device)
+            dst = _band(self._caches, group, bkey)["block_tbl"]
+            dst.copy_(tbl[None].expand_as(dst))
+            pool.dirty = False
 
-    def _alloc_pooled(self):
-        """Zeroed pooled engine caches, built from shapes: ``_alloc_like``
-        widens axis 1 of every leaf, but a pooled plane's axis 1 is the
-        pool axis.  Planes (L, NP+1, BT, H, W), ``block_tbl`` (L, B, NB)."""
-        cfg = self.cfg
-        shapes = kvc.pooled_cache_shapes(
-            self.batch_slots, self.max_len, cfg.n_kv_heads, cfg.head_dim,
-            self.policy, self.pool_blocks, self.pool_block_tokens,
-            self.params["embed"].dtype)
-        return {"scan": {k: torch.zeros((cfg.n_layers,) + s, dtype=d,
-                                        device=self.device)
-                         for k, (s, d) in shapes.items()}}
-
-    def _alloc_striped(self):
-        """Zeroed striped engine caches from shapes: the structure first
-        admission's ``_alloc_like`` builds from a prefill, without one
-        (DESIGN.md §10 warmup)."""
-        cfg = self.cfg
-        shapes = kvc.cache_shapes(self.batch_slots, self.max_len,
-                                  cfg.n_kv_heads, cfg.head_dim, self.policy,
-                                  self.params["embed"].dtype)
-        return {"scan": {k: torch.zeros((cfg.n_layers,) + s, dtype=d,
-                                        device=self.device)
-                         for k, (s, d) in shapes.items()}}
+    def _alloc_caches(self):
+        """Zeroed engine caches of every band, built from shapes (DESIGN.md
+        §10 warmup; first admission when not warmed): a pooled band's
+        planes ``(L_band, NP+1, BT, H, W)`` beside ``block_tbl`` ``(L_band,
+        B, NB)``, every other band striped ``(L_band, B, ...)``; flat for
+        one band, band-keyed for several (DESIGN.md §8)."""
+        cfg, dtype = self.cfg, self.params["embed"].dtype
+        bands = self.schedule.bands()
+        outs = {}
+        for bs, be, pol in bands:
+            bkey = T._band_key(bs)
+            if ("scan", bkey) in self._pools:
+                shapes = kvc.pooled_cache_shapes(
+                    self.batch_slots, self.max_len, cfg.n_kv_heads,
+                    cfg.head_dim, pol, self.pool_blocks,
+                    self.pool_block_tokens, dtype)
+            else:
+                shapes = kvc.cache_shapes(self.batch_slots, self.max_len,
+                                          cfg.n_kv_heads, cfg.head_dim, pol,
+                                          dtype)
+            outs[bkey] = {k: torch.zeros((be - bs,) + s, dtype=d,
+                                         device=self.device)
+                          for k, (s, d) in shapes.items()}
+        return {"scan": T._band_out(outs, bands, 0)}
 
     def _generator(self, request_seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -985,7 +1067,7 @@ class Engine:
         prompts = np.stack([h.request.prompt for h in handles])
         logits, caches = T.prefill_model(
             self.params, self.cfg, torch.as_tensor(prompts, device=self.device),
-            self.policy, calib=self.calib, max_len=self.max_len,
+            self.schedule, calib=self.calib, max_len=self.max_len,
             backend=self.backend)
         temps = [max(float(h.request.temperature), 0.0) for h in handles]
         gens = [self._generator(h.request.seed) for h in handles]
@@ -994,14 +1076,13 @@ class Engine:
             torch.tensor(temps, dtype=torch.float32, device=self.device),
             self._uniforms(gens, temps)).cpu().numpy()
         if self._caches is None:
-            self._caches = (self._alloc_pooled() if self._pool is not None
-                            else _alloc_like(caches, self.batch_slots))
+            self._caches = self._alloc_caches()
         now = self._clock()
         self._counters["admitted"] += len(handles)
         for row, (h, slot) in enumerate(zip(handles, slots)):
             kvc.insert_slot(self._caches, slot, caches, src_slot=row,
                             batch_axis=1)
-            if self._pool is not None:
+            if self._pools:
                 self._apply_pool_insert(slot, caches, row)
                 self._hostlen[slot] = len(h.request.prompt)
             req = h.request
@@ -1042,7 +1123,7 @@ class Engine:
         logits, _ = T.prefill_chunk(
             self.params, self.cfg,
             torch.as_tensor(toks[None], device=self.device), state,
-            self.policy, t0, n, calib=self.calib, backend=self.backend)
+            self.schedule, t0, n, calib=self.calib, backend=self.backend)
         return logits
 
     def _take_chunk_state(self) -> Dict:
@@ -1053,10 +1134,9 @@ class Engine:
         st, self._chunk_state = self._chunk_state, None
         if st is None:
             return T.prefill_chunk_init(
-                self.cfg, self.policy, self.max_len, self.max_len, batch=1,
+                self.cfg, self.schedule, self.max_len, self.max_len, batch=1,
                 dtype=self.params["embed"].dtype, device=self.device)
-        for leaf in st["caches"]["scan"].values():
-            leaf.zero_()
+        _zero(st["caches"])
         return st
 
     def _finish_prefill(self, job: _PrefillJob, logits):
@@ -1074,13 +1154,13 @@ class Engine:
             torch.tensor([temp], dtype=torch.float32, device=self.device),
             self._uniforms([gen], [temp]))[0])
         if self._caches is None:
-            self._caches = (self._alloc_pooled() if self._pool is not None
-                            else _alloc_like(caches, self.batch_slots))
+            self._caches = self._alloc_caches()
         kvc.insert_slot(self._caches, slot, caches, src_slot=0, batch_axis=1)
-        if self._pool is not None:
+        if self._pools:
             self._apply_pool_insert(slot, caches, 0)
             self._hostlen[slot] = len(req.prompt)
-            self._pool.dirty = True       # unmask the slot's table row
+            for pool in self._pools.values():
+                pool.dirty = True         # unmask the slot's table rows
         self._chunk_state = job.state     # recycled by the next job
         self._counters["admitted"] += 1
         self._slot_handle[slot] = h
@@ -1092,7 +1172,7 @@ class Engine:
         self._admit_deliver(slot, h, first)
 
     def _decode_chunk(self):
-        if self._pool is not None:
+        if self._pools:
             self._pool_prewrite()
             self._flush_tables()
         dev, n = self.device, self.steps_per_sync
@@ -1131,7 +1211,7 @@ class Engine:
         same slot order before each step, so streams stay identical."""
         if self._unif is None:
             toks, _, self._caches, done, bad, live = multi_decode(
-                self.params, self.cfg, self.policy, n, token, self._caches,
+                self.params, self.cfg, self.schedule, n, token, self._caches,
                 done, temps, eos, calib=self.calib, backend=self.backend,
                 uniforms=lambda: self._uniforms(gens, temps_host))
             return toks, done, bad, live
@@ -1154,7 +1234,7 @@ class Engine:
 
     def _step(self, token, done, bad, live, temps, eos, uniforms):
         """The captured step: :func:`decode_one` on the engine's caches."""
-        return decode_one(self.params, self.cfg, self.policy, token,
+        return decode_one(self.params, self.cfg, self.schedule, token,
                           self._caches, done, bad, live, temps, eos,
                           uniforms, calib=self.calib, backend=self.backend)
 
@@ -1278,13 +1358,20 @@ def _to(tree, device):
     return {k: _to(v, device) for k, v in tree.items()}
 
 
-def _alloc_like(caches, batch_slots: int):
-    """Zeroed engine caches: the prefilled groups' structure with the batch
-    axis (axis 1 of every layer-stacked leaf) widened to batch_slots."""
-    if torch.is_tensor(caches):
-        shape = (caches.shape[0], batch_slots) + tuple(caches.shape[2:])
-        return torch.zeros(shape, dtype=caches.dtype, device=caches.device)
-    return {k: _alloc_like(v, batch_slots) for k, v in caches.items()}
+def _band(caches, group: str, bkey: str):
+    """The stacked caches of band ``bkey`` of a cache group (flat for one
+    band, band-keyed for several; DESIGN.md §8)."""
+    g = caches[group]
+    return g if "length" in g else g[bkey]
+
+
+def _zero(tree) -> None:
+    """In place: zero every leaf of a (band-keyed or flat) cache tree."""
+    if torch.is_tensor(tree):
+        tree.zero_()
+        return
+    for v in tree.values():
+        _zero(v)
 
 
 # ------------------------------------------------------- compatibility shim

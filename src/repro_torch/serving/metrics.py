@@ -157,8 +157,9 @@ class MetricsRecorder:
             "host_queue_depth": (engine._host.queue_depth
                                  if getattr(engine, "_host", None) else 0),
         }
-        if engine._pool is not None:             # the port's one pool (§9)
-            sample["pool_used"] = engine._pool.used()
+        if engine._pools:                        # one pool per band (§9)
+            sample["pool_used"] = sum(p.used()
+                                      for p in engine._pools.values())
         self.samples.append(sample)
 
     def finalize(self) -> None:

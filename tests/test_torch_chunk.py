@@ -480,10 +480,11 @@ def test_pooled_prefix_key_is_no_hit_before_its_owner_finishes(params):
     eng.step()                           # admitted; chunk 1 of 5
     assert eng._prefill_job is not None
     assert eng._pending_register[eng._prefill_job.slot]
-    assert all(eng._pool.lookup(k) is None for k in keys)
+    pool = eng._pools[("scan", "L000")]
+    assert all(pool.lookup(k) is None for k in keys)
     while eng._prefill_job is not None:
         eng.step()
-    assert all(eng._pool.lookup(k) is not None for k in keys)
+    assert all(pool.lookup(k) is not None for k in keys)
     assert not eng._pending_register
     hb = eng.submit(Request(prompt=b, max_new=4))
     eng.run([ha, hb])

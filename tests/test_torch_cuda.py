@@ -33,6 +33,13 @@ runs on a machine with only torch:
   to its plain token loop and to a loop of ``kv_append`` after every
   chunk; warmed chunked Engines, striped and pooled, with equal streams
   and the launch identities.
+* policy schedules (DESIGN.md §8): ``kv_append`` BYTE-equal and
+  decode_attn to the f32 tolerance at the bits ladder's widths (4, 4) and
+  (2, 2), both layouts; the fp16 route of the decode wrapper against the
+  reference backend's fp16 attention (f32, ``atol=rtol=1e-5``); warmed
+  scheduled Engines (fp16 guard layers, the ladder) striped, pooled and
+  chunked with streams equal to the unwarmed striped engine's and the
+  launch identities over the quantized layers only.
 """
 import dataclasses
 
@@ -170,13 +177,14 @@ def test_kv_quant_kernel_prefill_size(cuda_device):
         _bytes_equal(got, KQ.kv_quant_plain(x, bits, 128, alpha), f"{bits}")
 
 
-def _append_case(dev, seed, d, hkv, gs, window, pooled, b=4, bt=16, nb=16):
+def _append_case(dev, seed, d, hkv, gs, window, pooled, b=4, bt=16, nb=16,
+                 bits=(2.0, 1.5)):
     """Identical kernel and plain caches (random contents, slots at 0,
     in the window's filling, evicting, and near the capacity), per-head
-    clip factors."""
+    clip factors; K/V widths ``bits``."""
     rng = np.random.default_rng(seed)
-    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=gs, window=window,
-                      n_sink=5)
+    pol = QuantPolicy(bits_k=bits[0], bits_v=bits[1], group_size=gs,
+                      window=window, n_sink=5)
     max_len = 5 + window + nb * bt
     if pooled:
         cache = kvc.init_pooled_cache(b, max_len, hkv, d, pol, b * nb, bt,
@@ -197,8 +205,8 @@ def _append_case(dev, seed, d, hkv, gs, window, pooled, b=4, bt=16, nb=16):
             v.copy_(torch.randint(0, 256, v.shape, generator=gen,
                                   device=dev))
     alphas = [torch.from_numpy(rng.uniform(0.7, 1.0, (
-        hkv, n_meta_groups(d, bits, gs))).astype(np.float32)).to(dev)
-        for bits in (2.0, 1.5)]
+        hkv, n_meta_groups(d, w, gs))).astype(np.float32)).to(dev)
+        for w in bits]
     return pol, cache, {k: v.clone() for k, v in cache.items()}, alphas, gen
 
 
@@ -774,3 +782,139 @@ def test_chunked_engine_on_the_card(cuda_device):
             eng.check_invariants()
         runs.append([h.tokens for h in hs])
     assert runs[0] == runs[1]
+
+
+# -------------------------------------------------- policy schedules (§8)
+
+LADDER_WIDTHS = [(4.0, 4.0), (2.0, 2.0)]
+
+
+@pytest.mark.parametrize("bits", LADDER_WIDTHS)
+@pytest.mark.parametrize("pooled", [False, True])
+def test_kv_append_at_ladder_widths_matches_plain(bits, pooled, cuda_device):
+    pol, kc, pc, (ak, av), gen = _append_case(cuda_device, 13, 128, 32, 128,
+                                              32, pooled, bits=bits)
+    b = kc["length"].shape[0]
+    for step in range(120):
+        kn = torch.randn((b, 1, 32, 128), generator=gen, device=cuda_device
+                         ).to(torch.bfloat16)
+        vn = torch.randn_like(kn)
+        KQ.kv_append(kc, kn, vn, pol, ak, av)
+        KQ.kv_append_plain(pc, kn, vn, pol, ak, av)
+        _caches_equal(kc, pc, pooled, f"{bits} step {step}")
+
+
+@pytest.mark.parametrize("bits", LADDER_WIDTHS)
+@pytest.mark.parametrize("gq,hkv", [(1, 32), (4, 8)])
+def test_decode_attn_at_ladder_widths_matches_plain(bits, gq, hkv,
+                                                    cuda_device):
+    """Striped and block-table launches at (4, 4) (the word-unpack path of
+    both planes) and (2, 2), D 128, against the plain version; pooled
+    BITWISE equal to striped over the gathered planes."""
+    rng = np.random.default_rng(8)
+    pol = QuantPolicy(bits_k=bits[0], bits_v=bits[1], group_size=128,
+                      window=0, n_sink=0)
+    b, d, bt, nb, bs = 3, 128, 16, 64, 256
+    mk = lambda: torch.from_numpy(rng.normal(size=(b, nb * bt, hkv, d))
+                                  .astype(np.float32)).to(cuda_device)
+    k_st = quantize_groups(mk(), bits[0], 128)
+    v_st = quantize_groups(mk(), bits[1], 128)
+    mask = torch.zeros((b, nb * bt), device=cuda_device)
+    for i, n in enumerate((0, 300, 1000)):
+        mask[i, :n] = 1.0
+    bounds = seg.packed_block_bounds(mask > 0, bs)
+    q = torch.from_numpy(rng.normal(size=(b, hkv, gq, d))
+                         .astype(np.float32)).to(cuda_device)
+    args = (q, k_st, v_st, mask, pol, d, d ** -0.5)
+    got = DA.decode_attn(*args, block_s=bs, block_bounds=bounds)
+    want = DA.decode_attn_plain(*args, block_s=bs, block_bounds=bounds)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+    perm = rng.permutation(np.arange(1, b * nb + 1))
+    tbl = torch.from_numpy(perm.reshape(b, nb).astype(np.int32)
+                           ).to(cuda_device)
+    pool = lambda qt: {k: torch.cat([torch.zeros_like(
+        v.reshape((b * nb, bt) + tuple(v.shape[2:]))[:1]), v.reshape(
+            (b * nb, bt) + tuple(v.shape[2:]))[torch.from_numpy(
+                np.argsort(perm)).to(cuda_device)]]) for k, v in qt.items()}
+    pooled = DA.decode_attn(q, pool(k_st), pool(v_st), mask, pol, d,
+                            d ** -0.5, block_s=bs, block_bounds=bounds,
+                            block_table=tbl)
+    for a, w in zip(pooled, got):
+        assert torch.equal(a, w)
+
+
+def test_fp16_decode_route_matches_reference_backend(cuda_device):
+    """The fp16 branch of ``cuda_decode_attention`` (the guard layers'
+    route: dense partial, no kernel) against the reference backend's fp16
+    attention, f32 on the card."""
+    from repro_torch.core.policy import FP16_POLICY
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import decode_attention_skvq
+    rng = np.random.default_rng(9)
+    cfg = configs.get_smoke("llama2_7b")
+    b, s = 3, 70
+    cache = {"k": torch.from_numpy(rng.normal(size=(
+                 b, s, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32)),
+             "v": torch.from_numpy(rng.normal(size=(
+                 b, s, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32)),
+             "length": torch.tensor([1, 33, 70], dtype=torch.int32)}
+    cache = {k: v.to(cuda_device) for k, v in cache.items()}
+    q = torch.from_numpy(rng.normal(size=(
+        b, 1, cfg.n_heads, cfg.head_dim)).astype(np.float32)).to(cuda_device)
+    got = ops.cuda_decode_attention(q, cache, FP16_POLICY,
+                                    scale=cfg.head_dim ** -0.5,
+                                    dtype=torch.float32)
+    want = decode_attention_skvq(q, cache, cfg, FP16_POLICY,
+                                 dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("preset", ["first_last_fp16", "ladder"])
+def test_scheduled_engines_on_the_card(preset, cuda_device):
+    """A 4-layer smoke model under a schedule: warmed striped, pooled and
+    chunked engines give the unwarmed striped engine's greedy streams; no
+    graph miss; kv_append and decode_attn launch on the quantized layers
+    only, the fp16 route runs on the guard layers, no plain call."""
+    from repro_torch.core.policy import PolicySchedule
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, Request
+    cfg = configs.get_smoke("llama2_7b").scaled(n_layers=4)
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    sched = (PolicySchedule.first_last_fp16(HARNESS_POL, 1)
+             if preset == "first_last_fp16"
+             else PolicySchedule.bits_ladder(HARNESS_POL))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (70, 9, 33, 50)]
+    runs = []
+    for warm, pool, chunk in ((False, None, None), (True, None, None),
+                              (True, 40, None), (True, 40, 16)):
+        eng = Engine(params, cfg, sched, batch_slots=2, max_len=90,
+                     steps_per_sync=4, pool_blocks=pool, pool_block_tokens=8,
+                     prefill_chunk=chunk, device=cuda_device)
+        if warm:
+            eng.warmup()
+        reset_launch_counts()
+        hs = [eng.submit(Request(prompt=p, max_new=10, seed=i))
+              for i, p in enumerate(prompts)]
+        eng.run(hs)
+        c = launch_counts()
+        nq = sum(not p.is_fp16 for p in eng.schedule)
+        steps = eng.n_decode_steps
+        assert nq == (2 if preset == "first_last_fp16" else 4)
+        assert c["kv_quant"]["append"] == nq * steps
+        assert c["decode_attn"]["pooled" if pool else "kernel"] == nq * steps
+        assert c["fp16"]["attend"] == c["fp16"]["append"] \
+            == (4 - nq) * steps
+        assert c["decode_attn"]["plain"] == c["kv_quant"]["plain"] \
+            == c["kv_quant"]["append_plain"] \
+            == c["kv_quant"]["chunk_plain"] == 0
+        if warm:
+            rep = eng.warmup_report()
+            assert rep["post_warmup_misses"] == 0
+            assert rep["replays"] == steps
+        if pool:
+            assert len(eng.check_invariants()) == (
+                1 if preset == "first_last_fp16" else 3)
+        runs.append([h.tokens for h in hs])
+    assert all(r == runs[0] for r in runs[1:])

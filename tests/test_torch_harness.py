@@ -40,7 +40,6 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.serving import (Engine, HostLoop, HostLoopCrash,
                                  MetricsRecorder, Request, TokenDelivery,
                                  loadgen as tload, metrics as tmet)
-from repro_torch.serving import engine as tengine
 from test_torch_util import stall_until_backpressure
 
 SHAPE = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
@@ -437,6 +436,15 @@ def test_open_loop_has_no_post_warmup_miss_and_a_new_signature_has_one(
     eng.close()
 
 
+def _widen(caches, batch_slots):
+    """Zeroed caches of a prefill's structure with the batch axis (axis 1
+    of every layer-stacked leaf) widened to ``batch_slots``."""
+    if torch.is_tensor(caches):
+        return torch.zeros((caches.shape[0], batch_slots)
+                           + tuple(caches.shape[2:]), dtype=caches.dtype)
+    return {k: _widen(v, batch_slots) for k, v in caches.items()}
+
+
 @pytest.mark.parametrize("pool", [None, POOL_BLOCKS], ids=["striped",
                                                           "pooled"])
 def test_warmup_leaves_fresh_caches_and_zero_counters(params, pool):
@@ -451,9 +459,9 @@ def test_warmup_leaves_fresh_caches_and_zero_counters(params, pool):
                                  torch.zeros((1, 5), dtype=torch.int64),
                                  eng.policy, calib=eng.calib,
                                  max_len=MAX_LEN, backend="cuda")
-        fresh = tengine._alloc_like(pre, eng.batch_slots)
+        fresh = _widen(pre, eng.batch_slots)
     else:
-        fresh = eng._alloc_pooled()
+        fresh = eng._alloc_caches()
     got = eng._caches["scan"]
     assert sorted(got) == sorted(fresh["scan"])
     for k, v in fresh["scan"].items():
