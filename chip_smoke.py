@@ -97,7 +97,31 @@ not from the 50 MB L2, as each layer of a decode step does.
    in ABBA turns; (c) serve_graph (d)'s open-loop trace on warmed pooled
    async engines, chunked then whole-prompt, with the launch identities of
    each; TTFT/TPOT percentiles reported, not gated.
-9. serve_schedule — per-layer policy schedules (DESIGN.md §8): (a) both
+9. calibrate — offline calibration (paper Sec. 3.1) at llama2-7b's width
+   while its weights are loaded: (a) ``collect_kv`` over 8 prompts of 512
+   tokens (``SyntheticCorpus(vocab, seed=0)``, rngs 100-107: 4096
+   samples a layer), then ``calibrate_model`` on the kernel route: the
+   seconds of collection, of the host's statistics and k-means, and of
+   the device's clip search; exactly 2 x 11 x 32 bulk kv_quant launches
+   and no other call; layers 0 and 31 through the plain route on the card
+   with equal permutations and bitwise-equal clip factors; the same
+   layers' tables on the CPU and the clip-factor histogram (reported);
+   one clip-search launch (131,072 rows x 128 f32, one shared clip
+   factor) byte-equal to its plain version, L2-cold ms and byte bound;
+   (b) the serve phase's 8 requests through warmed striped and pooled
+   engines serving the table: every request finished, pooled streams
+   equal striped, 0 graph misses, the launch identities, no plain call,
+   cuda-vs-reference logits of one step at 4 x 2048 within relative L2
+   0.05; (c) reported: the relative MSE of each layer's cache read back
+   (``materialize_kv``) against the fp K/V in the same channel order for
+   one 2048-token prompt, identity against calibrated, and one decode
+   step's logits against FP16_POLICY both ways; (d) replayed steps at
+   4 x 2048, calibrated against identity in ABBA turns, and the port's
+   kernels' device time per launch under each (profiler); (e)
+   ``fuse_v_permutation``: fused weights with an identity perm_v against
+   the unfused ones with the calibrated perm_v, prefill logits within
+   relative L2 0.05 (gated), one decode step's (reported).
+10. serve_schedule — per-layer policy schedules (DESIGN.md §8): (a) both
    kernels at the widths of the bits ladder, new on the card: the bulk
    kv_quant at K 4-bit and V 2-bit (128 and 91,744 rows; 0 differing
    bytes), kv_append at (4, 4) and (2, 2) for 300 steps in both layouts
@@ -119,15 +143,19 @@ not from the 50 MB L2, as each layer of a decode step does.
    D 128; llama2-7b's weights freed first): 4 requests through a warmed
    engine with the launch identities, cuda-vs-reference logits, and
    decode_attn at that shape against its plain version and SDPA.
-10. a ``timing`` line of seconds per phase, then the kernel summary line
+11. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
    chunk append's ``chunk_ms``, ``chunk_bound_ms``, ``chunk_plain_ms``
-   and ``chunk_rows``; every entry the ``widths`` of serve_schedule (a)
-   and (e); launches count the serve, serve_pooled (b), serve_chunked (b)
-   and serve_schedule (b), (e) runs), the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+   and ``chunk_rows``, and the clip search's ``calib_ms``,
+   ``calib_bound_ms``, ``calib_plain_ms``, ``calib_rows`` and
+   ``calib_launches``; decode_attn and kv_append the calibrate phase's
+   ``calib_us_per_call``; every entry the ``widths`` of serve_schedule
+   (a) and (e); launches count the serve, serve_pooled (b),
+   serve_chunked (b), calibrate (a), (b) and serve_schedule (b), (e)
+   runs), the card line, and the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
 """
@@ -167,7 +195,8 @@ HOLD_CYCLES = 20_000_000         # ~10 ms of sleep while calls are queued
 KERNEL_EXTRAS = ("long_ms", "long_bound_ms", "long_library_ms", "prefill_ms",
                  "prefill_bound_ms", "prefill_rows", "plain_wall_ms",
                  "chunk_ms", "chunk_bound_ms", "chunk_plain_ms", "chunk_rows",
-                 "widths")
+                 "widths", "calib_ms", "calib_bound_ms", "calib_plain_ms",
+                 "calib_rows", "calib_launches", "calib_us_per_call")
 
 
 def emit(obj) -> None:
@@ -1157,11 +1186,12 @@ ABBA_NEW = 1024          # budget of the timing requests: 4 x 192 blocks
 
 
 def _graph_engine(state, cfg, pool_blocks=None, async_host=False,
-                  prefill_chunk=None, policy=None):
+                  prefill_chunk=None, policy=None, calib=None):
     """A warmed Engine (DESIGN.md §10) at the serve shape (chunked
     admission with ``prefill_chunk``; PAPER_POLICY unless ``policy``, a
-    policy or a schedule, is given); engines of earlier runs that nothing
-    holds are collected first, so their memory is free."""
+    policy or a schedule, is given; identity calibration unless ``calib``
+    is a stacked table); engines of earlier runs that nothing holds are
+    collected first, so their memory is free."""
     import gc
     import torch
     from repro_torch.core.policy import PAPER_POLICY
@@ -1173,7 +1203,7 @@ def _graph_engine(state, cfg, pool_blocks=None, async_host=False,
                  max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
                  pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
                  async_host=async_host, prefill_chunk=prefill_chunk,
-                 device=torch.device("cuda"))
+                 calib=calib, device=torch.device("cuda"))
     rep = eng.warmup()
     check(rep["n_graphs"] == 1 and rep["post_warmup_misses"] == 0,
           f"warmup captured no decode step: {rep}")
@@ -1711,6 +1741,388 @@ def phase_serve_chunked(state):
                         "whole": loops["whole"]}})
 
 
+# ------------------------------------------- calibrate (paper Sec. 3.1)
+
+CALIB_PROMPTS, CALIB_LEN = 8, 512       # 4096 samples a layer
+CALIB_CHECK_LAYERS = (0, 31)            # held to the plain route
+RECON_LEN = 2048                        # the reconstruction-error prompt
+
+
+def _calib_tokens(cfg, dev):
+    """The calibration prompts: CALIB_PROMPTS x CALIB_LEN tokens of
+    ``SyntheticCorpus(vocab, seed=0)`` drawn with rngs 100, 101, ..."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticCorpus
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    return torch.as_tensor(np.stack([
+        corpus.sample(CALIB_LEN, np.random.default_rng(100 + i))
+        for i in range(CALIB_PROMPTS)]), device=dev)
+
+
+def _timed_search():
+    """Time calibration's clip search (``calibrate._group_mse_alpha``,
+    on the device; it ends in a host copy, so its wall time is the
+    device's): returns the list of seconds each call appends to and the
+    function that restores the search."""
+    from repro_torch.core import calibrate as C
+    search = C._group_mse_alpha
+    secs = []
+
+    def timed(*args, **kw):
+        t = time.monotonic()
+        out = search(*args, **kw)
+        secs.append(time.monotonic() - t)
+        return out
+    C._group_mse_alpha = timed
+    return secs, lambda: setattr(C, "_group_mse_alpha", search)
+
+
+def _same_table(a, b) -> bool:
+    """Equal permutations and bitwise-equal clip factors of two
+    LayerCalibrations."""
+    import numpy as np
+    return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("perm_k", "perm_v"))
+            and all(np.array_equal(getattr(a, f).view(np.uint32),
+                                   getattr(b, f).view(np.uint32))
+                    for f in ("alpha_k", "alpha_v")))
+
+
+def _calib_launch(ks, perm, bits):
+    """One clip-search launch of the bulk kernel at the calibration's
+    shape: a layer's 4096 x 32 samples reordered, as f32 rows x 128, one
+    shared clip factor; L2-cold ms over 4 copies against the plain
+    version, and the byte bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kv_quant as KQ
+    idx = torch.from_numpy(perm).to(ks.device).long()
+    x = torch.gather(ks, 2, idx[None].expand(ks.shape)).float()
+    x = x.reshape(-1, ks.shape[-1])
+    alpha = torch.tensor(np.float32(0.9), device=ks.device)
+    d = x.shape[1]
+    got = KQ.kv_quant(x, bits, d, alpha)
+    want = KQ.kv_quant_plain(x, bits, d, alpha)
+    diff = sum(int((got[k].view(torch.uint8) != want[k].view(torch.uint8)
+                    ).sum()) for k in want)
+    check(diff == 0, f"calibrate: kv_quant at the calibration shape, bits "
+          f"{bits}: {diff} bytes differ from the plain version")
+    xs = [x] + [x.clone() for _ in range(L2_COPIES - 1)]
+    ms = cuda_ms([lambda c=c: KQ.kv_quant(c, bits, d, alpha) for c in xs])
+    plain_ms = cuda_ms([lambda c=c: KQ.kv_quant_plain(c, bits, d, alpha)
+                        for c in xs], iters=4, warmup=1)
+    g_total = sum(v.shape[-1] for k, v in got.items()
+                  if k.startswith("scale"))
+    out_b = sum(v.numel() * v.element_size() for v in got.values())
+    in_b = x.numel() * x.element_size() + 4 * g_total
+    bound_ms, bound_by = bound(in_b + out_b, 7 * x.numel())
+    del xs, x, got, want
+    torch.cuda.empty_cache()
+    return {"rows": ks.shape[0] * ks.shape[1], "d": d, "bits": bits,
+            "dtype": "float32", "alpha": "one shared (0.9)",
+            "diff_bytes": diff, "ms": ms, "plain_ms": plain_ms,
+            "bytes": in_b + out_b, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms}
+
+
+def _calibrate_run(state, cfg):
+    """(a) collect_kv over the calibration prompts, then calibrate_model
+    on the kernel route: seconds by part, the kv_quant launches (2 x 11
+    grid points x layers, no plain call), the plain route on the card
+    equal for CALIB_CHECK_LAYERS (gated), the CPU's tables for the same
+    layers and the clip-factor histogram (reported)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import calibrate as C
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.quant import quantize_groups
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    toks = _calib_tokens(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ks, vs = T.collect_kv(state["params"], cfg, toks)
+    torch.cuda.synchronize()
+    collect_s = time.monotonic() - t0
+    n = CALIB_PROMPTS * CALIB_LEN
+    check(ks.shape == vs.shape == (cfg.n_layers, n, cfg.n_kv_heads,
+                                   cfg.head_dim)
+          and ks.dtype == torch.bfloat16
+          and bool(torch.isfinite(ks).all() and torch.isfinite(vs).all()),
+          f"calibrate: collect_kv gave {tuple(ks.shape)} {ks.dtype}")
+    secs, restore = _timed_search()
+    torch.cuda.synchronize()
+    reset_launch_counts()                    # the calibration path only
+    t0 = time.monotonic()
+    try:
+        cal = C.calibrate_model(lambda: (ks, vs), PAPER_POLICY)
+    finally:
+        restore()
+    total_s = time.monotonic() - t0
+    counts = launch_counts()
+    want = 2 * len(C.ALPHA_GRID) * cfg.n_layers
+    kq = counts["kv_quant"]
+    check(kq["kernel"] == want and kq["plain"] == 0
+          and sum(kq.values()) == want
+          and sum(counts["decode_attn"].values()) == 0,
+          f"calibrate: launches {counts} != {want} bulk kv_quant launches "
+          f"(2 x {len(C.ALPHA_GRID)} grid points x {cfg.n_layers} layers) "
+          f"and nothing else")
+    gated, cpu = {}, {}
+    for l in CALIB_CHECK_LAYERS:
+        plain = C.calibrate_layer(ks[l], vs[l], PAPER_POLICY, seed=31 * l,
+                                  quant_fn=quantize_groups)
+        check(_same_table(plain, cal.layers[l]),
+              f"calibrate: layer {l}: the kernel route's table differs from "
+              f"the plain route's on the card")
+        gated[str(l)] = "equal"
+        t0 = time.monotonic()
+        host = C.calibrate_layer(ks[l].cpu(), vs[l].cpu(), PAPER_POLICY,
+                                 seed=31 * l)
+        got = cal.layers[l]
+        cpu[str(l)] = {
+            "perms_differ": int((host.perm_k != got.perm_k).sum()
+                                + (host.perm_v != got.perm_v).sum()),
+            "alpha_k_flips": int((host.alpha_k != got.alpha_k).sum()),
+            "alpha_v_flips": int((host.alpha_v != got.alpha_v).sum()),
+            "cpu_s": time.monotonic() - t0}
+    hist = {}
+    for f in ("alpha_k", "alpha_v"):
+        vals = np.concatenate([getattr(l, f).reshape(-1) for l in cal.layers])
+        hist[f] = {f"{a:g}": int((vals == np.float32(a)).sum())
+                   for a in C.ALPHA_GRID}
+    perms_moved = {f: int(sum((getattr(l, f) != np.arange(cfg.head_dim)
+                               ).any(-1).sum() for l in cal.layers))
+                   for f in ("perm_k", "perm_v")}
+    launch = [_calib_launch(ks[0], cal.layers[0].perm_k, PAPER_POLICY.bits_k),
+              _calib_launch(vs[0], cal.layers[0].perm_v, PAPER_POLICY.bits_v)]
+    del ks, vs
+    torch.cuda.empty_cache()
+    rep = {"prompts": CALIB_PROMPTS, "prompt_len": CALIB_LEN,
+           "samples_per_layer": n, "collect_s": collect_s,
+           "calibrate_s": total_s, "clip_search_device_s": sum(secs),
+           "host_features_kmeans_s": total_s - sum(secs),
+           "launches": counts, "launches_expected": want,
+           "plain_route_on_card": gated, "cpu_tables": cpu,
+           "alpha_histogram": hist, "heads_reordered": perms_moved,
+           "kv_quant_launch": launch}
+    return cal, rep
+
+
+def _calib_serve(state, cfg, table, pool_blocks):
+    """(b) the serve phase's 8 requests through a warmed Engine serving
+    the calibrated table: every request finished, the launch identities,
+    no graph miss, a clean audit when pooled."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    eng, warm = _graph_engine(state, cfg, pool_blocks, calib=table)
+    prefills = _counted_prefills(eng)
+    _, reqs = _serve_requests(cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    what = f"calibrate {'pooled' if pool_blocks else 'striped'}"
+    _check_graph_path(cfg, eng, counts, prefills, what)
+    check(all(h.finished and h.finish_reason == "length"
+              and len(h.tokens) == SERVE_NEW for h in handles),
+          f"{what}: not every request finished: "
+          f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
+    if pool_blocks:
+        eng.check_invariants()
+    tokens = sum(len(h.tokens) for h in handles)
+    return eng, [list(h.tokens) for h in handles], {
+        "warmup": warm, "decode_steps": eng.n_decode_steps, "wall_s": wall,
+        "tokens": tokens, "tokens_per_s": tokens / wall, "launches": counts,
+        "prefills": len(prefills)}
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def _recon_error(state, cfg, table):
+    """(c) one RECON_LEN-token prompt prefilled under identity and under
+    the calibrated table: each layer's cache read back (materialize_kv)
+    against the fp K/V in the same channel order, over the packed
+    positions; relative MSE for K and V, mean and worst layer."""
+    import numpy as np
+    import torch
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core.policy import PAPER_POLICY as POL
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, RECON_LEN)),
+                          device=dev)
+    params = state["params"]
+    ks, vs = T.collect_kv(params, cfg, tok, max_samples=RECON_LEN)
+    lo, hi = POL.n_sink, RECON_LEN - POL.window          # packed positions
+    out = {}
+    for name, cal in (("identity", None), ("calibrated", table)):
+        _, caches = T.prefill_model(params, cfg, tok, POL, calib=cal,
+                                    max_len=MAX_LEN, backend="cuda")
+        tab = cal or T.identity_calib(cfg, POL, device=dev)
+        errs = {"k": [], "v": []}
+        for l in range(cfg.n_layers):
+            layer = {k: v[l] for k, v in caches["scan"].items()}
+            kh, vh = kvc.materialize_kv(layer, cfg.head_dim, POL, RECON_LEN)
+            for key, x, perm, xh in (("k", ks[l], tab["perm_k"][l], kh),
+                                     ("v", vs[l], tab["perm_v"][l], vh)):
+                xp = torch.gather(x.float(), -1, perm[None].expand(x.shape))
+                e = (xh[0, lo:hi] - xp[lo:hi]) ** 2
+                errs[key].append(float(e.sum() / (xp[lo:hi] ** 2).sum()))
+        out[name] = {f"{key}_{stat}": fn(errs[key]) for key in ("k", "v")
+                     for stat, fn in (("mean", np.mean), ("worst", max))}
+        out[name].update({f"{key}_worst_layer": int(np.argmax(errs[key]))
+                          for key in ("k", "v")})
+        del caches
+    return tok, out
+
+
+def _fp16_distance(state, cfg, table):
+    """(c) one decode step's logits at 4 x STEP_CONTEXT under identity and
+    under the calibrated table, each against FP16_POLICY (relative L2,
+    top-1)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import FP16_POLICY, PAPER_POLICY
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    batch = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (SERVE_SLOTS, STEP_CONTEXT)),
+                            device=dev)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1)),
+                          device=dev)
+    logits = {}
+    for name, pol, cal in (("fp16", FP16_POLICY, None),
+                           ("identity", PAPER_POLICY, None),
+                           ("calibrated", PAPER_POLICY, table)):
+        _, base = T.prefill_model(state["params"], cfg, batch, pol,
+                                  calib=cal, max_len=MAX_LEN, backend="cuda")
+        lg, _ = T.decode_step(state["params"], cfg, tok, base, pol,
+                              calib=cal, backend="cuda")
+        logits[name] = lg[:, -1].float()
+        del base
+    ref = logits["fp16"]
+    return {name: {"logits_rel_l2_vs_fp16": _rel(logits[name], ref),
+                   "top1_agreement_vs_fp16": float(
+                       (logits[name].argmax(-1) == ref.argmax(-1))
+                       .float().mean())}
+            for name in ("identity", "calibrated")}
+
+
+def _fused_v(state, cfg, table, tok):
+    """(e) fuse_v_permutation: fused weights with an identity perm_v
+    against the unfused weights with the calibrated perm_v, the final
+    prefill logits of ``tok`` (gated, relative L2) and one decode step
+    (reported)."""
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY as POL
+    from repro_torch.models import transformer as T
+    params = state["params"]
+    attn = T.fuse_v_permutation(params["layers"]["attn"], table["perm_v"],
+                                cfg.n_heads)
+    fused = dict(params, layers=dict(params["layers"], attn=attn))
+    eye = T.identity_calib(cfg, POL, device=tok.device)["perm_v"]
+    table_f = dict(table, perm_v=eye)
+    runs, nxt = {}, None
+    for name, p, cal in (("unfused", params, table),
+                         ("fused", fused, table_f)):
+        lg, caches = T.prefill_model(p, cfg, tok, POL, calib=cal,
+                                     max_len=MAX_LEN, backend="cuda")
+        if nxt is None:                  # both decode the same next token
+            nxt = lg[:, -1].argmax(-1, keepdim=True)
+        dl, _ = T.decode_step(p, cfg, nxt, caches, POL, calib=cal,
+                              backend="cuda")
+        runs[name] = (lg[:, -1].float(), dl[:, -1].float())
+        del caches
+    del fused
+    torch.cuda.empty_cache()
+    rel = _rel(runs["fused"][0], runs["unfused"][0])
+    check(rel <= LOGIT_REL_TOL, f"calibrate: fused-V prefill logits "
+          f"relative L2 {rel:.4f} > {LOGIT_REL_TOL}")
+    return {"prefill_logits_rel_l2": rel, "rel_tol": LOGIT_REL_TOL,
+            "decode_logits_rel_l2": _rel(runs["fused"][1],
+                                         runs["unfused"][1]),
+            "top1_equal": bool(runs["fused"][0].argmax()
+                               == runs["unfused"][0].argmax())}
+
+
+def phase_calibrate(state):
+    """Offline calibration (paper Sec. 3.1) on the card at llama2-7b's
+    width, PAPER_POLICY: (a) calibrate on the kernel route; (b) serve the
+    table from warmed striped and pooled engines; (c) reconstruction error
+    and distance from fp16, identity against calibrated; (d) replayed
+    steps calibrated against identity in ABBA turns, with the port's
+    kernels' device time per launch; (e) fuse_v_permutation."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    cfg = configs.get("llama2_7b")
+    cal, calib_rep = _calibrate_run(state, cfg)
+    table = cal.stacked()
+    eng_s, s_streams, striped = _calib_serve(state, cfg, table, None)
+    eng_p, p_streams, pooled = _calib_serve(state, cfg, table, 768)
+    del eng_p
+    same = [a == b for a, b in zip(p_streams, s_streams)]
+    check(all(same), f"calibrate: pooled streams differ from striped "
+          f"(request equal: {same})")
+    backends = _backend_logits(state["params"], cfg, PAPER_POLICY,
+                               calib=table)
+    tok, recon = _recon_error(state, cfg, table)
+    fp16 = _fp16_distance(state, cfg, table)
+    # (d) replayed steps at 4 x STEP_CONTEXT: calibrated against identity
+    eng_i, _ = _graph_engine(state, cfg)
+    for eng in (eng_i, eng_s):
+        _load_slots(eng, cfg)
+    turns = _abba({"identity": eng_i._decode_chunk,
+                   "calibrated": eng_s._decode_chunk})
+    per_launch = {name: _profile_decode(eng._decode_chunk)["port_kernels"]
+                  for name, eng in (("identity", eng_i),
+                                    ("calibrated", eng_s))}
+    del eng_i, eng_s
+    fused = _fused_v(state, cfg, table, tok)
+    torch.cuda.empty_cache()
+    kq = calib_rep["launches"]["kv_quant"]
+    state["launches"]["kv_quant"] += kq["kernel"]
+    for run in (striped, pooled):
+        kq, da = run["launches"]["kv_quant"], run["launches"]["decode_attn"]
+        state["launches"]["kv_quant"] += kq["kernel"]
+        state["launches"]["kv_append"] += kq["append"]
+        state["launches"]["decode_attn"] += da["kernel"]
+        state["launches"]["decode_attn_pooled"] += da["pooled"]
+    k_launch = calib_rep["kv_quant_launch"][0]
+    state["kv_quant"].update(
+        calib_ms=k_launch["ms"], calib_bound_ms=k_launch["bound_ms"],
+        calib_plain_ms=k_launch["plain_ms"], calib_rows=k_launch["rows"],
+        calib_launches=calib_rep["launches_expected"])
+    for key, tags in (("decode_attn", ("decode_attn_split", "merge_splits")),
+                      ("kv_append", ("kv_append_kernel",))):
+        state[key]["calib_us_per_call"] = {
+            name: {t: per_launch[name].get(t, {}).get("us_per_call")
+                   for t in tags} for name in per_launch}
+    same_id = [a == b for a, b in zip(s_streams, state["serve_streams"])]
+    emit({"phase": "calibrate", "arch": cfg.name, "max_len": MAX_LEN,
+          "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
+          "calibration": calib_rep,
+          "serve": {"striped": striped, "pooled": dict(
+              pooled, streams_equal_striped=True),
+                    "streams_equal_identity": same_id,
+                    "cuda_vs_reference": backends},
+          "reconstruction_rel_mse": recon, "distance_from_fp16": fp16,
+          "abba_calibrated_vs_identity_4x2048": turns,
+          "port_kernels_per_launch": per_launch,
+          "fuse_v_permutation": fused})
+
+
 # ------------------------------------------------ serve_schedule (DESIGN.md §8)
 
 GUARD_LAYERS = 2
@@ -1873,10 +2285,12 @@ def _sched_eager(state, cfg, sched, what):
     return [list(h.tokens) for h in handles]
 
 
-def _backend_logits(params, cfg, policy, seed=2, context=STEP_CONTEXT):
+def _backend_logits(params, cfg, policy, seed=2, context=STEP_CONTEXT,
+                    calib=None):
     """One decode step of a 4-slot batch at ``context`` tokens on the cuda
-    and the reference backends from the same prefilled cache: relative L2
-    of the logits (gated) and top-1 agreement (reported)."""
+    and the reference backends from the same prefilled cache (with the
+    stacked table ``calib``, identity by default): relative L2 of the
+    logits (gated) and top-1 agreement (reported)."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
@@ -1884,13 +2298,13 @@ def _backend_logits(params, cfg, policy, seed=2, context=STEP_CONTEXT):
     rng = np.random.default_rng(seed)
     batch = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                          (SERVE_SLOTS, context)), device=dev)
-    _, base = T.prefill_model(params, cfg, batch, policy, max_len=MAX_LEN,
-                              backend="cuda")
+    _, base = T.prefill_model(params, cfg, batch, policy, calib=calib,
+                              max_len=MAX_LEN, backend="cuda")
     tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1)),
                           device=dev)
     lc, _ = T.decode_step(params, cfg, tok, _clone(base), policy,
-                          backend="cuda")
-    lr, _ = T.decode_step(params, cfg, tok, base, policy,
+                          calib=calib, backend="cuda")
+    lr, _ = T.decode_step(params, cfg, tok, base, policy, calib=calib,
                           backend="reference")
     lc, lr = lc[:, -1].float(), lr[:, -1].float()
     check(bool(torch.isfinite(lc).all() and torch.isfinite(lr).all()),
@@ -2183,7 +2597,8 @@ def main(argv=None) -> int:
     for phase in (phase_env, phase_kv_quant, phase_kv_append,
                   phase_decode_attn, phase_decode_attn_pooled, phase_serve,
                   phase_serve_pooled, phase_serve_graph,
-                  phase_serve_chunked, phase_serve_schedule):
+                  phase_serve_chunked, phase_calibrate,
+                  phase_serve_schedule):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

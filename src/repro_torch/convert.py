@@ -54,7 +54,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg=None, device=None,
 
 
 def calib_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Stacked calib table -> perms as int64, clip factors as f32."""
+    """A stacked calib table of the reference -> perms as int64, clip
+    factors as f32: the dtypes of ``core.calibrate.Calibration.stacked``
+    and ``transformer.identity_calib``.  The port calibrates itself
+    (``core.calibrate``), so this is only the bridge by which the parity
+    tests feed the port the reference's tables."""
     dev = resolve_device(device)
     out = {}
     for k, v in tree.items():

@@ -33,7 +33,7 @@ import torch
 from ..device import resolve_device
 from . import segments as seg
 from .policy import QuantPolicy, as_layer_policy, as_schedule
-from .quant import quantize_groups, plane_layout
+from .quant import dequantize_groups, quantize_groups, plane_layout
 
 Cache = Dict[str, torch.Tensor]
 QuantFn = Callable[..., Dict[str, torch.Tensor]]
@@ -475,6 +475,75 @@ def _fp16_chunk_write(cache: Cache, k: torch.Tensor, v: torch.Tensor,
         cache[buf].copy_(torch.where(take, src, cache[buf]))
     cache["length"].copy_(t + nv.to(t.dtype))
     return cache
+
+
+# ----------------------------------------------------------- attention inputs
+
+def gather_attention_inputs(cache: Cache, head_dim: int, policy: QuantPolicy,
+                            dtype=torch.bfloat16):
+    """Reference path: every stored token as (K, V, positions, valid)
+    (DESIGN.md §1).  K/V (B, T, H, D) in ``dtype``, positions (B, T)
+    int32, valid (B, T) bool, T = n_sink + S_q + W, in the segment order
+    ``[sinks, packed, window]`` of :mod:`.segments`; per slot, since each
+    row sits at its own ``length``.  A pooled cache (§9) is gathered into
+    its striped view first (:func:`unpool_cache`), so both layouts give
+    the same inputs.  The decode kernel reads the packed planes
+    directly instead."""
+    if is_pooled(cache):
+        cache = unpool_cache(cache)
+    policy = as_layer_policy(policy)
+    w, ns = policy.window, policy.n_sink
+    t_total = slot_lengths(cache)
+    b = t_total.shape[0]
+    gsz = min(policy.group_size, head_dim)
+    ks, vs, pos, val = [], [], [], []
+
+    def push(p, stored):
+        pos.append(seg.bcast_rows(p, b))
+        val.append(seg.bcast_rows(stored, b))
+
+    if ns > 0:
+        ks.append(cache["sink_k"].to(dtype))
+        vs.append(cache["sink_v"].to(dtype))
+        push(*seg.sink_segment(ns, t_total))
+    if "qk_codes_hi" in cache and cache["qk_codes_hi"].shape[1] > 0:
+        kq = dequantize_groups(
+            {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qk_")},
+            head_dim, policy.bits_k, gsz, policy.fp8_meta, dtype)
+        vq = dequantize_groups(
+            {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qv_")},
+            head_dim, policy.bits_v, gsz, policy.fp8_meta, dtype)
+        ks.append(kq)
+        vs.append(vq)
+        j = torch.arange(kq.shape[1], dtype=torch.int32, device=kq.device)
+        push(*seg.packed_segment(j, t_total, ns, w))
+    if w > 0:
+        ks.append(cache["win_k"].to(dtype))
+        vs.append(cache["win_v"].to(dtype))
+        push(*seg.window_segment(w, ns, t_total))
+    return (torch.cat(ks, dim=1), torch.cat(vs, dim=1),
+            torch.cat(pos, dim=1), torch.cat(val, dim=1))
+
+
+def materialize_kv(cache: Cache, head_dim: int, policy: QuantPolicy,
+                   total_len: int, dtype=torch.float32):
+    """Test and quality helper: K/V (B, total_len, H, D) in absolute
+    position order, inverting the segment layout of DESIGN.md §1 (positions
+    nothing stores stay 0)."""
+    k, v, pos, valid = gather_attention_inputs(cache, head_dim, policy, dtype)
+    b, _, h, d = k.shape
+    # one extra "dump" row takes the invalid entries; valid positions are
+    # unique within a row, so the scatter has no conflicting writes
+    safe = torch.where(valid, pos.long(), torch.full_like(pos.long(),
+                                                          total_len))
+    rows = torch.arange(b, device=k.device)[:, None]
+    out = []
+    for x in (k, v):
+        buf = torch.zeros((b, total_len + 1, h, d), dtype=dtype,
+                          device=x.device)
+        buf[rows, safe] = x.to(dtype)
+        out.append(buf[:, :total_len])
+    return out[0], out[1]
 
 
 # --------------------------------------------------------- byte accounting

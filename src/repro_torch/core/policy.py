@@ -12,7 +12,8 @@ Two levels, as in the reference:
   which runs exactly the single-policy program.
 
 The baseline switches of the reference (``smooth``, ``per_channel_key``)
-are not ported.
+select the fake-quant baselines of :mod:`repro_torch.core.baselines`; each
+excludes ``reorder``, and an fp16 guard layer clears both.
 """
 from __future__ import annotations
 
@@ -50,6 +51,10 @@ class QuantPolicy:
     fp8_meta: bool = True          # store scale/zero in FP8-E4M3 (else fp16)
     clip: bool = True              # use calibrated per-group clip alpha
     reorder: bool = True           # use calibrated per-head channel permutation
+    # --- baseline switches (mutually exclusive with reorder) ---
+    smooth: bool = False           # SmoothQuant-style per-channel equalization
+    per_channel_key: bool = False  # KIVI-style: K quantized along the token axis
+    # ---
     meta_dtype_bits: int = dataclasses.field(init=False, default=8)
 
     def __post_init__(self):
@@ -57,6 +62,13 @@ class QuantPolicy:
             raise ValueError(f"bits must be in {_ALLOWED_BITS}")
         if self.group_size <= 0:
             raise ValueError("group_size must be positive")
+        if self.reorder and (self.smooth or self.per_channel_key):
+            bad = "smooth" if self.smooth else "per_channel_key"
+            raise ValueError(
+                f"reorder=True is mutually exclusive with the baseline "
+                f"switch {bad}=True: the calibrated channel permutation and "
+                f"the {bad} baseline transform the same channel axis; pick "
+                f"one (baselines set reorder=False)")
         if self.bits_k >= 16 and self.bits_v >= 16 and \
                 (self.window > 0 or self.n_sink > 0):
             raise ValueError(
@@ -88,7 +100,8 @@ def fp16_guard(policy: QuantPolicy) -> QuantPolicy:
     """The fp16 policy of a guard layer: the base policy's metadata knobs,
     nothing quantized and no window (DESIGN.md §8)."""
     return dataclasses.replace(policy, bits_k=16.0, bits_v=16.0, window=0,  # reprolint: disable=RL003 -- fp16_guard is itself a named derivation site (DESIGN.md §8)
-                               n_sink=0, clip=False, reorder=False)
+                               n_sink=0, clip=False, reorder=False,
+                               smooth=False, per_channel_key=False)
 
 
 # ============================================================ PolicySchedule

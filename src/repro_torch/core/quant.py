@@ -13,7 +13,7 @@ zero bytes are held bit-exact against the JAX reference.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -136,6 +136,28 @@ def dequantize_groups(qt: QTensor, d: int, bits: float, group_size: int,
              for name, (_, _, b, gs) in zip(
                  ("hi", "lo"), plane_layout(d, bits, group_size))]
     return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+
+
+def fake_quant(x: torch.Tensor, bits: float, group_size: int,
+               alpha=None, fp8_meta: bool = True, axis: int = -1,
+               quant_fn: Optional[Callable] = None) -> torch.Tensor:
+    """``dequantize(quantize(x))`` along ``axis``, in ``x``'s dtype: the
+    quality-evaluation path (calibration's clip search, the baselines).
+
+    ``bits >= 16`` passes ``x`` through; another ``axis`` is moved last
+    (KIVI's per-channel keys quantize along the token axis).
+    ``quant_fn(x, bits, group_size, alpha, fp8_meta)`` is the quantizer,
+    e.g. ``kernels.ops.make_kernel_quant_fn()`` for the bulk ``kv_quant``
+    kernel; the default is the plain :func:`quantize_groups`."""
+    if bits >= 16:
+        return x
+    if axis not in (-1, x.ndim - 1):
+        y = fake_quant(x.movedim(axis, -1), bits, group_size, alpha,
+                       fp8_meta, quant_fn=quant_fn)
+        return y.movedim(-1, axis)
+    qt = (quant_fn or quantize_groups)(x, bits, group_size, alpha, fp8_meta)
+    return dequantize_groups(qt, x.shape[-1], bits, group_size, fp8_meta,
+                             x.dtype)
 
 
 def packed_nbytes(d: int, bits: float, group_size: int, meta_bits: int) -> int:

@@ -7,6 +7,9 @@ path of ``repro.models.transformer``).
 * Channel reorder is applied at runtime to q/k/v after RoPE from a calib
   dict (``perm_k``/``perm_v`` (L, H_kv, D) int64, ``alpha_k``/``alpha_v``
   (L, H_kv, G) f32), as the reference serve path does (DESIGN.md §3).
+  :func:`collect_kv` gives the K/V a calibration
+  (``core.calibrate.calibrate_model``) runs on, and
+  :func:`fuse_v_permutation` folds perm_v into the weights.
 * Prefill runs full-precision attention first and then quantizes all but
   the sinks and the window (paper Sec. 3.2).  A decode step appends and
   quantizes in place, then attends through the backend (DESIGN.md §4).
@@ -226,6 +229,22 @@ def _window(cfg: ArchConfig, i: int) -> int:
     return cfg.local_window if cfg.layer_is_local(i) else 0
 
 
+def _block_full(x, params: Params, cfg: ArchConfig, rope, i: int):
+    """Layer ``i`` over the whole sequence in full precision (the fixed
+    128-wide key blocks of DESIGN.md §7): returns (x, k, v) with k/v
+    (B, S, H_kv, D) post-RoPE and unpermuted, the K/V the cache
+    quantizes.  Shared by :func:`prefill_model` and :func:`collect_kv`."""
+    b, s, _ = x.shape
+    p = _layer(params["layers"], i)
+    hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
+    q, k, v = _qkv(hn, p["attn"], cfg, rope)
+    attn = prefill_block_attention(q, k, v, cfg, window=_window(cfg, i))
+    x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
+    x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p["mlp"],
+                  cfg)
+    return x, k, v
+
+
 def _stack_caches(per_layer):
     return {k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]}
 
@@ -257,7 +276,7 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     x = L.embed(tokens, params["embed"], cfg.embed_scale)
     if dtype is not None:
         x = x.to(dtype)
-    b, s, _ = x.shape
+    s = x.shape[1]
     ml = max_len or (s + 64)
     rope = _rope_tables(cfg, torch.arange(s, dtype=torch.int32, device=dev))
     outs = {}
@@ -266,14 +285,7 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         cal = _band_calib(calib, cfg, pol, bs, be, dev)
         caches = []
         for i in range(bs, be):
-            p = _layer(params["layers"], i)
-            hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
-            q, k, v = _qkv(hn, p["attn"], cfg, rope)
-            attn = prefill_block_attention(q, k, v, cfg,
-                                           window=_window(cfg, i))
-            x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
-            x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
-                          p["mlp"], cfg)
+            x, k, v = _block_full(x, params, cfg, rope, i)
             j = i - bs
             caches.append(kvc.prefill(
                 _apply_perm(k, cal["perm_k"][j]).to(x.dtype),
@@ -283,6 +295,44 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
     return (L.unembed(x[:, -1:], params, cfg),
             {"scan": _band_out(outs, bands, 0)})
+
+
+# ============================================================= collect_kv
+
+def collect_kv(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+               max_samples: int = 4096):
+    """Post-RoPE K/V of every layer for calibration: (L, N, H_kv, D) each,
+    N = B x S tokens cut to ``max_samples``, in the params' dtype on the
+    tokens' device.  The layer loop is :func:`prefill_model`'s
+    (:func:`_block_full`), so calibration sees exactly the K/V that the
+    cache quantizes (before the channel permutation)."""
+    _check_dense(cfg)
+    x = L.embed(tokens, params["embed"], cfg.embed_scale)
+    b, s, _ = x.shape
+    rope = _rope_tables(cfg, torch.arange(s, dtype=torch.int32,
+                                          device=tokens.device))
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, k, v = _block_full(x, params, cfg, rope, i)
+        ks.append(k.reshape(b * s, cfg.n_kv_heads, cfg.head_dim)[:max_samples])
+        vs.append(v.reshape(b * s, cfg.n_kv_heads, cfg.head_dim)[:max_samples])
+    return torch.stack(ks), torch.stack(vs)
+
+
+def fuse_v_permutation(attn_params: Dict, perm_v, n_heads: int) -> Dict:
+    """Fold the V permutation into ``wv`` and ``wo_attn`` (paper Appendix
+    6; DESIGN.md §3): the V path has no RoPE, so the fusion is exact.  The
+    input side of ``wo_attn`` follows perm_v expanded to the query heads
+    (GQA).  ``attn_params`` holds one layer's weights with perm_v (H_kv,
+    D), or layer-stacked ones with perm_v (L, H_kv, D); perm_v is numpy or
+    a tensor.  Serve the fused weights with an identity perm_v."""
+    from ..core.reorder import fuse_in_channels, fuse_out_channels, on_device
+    pv = on_device(perm_v, attn_params["wv"].device).long()
+    out = dict(attn_params)
+    out["wv"] = fuse_out_channels(attn_params["wv"], pv)
+    out["wo_attn"] = fuse_in_channels(attn_params["wo_attn"],
+                                      _expand_perm(pv, n_heads))
+    return out
 
 
 # ========================================================== chunked prefill

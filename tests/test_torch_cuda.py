@@ -40,6 +40,13 @@ runs on a machine with only torch:
   scheduled Engines (fp16 guard layers, the ladder) striped, pooled and
   chunked with streams equal to the unwarmed striped engine's and the
   launch identities over the quantized layers only.
+* calibration (paper Sec. 3.1): ``fake_quant`` through the bulk kv_quant
+  kernel BITWISE equal to it through the plain quantizer; a calibration
+  on CUDA samples takes the kernel route (2 x 11 launches a layer, no
+  plain call) and gives the plain route's permutations and clip factors
+  bit for bit; a self-calibrated smoke model served by warmed striped and
+  pooled engines with equal streams and the launch identities, and fused-V
+  weights giving the unfused prefill logits (f32, ``atol=rtol=1e-4``).
 """
 import dataclasses
 
@@ -918,3 +925,124 @@ def test_scheduled_engines_on_the_card(preset, cuda_device):
                 1 if preset == "first_last_fp16" else 3)
         runs.append([h.tokens for h in hs])
     assert all(r == runs[0] for r in runs[1:])
+
+
+# ------------------------------------------------- calibration (Sec. 3.1)
+
+def _calib_samples(gen, dev, n, h, d):
+    """K/V-like samples on the card: log-normal channel scales, three
+    outlier channels a head."""
+    scales = torch.exp(torch.randn((1, h, d), generator=gen, device=dev))
+    scales[..., :3] *= 30
+    return torch.randn((n, h, d), generator=gen, device=dev) * scales
+
+
+@pytest.mark.parametrize("alpha_kind", ["none", "scalar", "per_head"])
+@pytest.mark.parametrize("bits,d,gs", [(2.0, 128, 128), (1.5, 128, 128),
+                                       (4.0, 64, 32), (1.5, 64, 16)])
+def test_fake_quant_kernel_route_equals_plain(bits, d, gs, alpha_kind,
+                                             cuda_device):
+    """fake_quant through the bulk kv_quant kernel equals it through the
+    plain quantize_groups on the card: the codes are byte-equal, so the
+    values are BITWISE equal; one launch a call."""
+    from repro_torch.core.quant import fake_quant
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_kernel_quant_fn
+    gen = torch.Generator(device=cuda_device).manual_seed(int(bits * 10) + d)
+    x = _calib_samples(gen, cuda_device, 256, 4, d)
+    g = n_meta_groups(d, bits, gs)
+    alpha = {"none": None,
+             "scalar": torch.tensor(0.85, device=cuda_device),
+             "per_head": 0.6 + 0.4 * torch.rand((4, g), generator=gen,
+                                                device=cuda_device)
+             }[alpha_kind]
+    reset_launch_counts()
+    got = fake_quant(x, bits, gs, alpha=alpha,
+                     quant_fn=make_kernel_quant_fn())
+    assert launch_counts()["kv_quant"]["kernel"] == 1
+    want = fake_quant(x, bits, gs, alpha=alpha)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("gs,d,bits_v", [(128, 128, 1.5), (32, 64, 1.5),
+                                         (16, 64, 2.0)])
+def test_calibration_kernel_route_equals_plain(gs, d, bits_v, cuda_device):
+    """calibrate_model on CUDA samples takes the kernel route (2 x 11
+    grid points x layers bulk launches, no plain call) and gives the
+    plain route's tables on the same card: equal permutations,
+    bitwise-equal clip factors."""
+    from repro_torch.core import calibrate as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    gen = torch.Generator(device=cuda_device).manual_seed(gs + d)
+    n_l = 2
+    ks = torch.stack([_calib_samples(gen, cuda_device, 1024, 4, d)
+                      for _ in range(n_l)])
+    vs = torch.stack([_calib_samples(gen, cuda_device, 1024, 4, d)
+                      for _ in range(n_l)])
+    pol = QuantPolicy(bits_k=2.0, bits_v=bits_v, group_size=gs, window=16,
+                      n_sink=4)
+    reset_launch_counts()
+    kern = C.calibrate_model(lambda: (ks, vs), pol, seed=3)
+    c = launch_counts()["kv_quant"]
+    assert c["kernel"] == 2 * len(C.ALPHA_GRID) * n_l and c["plain"] == 0
+    plain = C.calibrate_model(lambda: (ks, vs), pol, seed=3,
+                              quant_fn=quantize_groups)
+    for a, b in zip(kern.layers, plain.layers):
+        for f in ("perm_k", "perm_v", "smooth_k"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        for f in ("alpha_k", "alpha_v"):
+            np.testing.assert_array_equal(getattr(a, f).view(np.uint32),
+                                          getattr(b, f).view(np.uint32))
+    table = kern.stacked()
+    assert table["perm_k"].device.type == "cuda"
+    assert table["perm_k"].dtype == torch.int64
+    assert table["alpha_v"].dtype == torch.float32
+
+
+def test_calibrated_model_on_the_card(cuda_device):
+    """collect_kv -> calibrate_model -> Engine(calib=...) on a smoke model
+    at head dim 128: warmed striped and pooled engines give equal
+    streams with the launch identities; fused-V weights with an identity
+    perm_v give the unfused prefill logits (f32, atol = rtol = 1e-4)."""
+    from repro_torch.core import calibrate as C
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, Request
+    cfg = configs.get_smoke("llama2_7b").scaled(head_dim=128, d_model=256,
+                                                n_heads=2, n_kv_heads=2)
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(8)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 256)),
+                           device=cuda_device)
+    cal = C.calibrate_model(lambda: T.collect_kv(params, cfg, toks),
+                            PAPER_POLICY).stacked()
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (300, 180, 420)]
+    runs = []
+    for pool in (None, 80):
+        eng = Engine(params, cfg, PAPER_POLICY, batch_slots=2, max_len=517,
+                     steps_per_sync=4, pool_blocks=pool,
+                     pool_block_tokens=16, calib=cal, device=cuda_device)
+        eng.warmup()
+        reset_launch_counts()
+        hs = [eng.submit(Request(prompt=p, max_new=12, seed=i))
+              for i, p in enumerate(prompts)]
+        eng.run(hs)
+        c = launch_counts()
+        steps = eng.n_decode_steps
+        assert c["kv_quant"]["append"] == cfg.n_layers * steps
+        assert c["decode_attn"]["pooled" if pool else "kernel"] \
+            == cfg.n_layers * steps
+        assert c["decode_attn"]["plain"] == c["kv_quant"]["plain"] \
+            == c["kv_quant"]["append_plain"] == 0
+        assert eng.warmup_report()["post_warmup_misses"] == 0
+        runs.append([h.tokens for h in hs])
+    assert runs[0] == runs[1]
+    fused = dict(params, layers=dict(params["layers"], attn=(
+        T.fuse_v_permutation(params["layers"]["attn"], cal["perm_v"],
+                             cfg.n_heads))))
+    eye = T.identity_calib(cfg, PAPER_POLICY, device=cuda_device)["perm_v"]
+    a, _ = T.prefill_model(params, cfg, toks, PAPER_POLICY, calib=cal,
+                           max_len=517)
+    b, _ = T.prefill_model(fused, cfg, toks, PAPER_POLICY,
+                           calib=dict(cal, perm_v=eye), max_len=517)
+    torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)

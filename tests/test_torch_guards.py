@@ -135,3 +135,48 @@ def test_build_dir_is_keyed_by_sources_and_ignored(monkeypatch, tmp_path):
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     assert _build.build_dir().parent == tmp_path
+
+
+def test_calibration_runs_with_jax_blocked_and_defaults_to_cuda():
+    """Calibration, the baselines and the filters import and run with jax
+    blocked; the stacked table goes to the card unless asked for the CPU,
+    and CUDA samples resolve the clip search to the kernel route."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.core import baselines, calibrate, filters\n"
+        "from repro_torch.core.policy import QuantPolicy\n"
+        "from repro_torch.models import transformer as T\n"
+        "cfg = configs.get_smoke('llama3p2_1b')\n"
+        "pol = QuantPolicy(group_size=16, window=8, n_sink=2, bits_v=1.5)\n"
+        "p = T.init_params(cfg, seed=0, device='cpu')\n"
+        "tok = torch.randint(0, cfg.vocab_size, (2, 24))\n"
+        "cal = calibrate.calibrate_model(lambda: T.collect_kv(p, cfg, tok),"
+        " pol)\n"
+        "t = cal.stacked(device='cpu')\n"
+        "_, c = T.prefill_model(p, cfg, tok, pol, calib=t, max_len=32)\n"
+        "k = torch.randn(1, 32, cfg.n_kv_heads, cfg.head_dim)\n"
+        "ctx = baselines.MethodCtx(pol, cal.layers[0])\n"
+        "for name, fn in baselines.METHODS.items():\n"
+        "    kq, vq = fn(k, k, ctx)\n"
+        "    assert kq.shape == k.shape, name\n"
+        "keep = filters.combine([filters.AttentionSinkFilter(2)],"
+        " torch.arange(8), {})\n"
+        "assert int(keep.sum()) == 2\n"
+        "assert 'jax' not in [m for m, v in sys.modules.items() if v]\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    from repro_torch.core import calibrate
+    from repro_torch.core.quant import quantize_groups
+    assert calibrate.resolve_quant_fn(None, "cuda") is not quantize_groups
+    if torch.cuda.is_available():
+        return
+    cal = calibrate.Calibration([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cal.stacked()
