@@ -143,7 +143,29 @@ not from the 50 MB L2, as each layer of a decode step does.
    D 128; llama2-7b's weights freed first): 4 requests through a warmed
    engine with the launch identities, cuda-vs-reference logits, and
    decode_attn at that shape against its plain version and SDPA.
-11. a ``timing`` line of seconds per phase, then the kernel summary line
+11. serve_degrade — the degradation ladder and fault model (DESIGN.md
+   §11) at the same width, policy, slots and max_len: each request of the
+   serve phase's grouped 1536/1536 pair alone through a warmed striped
+   Engine gives its grouped stream (the bytes the group changes
+   reported); (a) the 8 requests at priority 0 plus, after the first
+   decode chunk, two priority-1 requests of 2048 tokens through a warmed
+   pooled async Engine of 390 blocks with a 256 MiB host spill tier:
+   preemptions, spilled and restored blocks >= 1, every priority-0 stream
+   bitwise the serve phase's, valid FinishReasons, a clean audit (tier
+   included), the launch identities, no plain call, no graph miss; ms per
+   spilled and restored block against the host link's byte bound, host ms
+   per preemption, prefill and restore ms of the victims, and batched
+   against one-block reads; (b) a seeded chaos trace (pool bursts, NaN
+   poisoning, host-loop crashes) over the 8 prompts at priorities 0/1,
+   chunked at 512 under a TickClock, run twice on fresh engines: equal
+   FinishReasons, streams, counters and injector accounting, NaN
+   quarantines == NaN events, the injector done, surviving streams the
+   serve phase's; (c) deadlines (running and queued), a cancel and a
+   one-chunk timeout under a TickClock (each early end holds no block
+   after its tick, one trip, no shed), and a real-clock watchdog below a
+   chunk's time shedding everything after two chunks; the replayed step
+   with the guard input against the step without it, ABBA at 4 x 2048.
+12. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
@@ -153,9 +175,9 @@ not from the 50 MB L2, as each layer of a decode step does.
    ``calib_launches``; decode_attn and kv_append the calibrate phase's
    ``calib_us_per_call``; every entry the ``widths`` of serve_schedule
    (a) and (e); launches count the serve, serve_pooled (b),
-   serve_chunked (b), calibrate (a), (b) and serve_schedule (b), (e)
-   runs), the card line, and the last line ``{"ok": true, "device":
-   {...}}``.
+   serve_chunked (b), calibrate (a), (b), serve_schedule (b), (e) and
+   serve_degrade runs), the card line, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
 """
@@ -1186,11 +1208,12 @@ ABBA_NEW = 1024          # budget of the timing requests: 4 x 192 blocks
 
 
 def _graph_engine(state, cfg, pool_blocks=None, async_host=False,
-                  prefill_chunk=None, policy=None, calib=None):
+                  prefill_chunk=None, policy=None, calib=None, **engine_kw):
     """A warmed Engine (DESIGN.md §10) at the serve shape (chunked
     admission with ``prefill_chunk``; PAPER_POLICY unless ``policy``, a
     policy or a schedule, is given; identity calibration unless ``calib``
-    is a stacked table); engines of earlier runs that nothing holds are
+    is a stacked table; ``engine_kw`` passes the degradation arguments of
+    DESIGN.md §11); engines of earlier runs that nothing holds are
     collected first, so their memory is free."""
     import gc
     import torch
@@ -1203,7 +1226,7 @@ def _graph_engine(state, cfg, pool_blocks=None, async_host=False,
                  max_len=MAX_LEN, steps_per_sync=SERVE_SPS, backend="cuda",
                  pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
                  async_host=async_host, prefill_chunk=prefill_chunk,
-                 calib=calib, device=torch.device("cuda"))
+                 calib=calib, device=torch.device("cuda"), **engine_kw)
     rep = eng.warmup()
     check(rep["n_graphs"] == 1 and rep["post_warmup_misses"] == 0,
           f"warmup captured no decode step: {rep}")
@@ -2515,6 +2538,541 @@ def _spec_dict(spec):
             for k, v in dataclasses.asdict(spec).items()}
 
 
+# ------------------------------------------ serve_degrade (DESIGN.md §11)
+
+# 3 of the first wave's 4 requests fit (eventual demand 61 + 125 + 185 =
+# 371 blocks, 15 more reserved than allocated): the 512-token request waits
+# with a slot free, so a priority-1 arrival finds both a slot and a short
+# pool, the condition under which the reference preempts
+# (src/repro/serving/engine.py:1337, 1365-1371)
+DEGRADE_POOL = 390
+DEGRADE_SPILL = 256 << 20        # 264 llama2-7b blocks of 1,015,808 bytes
+DEGRADE_HI = 2                   # priority-1 arrivals after the first chunk
+HOST_LINK_BYTES_PER_S = 64e9     # PCIe 5.0 x16, one direction (raw rate)
+CHAOS_SPEC = dict(n_events=8, kinds=("pool", "nan", "crash"),
+                  horizon_ticks=24, duration=4, magnitude=0.9, seed=0)
+CHAOS_NEW = 32
+READ_BLOCKS = 64                 # blocks of the batched-vs-single read
+
+
+def _synced(fn, log):
+    """Wrap an Engine method: synchronized host ms of each call, with its
+    first argument's size where it has one, appended to ``log``."""
+    import torch
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def _check_degrade_path(cfg, eng, counts, what, prefills=None):
+    """The launch identities of a run that preempts, restores or sheds:
+    one kv_append and one block-table decode_attn launch a layer a step,
+    one replay a step, no plain call, no graph miss; bulk kv_quant
+    launches in whole layers (2 x layers x prefills when ``prefills``, the
+    whole-prompt groups, is known)."""
+    steps, nq = eng.n_decode_steps, _n_quant(eng)
+    kq, da = counts["kv_quant"], counts["decode_attn"]
+    check(kq["append"] == nq * steps and da["pooled"] == nq * steps
+          and sum(da.values()) == da["pooled"],
+          f"{what}: kv_append {kq['append']} / decode_attn {da} != layers "
+          f"x steps = {nq * steps} on the block-table kernel")
+    want = (2 * nq * prefills if prefills is not None
+            else kq["kernel"] - kq["kernel"] % (2 * nq))
+    check(kq["kernel"] == want and kq["kernel"] > 0,
+          f"{what}: bulk kv_quant launches {kq['kernel']} != {want}")
+    check(kq["plain"] == kq["append_plain"] == kq["chunk_plain"] == 0,
+          f"{what}: a plain version ran: {counts}")
+    rep = eng.warmup_report()
+    check(rep["replays"] == steps and rep["post_warmup_misses"] == 0,
+          f"{what}: {rep['replays']} replays for {steps} steps, misses "
+          f"{rep['cold_names']}")
+
+
+def _add_launches(state, counts):
+    kq, da = counts["kv_quant"], counts["decode_attn"]
+    state["launches"]["kv_quant"] += kq["kernel"]
+    state["launches"]["kv_append"] += kq["append"]
+    state["launches"]["decode_attn"] += da["kernel"]
+    state["launches"]["decode_attn_pooled"] += da["pooled"]
+
+
+def _u8(x):
+    """A tensor's bytes, as a dense uint8 tensor."""
+    import torch
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    return y.copy_(x).view(torch.uint8)
+
+
+def _batch_of_one(state, cfg):
+    """Trouble (1) of the preemption replay: a resumed request is
+    prefilled in a group of another size.  The serve phase prefilled the
+    1536/1536 pair as one group of 2; here each runs alone through a
+    warmed striped Engine and must give the serve phase's stream.  Also
+    reported: the bytes of the pair's caches and last logits that differ
+    between the group of 2 and the runs of 1 (cuBLAS may pick another
+    kernel for M = 1536 than for 3072 rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    eng, warm = _graph_engine(state, cfg)
+    _, reqs = _serve_requests(cfg)
+    wave2 = SERVE_LENS[SERVE_SLOTS:]
+    pair = [i for i in range(SERVE_SLOTS, len(SERVE_LENS))
+            if wave2.count(SERVE_LENS[i]) > 1]
+    prefills = _counted_prefills(eng)
+    reset_launch_counts()
+    streams = {}
+    for i in pair:
+        h = eng.submit(reqs[i])
+        eng.run([h])
+        streams[i] = list(h.tokens)
+    counts = launch_counts()
+    _check_graph_path(cfg, eng, counts, prefills, "serve_degrade batch-of-1")
+    same = {i: streams[i] == state["serve_streams"][i] for i in pair}
+    check(all(same.values()), f"serve_degrade: batch-of-1 streams differ "
+          f"from the grouped serve phase's: {same}")
+    dev = torch.device("cuda")
+    toks = torch.as_tensor(np.stack([reqs[i].prompt for i in pair]),
+                           device=dev)
+    group = T.prefill_model(state["params"], cfg, toks, PAPER_POLICY,
+                            max_len=MAX_LEN, backend="cuda")
+    diff = {"cache_bytes": 0, "cache_bytes_total": 0, "logits_max_abs": 0.0}
+    for row, i in enumerate(pair):
+        lg, c1 = T.prefill_model(state["params"], cfg, toks[row:row + 1],
+                                 PAPER_POLICY, max_len=MAX_LEN,
+                                 backend="cuda")
+        diff["logits_max_abs"] = max(diff["logits_max_abs"], float(
+            (lg[0, -1].float() - group[0][row, -1].float()).abs().max()))
+        for k, v in c1["scan"].items():
+            a = _u8(v[:, 0])
+            b = _u8(group[1]["scan"][k][:, row])
+            diff["cache_bytes"] += int((a != b).sum())
+            diff["cache_bytes_total"] += a.numel()
+    del group
+    return eng, {"requests": pair, "warmup": warm,
+                 "streams_equal_grouped": same, "launches": counts,
+                 "group_vs_alone": diff}
+
+
+def _preempt_run(state, cfg):
+    """(a) The serve phase's 8 requests at priority 0 and, after the first
+    decode chunk, DEGRADE_HI priority-1 requests of 2048 tokens, through a
+    warmed pooled async Engine with the host spill tier: preemption, spill
+    and restore; the streams, counters and audit checked; spill, restore,
+    preemption and prefill host ms recorded (synchronized)."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import FinishReason, Request
+    eng, warm = _graph_engine(state, cfg, DEGRADE_POOL, async_host=True,
+                              host_spill_bytes=DEGRADE_SPILL)
+    logs = {k: [] for k in ("spill", "restore", "preempt", "prefill")}
+    sizes = {"spill": [], "restore": []}
+    spill, restore = eng._spill_evicted, eng._restore_blocks
+
+    def spill_sized():
+        sizes["spill"].append(len(eng._evicted))
+        spill()
+
+    def restore_sized(rest):
+        sizes["restore"].append(sum(len(r) for r in rest.values()))
+        restore(rest)
+    eng._spill_evicted = _synced(spill_sized, logs["spill"])
+    eng._restore_blocks = _synced(restore_sized, logs["restore"])
+    eng._preempt_slot = _synced(eng._preempt_slot, logs["preempt"])
+    groups = []
+    admit = eng._admit_group
+
+    def admit_logged(handles, slots):
+        groups.append([h.rid for h in handles])
+        admit(handles, slots)
+    eng._admit_group = _synced(admit_logged, logs["prefill"])
+    prefills = _counted_prefills(eng)
+    _, reqs = _serve_requests(cfg)
+    rng = np.random.default_rng(11)
+    hi = [Request(prompt=rng.integers(0, cfg.vocab_size, 2048),
+                  max_new=SERVE_NEW, seed=100 + i, priority=1)
+          for i in range(DEGRADE_HI)]
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.step()
+    his = [eng.submit(r) for r in hi]
+    ticks = 1
+    while eng.step():
+        ticks += 1
+        check(ticks < 400, "serve_degrade (a): engine still busy")
+    eng.drain()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    _check_degrade_path(cfg, eng, counts, "serve_degrade (a)", len(prefills))
+    c = eng.stats()["counters"]
+    check(c["preemptions"] >= 1 and c["spilled_blocks"] >= 1
+          and c["restored_blocks"] >= 1,
+          f"serve_degrade (a): no preempt/spill/restore round trip: {c}")
+    every = handles + his
+    check(all(h.finished and FinishReason.valid(h.finish_reason)
+              and h.finish_reason == "length"
+              and len(h.tokens) == SERVE_NEW for h in every),
+          f"serve_degrade (a): "
+          f"{[(h.finish_reason, len(h.tokens)) for h in every]}")
+    same = [list(h.tokens) == s for h, s in zip(handles,
+                                                state["serve_streams"])]
+    check(all(same), f"serve_degrade (a): priority-0 streams differ from the "
+          f"serve phase's (request equal: {same})")
+    audit = eng.check_invariants()
+    st = eng.stats()
+    check(st["used"] == 0 and st["reserved"] == 0, f"pool not drained: {st}")
+    victims = [h.rid for h in handles if h.preempted]
+    tier = st["host_spill"]
+    per_block = tier["bytes"] / max(tier["entries"], 1)
+    n_sp, n_re = sum(sizes["spill"]), sum(sizes["restore"])
+    sp_ms, re_ms = sum(logs["spill"]), sum(logs["restore"])
+    link = per_block / HOST_LINK_BYTES_PER_S * 1e3
+    figures = {
+        "block_bytes": per_block,
+        "spill_ms_per_block": sp_ms / max(n_sp, 1),
+        "restore_ms_per_block": re_ms / max(n_re, 1),
+        "host_link_bound_ms_per_block": link,
+        "spill_bound_share": link / (sp_ms / max(n_sp, 1)) if n_sp else None,
+        "restore_bound_share": (link / (re_ms / max(n_re, 1))
+                                if n_re else None),
+        "spill_calls": sum(1 for n in sizes["spill"] if n),
+        "spilled": n_sp,
+        "restore_calls": sum(1 for n in sizes["restore"] if n),
+        "restored": n_re,
+        "preempt_host_ms": logs["preempt"],
+        "prefill_groups": [{"rids": g, "ms": ms}
+                           for g, ms in zip(groups, logs["prefill"])],
+        "spills": [{"blocks": n, "ms": ms}
+                   for n, ms in zip(sizes["spill"], logs["spill"]) if n],
+        "restores": [{"blocks": n, "ms": ms}
+                     for n, ms in zip(sizes["restore"], logs["restore"])
+                     if n]}
+    return eng, {"pool_blocks": DEGRADE_POOL, "spill_budget": DEGRADE_SPILL,
+                 "warmup": warm, "ticks": ticks, "wall_s": wall,
+                 "decode_steps": eng.n_decode_steps,
+                 "prefills": len(prefills), "launches": counts,
+                 "counters": c, "host_spill": tier, "audit": audit,
+                 "victims": victims, "streams_equal_serve": same,
+                 "hi_streams": [list(h.tokens)[:8] for h in his],
+                 "figures": figures}
+
+
+def _read_write_ms(eng):
+    """Spill reads and restore writes of READ_BLOCKS blocks on a drained
+    Engine's pool, ms a block, the best of 3: through the Engine's pinned
+    staging buffer (its path), through fresh pageable memory, and one
+    block a call; the staged read split into the device gather, the
+    device->host copy and the host's per-block copies; every write a byte
+    round trip."""
+    import torch
+    from repro_torch.core import kv_cache as kvc
+    band = eng._caches["scan"]
+    phys = list(range(1, READ_BLOCKS + 1))
+    stage = eng._host_stage()
+
+    def best(fn):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / READ_BLOCKS)
+        return min(ms)
+    out = {"blocks": READ_BLOCKS, "block_bytes": kvc.pool_block_bytes(band, 1),
+           "read_staged_ms_per_block": best(
+               lambda: kvc.pool_read_blocks(band, phys, 1, stage=stage)),
+           "read_pageable_ms_per_block": best(
+               lambda: kvc.pool_read_blocks(band, phys, 1)),
+           "read_one_a_call_ms_per_block": best(
+               lambda: [kvc.pool_read_block(band, p, 1) for p in phys])}
+    idx = torch.as_tensor(phys, device=eng.device)
+    parts = lambda: torch.cat(
+        [v[:, idx].movedim(1, 0).contiguous().reshape(READ_BLOCKS, -1)
+         for k, v in band.items() if kvc.is_plane_key(k)], dim=1)
+    flat = parts()
+    host = stage[:flat.numel()].view(flat.shape)
+    raw = host.numpy()
+    out["read_split_ms_per_block"] = {
+        "gather": best(parts), "copy": best(lambda: host.copy_(flat)),
+        "host_rows": best(lambda: [raw[i].copy()
+                                   for i in range(READ_BLOCKS)])}
+    blocks = kvc.pool_read_blocks(band, phys, 1, stage=stage)
+    before = {k: v[:, 1:READ_BLOCKS + 1].clone() for k, v in band.items()
+              if kvc.is_plane_key(k)}
+    out["write_staged_ms_per_block"] = best(
+        lambda: kvc.pool_write_blocks(band, blocks, phys, 1, stage=stage))
+    out["write_pageable_ms_per_block"] = best(
+        lambda: kvc.pool_write_blocks(band, blocks, phys, 1))
+    check(all(torch.equal(v[:, 1:READ_BLOCKS + 1], before[k])
+              for k, v in band.items() if kvc.is_plane_key(k)),
+          "serve_degrade: block read/write round trip changed bytes")
+    return out
+
+
+def _chaos_run(state, cfg):
+    """(b) One seeded chaos trace (pool bursts, NaN poisoning, host-loop
+    crashes) over the serve prompts at priorities 0/1, chunked at 512, on
+    a warmed pooled async Engine under a TickClock."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (ChaosSpec, FaultInjector, FinishReason,
+                                     Request, TickClock, chaos_trace)
+    inj = FaultInjector(chaos_trace(ChaosSpec(**CHAOS_SPEC)))
+    eng, _ = _graph_engine(state, cfg, DEGRADE_POOL, async_host=True,
+                           prefill_chunk=CHUNK,
+                           host_spill_bytes=DEGRADE_SPILL,
+                           clock=TickClock(0.01), faults=inj)
+    _, reqs = _serve_requests(cfg)
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    hs = [eng.submit(Request(prompt=r.prompt, max_new=CHAOS_NEW,
+                             seed=r.seed, priority=i % 2))
+          for i, r in enumerate(reqs)]
+    ticks = 0
+    while eng.step():
+        ticks += 1
+        check(ticks < 400, "serve_degrade (b): engine still busy")
+    eng.drain()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    _check_degrade_path(cfg, eng, counts, "serve_degrade (b)")
+    audit = eng.check_invariants()
+    c = eng.stats()["counters"]
+    check(all(h.finished and FinishReason.valid(h.finish_reason)
+              for h in hs), f"serve_degrade (b): a stream hung: {hs}")
+    check(inj.done, f"serve_degrade (b): injector not done: {inj.stats()}")
+    check(c["nan_quarantines"] == inj.injected["nan"],
+          f"serve_degrade (b): {c['nan_quarantines']} quarantines for "
+          f"{inj.injected['nan']} NaN events")
+    clean = [list(h.tokens) == s[:CHAOS_NEW] for h, s in
+             zip(hs, state["serve_streams"]) if h.finish_reason == "length"]
+    check(all(clean), f"serve_degrade (b): a surviving stream differs from "
+          f"the serve phase's: {clean}")
+    out = {"reasons": [h.finish_reason for h in hs],
+           "streams": [list(h.tokens) for h in hs],
+           "counters": c, "injector": inj.stats(), "audit": audit,
+           "ticks": ticks, "wall_s": wall,
+           "decode_steps": eng.n_decode_steps, "launches": counts}
+    eng.close()
+    return out
+
+
+def _ends_in_place(eng, log):
+    """Step wrapper for (c): after each tick, every stream that ended in
+    it holds no block (its slot's table rows are empty) and the pool's
+    used count is the blocks the remaining tables hold."""
+    step = eng.step
+    pool = next(iter(eng._pools.values()))
+
+    def stepped():
+        before = {h: i for i, h in enumerate(eng._slot_handle)
+                  if h is not None}
+        queued = list(eng._queue)
+        worked = step()
+        for h in queued + list(before):
+            if h._sched_fin in ("deadline", "cancelled") and \
+                    h.rid not in {e["rid"] for e in log}:
+                slot = before.get(h)
+                held = int((pool.tables != 0).sum())
+                log.append({"rid": h.rid, "reason": h._sched_fin,
+                            "tick": eng._tick, "was_running": slot is not None,
+                            "slot_row_blocks": (int((pool.tables[slot] != 0)
+                                                    .sum()) if slot is not None
+                                                else 0),
+                            "used": pool.used(), "table_blocks": held})
+        return worked
+    eng.step = stepped
+
+
+def _deadline_run(state, cfg):
+    """(c) Deadlines, cancel and a one-chunk timeout under a TickClock of
+    one second a tick: a running request past its deadline, a queued one
+    past its deadline and a cancelled running one each end in the tick
+    they are due, holding no block after it; one slow chunk trips the
+    watchdog once and sheds nothing; the survivors' streams equal the
+    serve phase's."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (ChaosEvent, FaultInjector, Request,
+                                     TickClock)
+    inj = FaultInjector([ChaosEvent(tick=4, kind="timeout", duration=1,
+                                    magnitude=99.0)])
+    eng, _ = _graph_engine(state, cfg, DEGRADE_POOL, async_host=True,
+                           host_spill_bytes=DEGRADE_SPILL,
+                           clock=TickClock(1.0), faults=inj,
+                           step_timeout_s=30.0, watchdog_max_trips=2)
+    _, reqs = _serve_requests(cfg)
+    log = []
+    _ends_in_place(eng, log)
+    reset_launch_counts()                                    # main path only
+    run = eng.submit(Request(prompt=reqs[0].prompt, max_new=SERVE_NEW,
+                             seed=0, deadline_ms=2500.0))
+    cancel = eng.submit(Request(prompt=reqs[3].prompt, max_new=SERVE_NEW,
+                                seed=3))
+    keep = [eng.submit(reqs[i]) for i in (1, 6)]
+    queued = eng.submit(Request(prompt=reqs[4].prompt, max_new=SERVE_NEW,
+                                seed=4, deadline_ms=1500.0))
+    eng.step()
+    cancel.cancel()
+    ticks = 1
+    while eng.step():
+        ticks += 1
+        check(ticks < 400, "serve_degrade (c): engine still busy")
+    eng.drain()
+    counts = launch_counts()
+    _check_degrade_path(cfg, eng, counts, "serve_degrade (c)")
+    audit = eng.check_invariants()
+    c = eng.stats()["counters"]
+    want = {run.rid: ("deadline", True), queued.rid: ("deadline", False),
+            cancel.rid: ("cancelled", True)}
+    got = {e["rid"]: (e["reason"], e["was_running"]) for e in log}
+    check(got == want and all(e["slot_row_blocks"] == 0 and e["used"] ==
+                              e["table_blocks"] for e in log),
+          f"serve_degrade (c): early ends {log}, want {want}")
+    check([h.finish_reason for h in (run, queued, cancel)]
+          == ["deadline", "deadline", "cancelled"] and not queued.tokens,
+          f"serve_degrade (c): {[run, queued, cancel]}")
+    check(c["deadline_misses"] == 2 and c["cancelled"] == 1
+          and c["watchdog_trips"] == 1 and c["shed"] == 0,
+          f"serve_degrade (c): counters {c}")
+    same = [list(h.tokens) == state["serve_streams"][i]
+            and h.finish_reason == "length" for h, i in zip(keep, (1, 6))]
+    check(all(same), f"serve_degrade (c): survivors differ: {same}")
+    out = {"ends": log, "counters": c, "audit": audit,
+           "tokens_before_deadline": len(run.tokens),
+           "tokens_before_cancel": len(cancel.tokens),
+           "decode_steps": eng.n_decode_steps, "launches": counts}
+    eng.close()
+    return out
+
+
+def _watchdog_run(state, cfg):
+    """(c) The watchdog on the real clock: ``step_timeout_s`` below a
+    replayed chunk's time and two trips allowed shed every stream after
+    the second chunk; the audit is clean and the pool empty."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Request
+    eng, _ = _graph_engine(state, cfg, DEGRADE_POOL, async_host=True,
+                           host_spill_bytes=DEGRADE_SPILL,
+                           step_timeout_s=0.05, watchdog_max_trips=2)
+    _, reqs = _serve_requests(cfg)
+    reset_launch_counts()                                    # main path only
+    hs = [eng.submit(Request(prompt=reqs[i].prompt, max_new=SERVE_NEW,
+                             seed=i)) for i in (0, 1, 3, 7, 4)]
+    ticks = 0
+    while eng.step():
+        ticks += 1
+        check(ticks < 10, "serve_degrade (c): the watchdog never fired")
+    eng.drain()
+    counts = launch_counts()
+    _check_degrade_path(cfg, eng, counts, "serve_degrade watchdog")
+    audit = eng.check_invariants()
+    c, st = eng.stats()["counters"], eng.stats()
+    check(c["watchdog_trips"] == 2 and c["shed"] == len(hs)
+          and all(h.finish_reason == "shed" for h in hs)
+          and eng.n_decode_steps == 2 * SERVE_SPS
+          and st["used"] == 0 and st["reserved"] == 0,
+          f"serve_degrade watchdog: {c}, {[h.finish_reason for h in hs]}, "
+          f"{eng.n_decode_steps} steps")
+    out = {"step_timeout_s": 0.05, "counters": c, "audit": audit,
+           "decode_steps": eng.n_decode_steps, "launches": counts}
+    eng.close()
+    return out
+
+
+def _guard_abba(eng, cfg):
+    """Replayed chunks at 4 x 2048 with the NaN guard input (the Engine's
+    graph) against the same step captured without it (the graph of the
+    serve phases before the guard), in ABBA turns on one Engine."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import decode_one
+    _load_slots(eng, cfg)
+    dev, b = eng.device, eng.batch_slots
+    tok = torch.as_tensor(eng._tok, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    temps = torch.zeros(b, dtype=torch.float32, device=dev)
+    eos = torch.full((b,), -1, dtype=torch.int64, device=dev)
+    host_t = np.zeros(b, np.float32)
+    gens = [None] * b
+
+    def bare(token, done, bad, live, temps, eos, unif):
+        return decode_one(eng.params, cfg, eng.schedule, token, eng._caches,
+                          done, bad, live, temps, eos, unif, calib=eng.calib,
+                          backend=eng.backend)
+    static = (tok.clone(), done.clone(), done.clone(),
+              torch.zeros(b, dtype=torch.int32, device=dev), temps.clone(),
+              eos.clone(), eng._unif)
+    eng._graphs.warm("decode_step_bare", bare, static)
+
+    def unguarded():
+        t, d = tok, done
+        bad = torch.zeros(b, dtype=torch.bool, device=dev)
+        live = torch.zeros(b, dtype=torch.int32, device=dev)
+        for _ in range(SERVE_SPS):
+            t, d, bad, live = eng._graphs.call(
+                "decode_step_bare", bare, t[:, None] if t.dim() == 1 else t,
+                d, bad, live, temps, eos, eng._unif)
+    guarded = lambda: eng._decode_steps(SERVE_SPS, tok, done, temps, eos,
+                                        gens, host_t)
+    return _abba({"unguarded": unguarded, "guarded": guarded})
+
+
+def phase_serve_degrade(state):
+    """The degradation ladder and fault model (DESIGN.md §11) at llama2-7b
+    width: the batch-of-1 check, (a) preemption with spill and restore,
+    (b) a chaos trace replayed twice, (c) deadlines, cancel and the
+    watchdog, block read/write costs, and the guard's step cost."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get("llama2_7b")
+    state["params"] = T.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                                    device=torch.device("cuda"))
+    eng_s, single = _batch_of_one(state, cfg)
+    _add_launches(state, single["launches"])
+    eng_a, preempt = _preempt_run(state, cfg)
+    _add_launches(state, preempt["launches"])
+    rw = _read_write_ms(eng_a)
+    eng_a.close()
+    del eng_a
+    gc.collect()
+    runs = [_chaos_run(state, cfg) for _ in range(2)]
+    for r in runs:
+        _add_launches(state, r["launches"])
+    keys = ("reasons", "streams", "counters", "injector")
+    same = {k: runs[0][k] == runs[1][k] for k in keys}
+    check(all(same.values()), f"serve_degrade (b): the chaos replay "
+          f"diverged: {same}")
+    deadlines = _deadline_run(state, cfg)
+    _add_launches(state, deadlines["launches"])
+    watchdog = _watchdog_run(state, cfg)
+    _add_launches(state, watchdog["launches"])
+    guard = _guard_abba(eng_s, cfg)
+    eng_s.close()
+    del eng_s
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chaos = dict(runs[0], streams=None, replay_equal=same,
+                 spec=dict(CHAOS_SPEC, kinds=list(CHAOS_SPEC["kinds"])),
+                 max_new=CHAOS_NEW, second_wall_s=runs[1]["wall_s"])
+    emit({"phase": "serve_degrade", "arch": cfg.name, "max_len": MAX_LEN,
+          "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
+          "gpu": state["gpu"], "batch_of_one": single, "preempt": preempt,
+          "block_copies": rw, "chaos": chaos, "deadlines": deadlines,
+          "watchdog": watchdog, "abba_guard_4x2048": guard})
+
+
 # kernel-name fragments of each kind, first match wins
 KERNEL_KINDS = (
     ("port: decode_attn + merge", ("decode_attn_split", "merge_splits")),
@@ -2598,7 +3156,7 @@ def main(argv=None) -> int:
                   phase_decode_attn, phase_decode_attn_pooled, phase_serve,
                   phase_serve_pooled, phase_serve_graph,
                   phase_serve_chunked, phase_calibrate,
-                  phase_serve_schedule):
+                  phase_serve_schedule, phase_serve_degrade):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

@@ -21,17 +21,21 @@ tail block keeps receiving tokens as decode evicts them from the window.
 Before any write to a shared or registered block the engine calls
 :meth:`BlockPool.ensure_writable`.
 
-The host spill tier and the chaos ``seize`` hold of the JAX package are
-not part of this port; :attr:`BlockPool.on_evict` stays ``None``.
+The degradation ladder of DESIGN.md §11 adds two things here:
+:class:`HostSpillTier`, the LRU host-RAM tier a registered block's bytes
+park in when its last reference drops (the engine sets
+:attr:`BlockPool.on_evict` to read them off the device), and the chaos
+injector's :meth:`BlockPool.seize` hold, which the audit accounts for.
 """
 from __future__ import annotations
 
 import hashlib
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["BlockPool", "prefix_block_keys"]
+__all__ = ["BlockPool", "HostSpillTier", "prefix_block_keys"]
 
 
 def prefix_block_keys(prompt: Sequence[int], n_sink: int, window: int,
@@ -67,6 +71,102 @@ def prefix_block_keys(prompt: Sequence[int], n_sink: int, window: int,
     return full_keys, tail_key
 
 
+class HostSpillTier:
+    """LRU host-RAM tier for cold pool blocks (DESIGN.md §11).
+
+    When a hash-registered block's refcount drops to zero the engine parks
+    its packed bytes here (numpy arrays, one dict of plane leaves per
+    content key) instead of losing them with the device free.  A later
+    admission whose prefix key misses the device registry but hits this
+    tier *restores* the block with one host->device copy instead of
+    inserting it from the prefill's quantized cache.
+
+    ``budget_bytes`` bounds the tier: inserting past it evicts the
+    least-recently-used entries (a :meth:`get` refreshes recency).  One
+    tier serves every band of an engine: content keys fold in the band and
+    policy, so they cannot collide across bands.
+    """
+
+    def __init__(self, budget_bytes: int):
+        if budget_bytes < 1:
+            raise ValueError(
+                f"host spill budget must be >= 1 byte, got {budget_bytes}")
+        self.budget_bytes = int(budget_bytes)
+        self._entries: "OrderedDict[str, Tuple[dict, int]]" = OrderedDict()
+        self.bytes = 0
+        self.spilled = 0          # blocks parked (device -> host copies)
+        self.restored = 0         # blocks revived (host -> device copies)
+        self.evicted = 0          # LRU drops under budget pressure
+        self.rejected = 0         # blocks larger than the whole budget
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._entries
+
+    def put(self, key: str, arrays: dict, nbytes: int) -> bool:
+        """Park one block's plane leaves under ``key``, evicting LRU
+        entries until the budget covers it.  False (a counted rejection)
+        when one block exceeds the whole budget: the tier never
+        over-commits host RAM."""
+        nbytes = int(nbytes)
+        if nbytes > self.budget_bytes:
+            self.rejected += 1
+            return False
+        if key in self._entries:
+            _, old = self._entries.pop(key)
+            self.bytes -= old
+        while self.bytes + nbytes > self.budget_bytes and self._entries:
+            _, (_, old) = self._entries.popitem(last=False)
+            self.bytes -= old
+            self.evicted += 1
+        self._entries[key] = (arrays, nbytes)
+        self.bytes += nbytes
+        self.spilled += 1
+        return True
+
+    def get(self, key: str) -> Optional[dict]:
+        """Plane leaves for ``key`` (refreshing its recency), or None."""
+        hit = self._entries.get(key)
+        if hit is None:
+            return None
+        self._entries.move_to_end(key)
+        return hit[0]
+
+    def pop(self, key: str) -> Optional[dict]:
+        """Remove and return ``key``'s plane leaves: the restore path, the
+        block is device-resident again."""
+        hit = self._entries.pop(key, None)
+        if hit is None:
+            return None
+        arrays, nbytes = hit
+        self.bytes -= nbytes
+        self.restored += 1
+        return arrays
+
+    def stats(self) -> dict:
+        """Occupancy and traffic counters for ``Engine.stats()``."""
+        return {"budget_bytes": self.budget_bytes, "bytes": self.bytes,
+                "entries": len(self._entries), "spilled": self.spilled,
+                "restored": self.restored, "evicted": self.evicted,
+                "rejected": self.rejected}
+
+    def check_invariants(self) -> None:
+        """Audit the byte accounting (DESIGN.md §11): tracked bytes equal
+        the sum of entry sizes and never exceed the budget.  Raises
+        ``RuntimeError`` on a violation."""
+        total = sum(n for _, n in self._entries.values())
+        if total != self.bytes:
+            raise RuntimeError(
+                f"host spill tier byte drift: tracked {self.bytes} != "
+                f"summed {total}")
+        if self.bytes > self.budget_bytes:
+            raise RuntimeError(
+                f"host spill tier over budget: {self.bytes} > "
+                f"{self.budget_bytes}")
+
+
 class BlockPool:
     """Free list + refcounts + hash registry + per-slot tables for ONE
     quantized band's physical block pool (DESIGN.md §9).
@@ -97,9 +197,13 @@ class BlockPool:
         self.cow_copies = 0
         self.peak_used = 0
         self.dirty = True                      # device table needs a flush
-        # called as on_evict(key, phys) when a registered block is freed;
-        # the host spill tier that would set it is not ported
+        # spill hook (DESIGN.md §11): on_evict(key, phys) when a registered
+        # block's refcount hits zero, before it returns to the free list,
+        # while its bytes are still on the device
         self.on_evict: Optional[Callable[[str, int], None]] = None
+        # chaos holds (DESIGN.md §11): blocks seized out of the free list,
+        # in nobody's table, so the audit accounts for them explicitly
+        self.seized: set = set()
 
     # ------------------------------------------------------------- accounting
 
@@ -130,6 +234,7 @@ class BlockPool:
                 "prefix_hit_rate": (self.hits / (self.hits + self.misses)
                                     if self.hits + self.misses else 0.0),
                 "cow_copies": self.cow_copies,
+                "seized": len(self.seized),
                 "resident_bytes": used * self.block_nbytes}
 
     # ------------------------------------------------------------- allocation
@@ -157,7 +262,9 @@ class BlockPool:
 
     def deref(self, phys: int) -> None:
         """Drop a reference; the last one frees the block and retires any
-        hash registration pointing at it."""
+        hash registration pointing at it.  A registered block reaching
+        zero first fires :attr:`on_evict` (the host spill hook, DESIGN.md
+        §11) while its bytes are still resident."""
         if phys <= 0:
             return
         if self.refs[phys] <= 0:
@@ -239,7 +346,32 @@ class BlockPool:
         self._reserved[slot] = 0
         self.dirty = True
 
-    # ------------------------------------------------------------------ audit
+    # ------------------------------------------------- faults + audit (§11)
+
+    def seize(self, n: int) -> List[int]:
+        """Take up to ``n`` blocks out of the free list without assigning
+        them to a slot: the pool-exhaustion chaos injector's hold
+        (DESIGN.md §11), tracked so the audit tells a hold from a leak."""
+        out: List[int] = []
+        for _ in range(max(0, int(n))):
+            if not self._free:
+                break
+            phys = self._free.pop()
+            self.refs[phys] = 1
+            self.seized.add(phys)
+            out.append(phys)
+        self.peak_used = max(self.peak_used, self.used())
+        return out
+
+    def release_seized(self, blocks: Optional[Sequence[int]] = None) -> None:
+        """Return seized blocks (default: all of them) to the free list,
+        the end of a chaos exhaustion burst (DESIGN.md §11)."""
+        for phys in list(blocks if blocks is not None else self.seized):
+            if phys not in self.seized:
+                raise ValueError(f"block {phys} was not seized")
+            self.seized.discard(phys)
+            self.refs[phys] = 0
+            self._free.append(phys)
 
     def check_invariants(self) -> dict:
         """Refcount / free-list / registry audit (DESIGN.md §11); raises
@@ -248,7 +380,8 @@ class BlockPool:
         * the null block stays pinned;
         * the free list holds exactly the refcount-zero blocks, without
           duplicates, and ``used + free == n_blocks``;
-        * every allocated block's refcount equals its table occurrences;
+        * every allocated block's refcount equals its table occurrences,
+          plus one if the chaos injector seized it;
         * reservations never exceed the free list;
         * the hash registry is a bijection onto live blocks.
         """
@@ -271,10 +404,14 @@ class BlockPool:
                  f"n_blocks ({self.n_blocks})")
         occ = np.bincount(self.tables.reshape(-1),
                           minlength=self.n_blocks + 1)
+        if (self.tables == 0).sum() != occ[0]:
+            fail("table occupancy miscount")
         for phys in range(1, self.n_blocks + 1):
-            if int(self.refs[phys]) != int(occ[phys]):
+            want = int(occ[phys]) + (1 if phys in self.seized else 0)
+            if int(self.refs[phys]) != want:
                 fail(f"block {phys}: refcount {int(self.refs[phys])} != "
-                     f"{int(occ[phys])} table refs")
+                     f"{int(occ[phys])} table refs"
+                     + (" + 1 seized" if phys in self.seized else ""))
         if int(self._reserved.sum()) > len(free):
             fail(f"reservations ({int(self._reserved.sum())}) exceed the "
                  f"free list ({len(free)})")
@@ -287,5 +424,6 @@ class BlockPool:
             if self.hash_to_phys.get(key) != phys:
                 fail(f"registry asymmetry at block {phys}")
         return {"blocks": self.n_blocks, "used": self.used(),
-                "free": len(free), "registered": len(self.hash_to_phys),
+                "free": len(free), "seized": len(self.seized),
+                "registered": len(self.hash_to_phys),
                 "reserved": self.reserved()}

@@ -12,11 +12,11 @@ A cache is a plain dict of tensors with the reference's key names
 ``(B, S, H_kv, ...)``; ``length`` is per-slot ``(B,)`` int32.
 
 Unlike the reference, :func:`decode_append`,
-:func:`prefill_chunk_append`, :func:`reset_slot`,
-:func:`insert_slot`, :func:`pool_insert_blocks` and :func:`pool_copy_block`
-update the tensors **in place** (and return the same dict), so a layer's
-cache may be a view into a layer-stacked buffer.  :func:`prefill`
-allocates a fresh cache.
+:func:`prefill_chunk_append`, :func:`reset_slot`, :func:`insert_slot`,
+:func:`pool_insert_blocks`, :func:`pool_copy_block` and
+:func:`pool_write_blocks` update the tensors **in place** (and return the
+same dict), so a layer's cache may be a view into a layer-stacked buffer.
+:func:`prefill` allocates a fresh cache.
 
 The pooled layout (DESIGN.md §9) keeps the packed planes in a shared pool
 of physical blocks ``(NP + 1, BT, H_kv, ...)`` (block 0 is the never-read
@@ -28,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -210,6 +211,115 @@ def pool_copy_block(cache: Cache, pairs, pool_axis: int = 0) -> Cache:
         p = _pairs(pairs, v.device)
         v[sel + (p[:, 1],)] = v[sel + (p[:, 0],)]
     return cache
+
+
+def _plane_items(cache: Cache):
+    return [(k, v) for k, v in cache.items() if is_plane_key(k)]
+
+
+def _block_layout(items, pool_axis: int):
+    """(key, numpy dtype, per-block shape, bytes) of every plane leaf, in
+    order: the byte layout of one block in a host staging row."""
+    out = []
+    for key, v in items:
+        shape = tuple(v.shape[:pool_axis]) + tuple(v.shape[pool_axis + 1:])
+        out.append((key, torch.empty((), dtype=v.dtype).numpy().dtype, shape,
+                    math.prod(shape) * v.element_size()))
+    return out
+
+
+def pool_block_bytes(cache: Cache, pool_axis: int = 0) -> int:
+    """Bytes of one physical block across every plane leaf (a staging
+    row of :func:`pool_read_blocks`)."""
+    return sum(nb for *_, nb in _block_layout(_plane_items(cache), pool_axis))
+
+
+def pool_read_blocks(cache: Cache, phys, pool_axis: int = 0,
+                     stage: Optional[torch.Tensor] = None) -> list:
+    """Physical blocks ``phys`` of every packed-plane leaf, as host numpy
+    arrays: one ``{plane_key: (..., BT, H, W)}`` dict per block, the pool
+    axis removed (the leading layer axis of ``pool_axis=1`` leaves kept).
+    The device->host read of the spill tier (DESIGN.md §11): the blocks of
+    every leaf are gathered into one byte buffer on the device and cross
+    to the host in ONE copy, into ``stage`` (a pinned uint8 buffer of at
+    least ``len(phys) * pool_block_bytes`` bytes) when given, else into
+    fresh pageable memory.  Each block then gets one host allocation of
+    its own, which its leaves view."""
+    items = _plane_items(cache)
+    n = len(phys)
+    if n == 0:
+        return []
+    idx = torch.as_tensor(list(phys), dtype=torch.int64,
+                          device=items[0][1].device)
+    sel = (slice(None),) * pool_axis
+    flat = torch.cat([v[sel + (idx,)].movedim(pool_axis, 0).contiguous()
+                      .view(torch.uint8).reshape(n, -1) for _, v in items],
+                     dim=1)
+    if stage is not None:
+        host = stage[:flat.numel()].view(flat.shape)
+        host.copy_(flat)
+    else:
+        host = flat.cpu()
+    raw = host.numpy()
+    layout = _block_layout(items, pool_axis)
+    out = []
+    for i in range(n):
+        row = raw[i].copy()
+        blk, off = {}, 0
+        for key, dtype, shape, nb in layout:
+            blk[key] = row[off:off + nb].view(dtype).reshape(shape)
+            off += nb
+        out.append(blk)
+    return out
+
+
+def pool_read_block(cache: Cache, phys: int, pool_axis: int = 0) -> dict:
+    """One physical block of every packed-plane leaf as host numpy arrays
+    (DESIGN.md §11; :func:`pool_read_blocks` of one block)."""
+    return pool_read_blocks(cache, [phys], pool_axis)[0]
+
+
+def pool_write_blocks(cache: Cache, blocks, phys, pool_axis: int = 0,
+                      stage: Optional[torch.Tensor] = None) -> Cache:
+    """In place: write host blocks (dicts as :func:`pool_read_blocks`
+    returns them) back into physical blocks ``phys`` of every plane leaf,
+    byte for byte: the host->device restore of the spill tier (DESIGN.md
+    §11).  The blocks are packed into one host byte buffer (``stage``, a
+    pinned uint8 buffer, when given) and cross in ONE host->device copy,
+    synchronous, so the host buffer is free again on return; the leaves
+    are written in place, so a captured graph's addresses hold."""
+    items = _plane_items(cache)
+    n = len(phys)
+    if n == 0:
+        return cache
+    layout = _block_layout(items, pool_axis)
+    width = sum(nb for *_, nb in layout)
+    host = (stage[:n * width].view(n, width) if stage is not None
+            else torch.empty((n, width), dtype=torch.uint8))
+    raw = host.numpy()
+    for i, blk in enumerate(blocks):
+        off = 0
+        for key, _, _, nb in layout:
+            raw[i, off:off + nb] = np.ascontiguousarray(
+                blk[key]).reshape(-1).view(np.uint8)
+            off += nb
+    dev = items[0][1].device
+    buf = host.to(dev)
+    idx = torch.as_tensor(list(phys), dtype=torch.int64, device=dev)
+    sel = (slice(None),) * pool_axis
+    off = 0
+    for (key, v), (_, _, shape, nb) in zip(items, layout):
+        leaf = buf[:, off:off + nb].contiguous().view(v.dtype)
+        v[sel + (idx,)] = leaf.reshape((n,) + shape).movedim(0, pool_axis)
+        off += nb
+    return cache
+
+
+def pool_write_block(cache: Cache, block: dict, phys: int,
+                     pool_axis: int = 0) -> Cache:
+    """In place: restore one spilled block into physical block ``phys``
+    (DESIGN.md §11; :func:`pool_write_blocks` of one block)."""
+    return pool_write_blocks(cache, [block], [phys], pool_axis)
 
 
 def pool_block_nbytes(n_kv: int, head_dim: int, policy: QuantPolicy,

@@ -42,10 +42,27 @@ TTFT/TPOT percentiles + goodput under the ``--sla-ttft-ms`` /
         --device cpu --open-loop --warmup --async-host --arrival-rate 8 \
         --requests 8 --prompt-len 40 --prompt-jitter 16 --new-tokens 12 \
         --pool-blocks 64 --sla-ttft-ms 2000 --sla-tpot-ms 500
+
+Degradation knobs (DESIGN.md §11), as in the reference CLI:
+``--deadline-ms`` ends requests that outstay their budget,
+``--priority-mix`` assigns priority levels (under pool pressure a
+higher-priority request preempts strictly-lower running slots, which
+requeue and replay bit-identically), ``--host-spill-mb`` turns on the
+host-RAM block spill tier, and ``--chaos {pool,nan,crash,timeout}`` runs a
+seeded fault-injection trace (``--chaos-events``, ``--chaos-seed``).
+Every run ends with the degradation summary and the invariant audit; a
+failed audit exits non-zero:
+
+    python -m repro_torch.launch.serve --arch llama3p2_1b --smoke \
+        --device cpu --batch 2 --requests 6 --prompt-len 24 \
+        --new-tokens 8 --prefill-chunk 8 --pool-blocks 24 \
+        --pool-block-tokens 8 --priority-mix 0,0,1 --host-spill-mb 16 \
+        --chaos pool
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -59,8 +76,9 @@ from ..data import SyntheticCorpus
 from ..device import resolve_device
 from ..kernels import launch_counts
 from ..models import transformer as T
-from ..serving import (Engine, MetricsRecorder, Request, WorkloadSpec,
-                       poisson_trace, run_open_loop)
+from ..serving import (ChaosSpec, Engine, FaultInjector, MetricsRecorder,
+                       Request, WorkloadSpec, chaos_trace, poisson_trace,
+                       run_open_loop)
 
 
 def _pct(xs, q):
@@ -102,6 +120,65 @@ def _schedule(args, cfg, policy) -> PolicySchedule:
             policy, ((4.0, 4.0), (args.bits_k, args.bits_v),
                      (args.bits_k, args.bits_v)), cfg.n_layers)
     return as_schedule(policy, cfg.n_layers)
+
+
+def _priority_mix(args):
+    """``--priority-mix`` as the tuple of levels requests cycle through
+    (closed loop) or are sampled from (open loop; DESIGN.md §11)."""
+    try:
+        mix = tuple(int(x) for x in args.priority_mix.split(","))
+    except ValueError:
+        raise SystemExit(f"--priority-mix must be comma-separated ints, "
+                         f"got {args.priority_mix!r}")
+    if not mix:
+        raise SystemExit("--priority-mix must name at least one level")
+    return mix
+
+
+def _chaos_injector(args, horizon_ticks=64):
+    """The seeded :class:`FaultInjector` of ``--chaos`` (DESIGN.md §11),
+    or None when chaos is off."""
+    if args.chaos == "none":
+        return None
+    spec = ChaosSpec(n_events=args.chaos_events, kinds=(args.chaos,),
+                     horizon_ticks=horizon_ticks, seed=args.chaos_seed)
+    events = chaos_trace(spec)
+    print(f"chaos: {len(events)} '{args.chaos}' events at ticks "
+          f"{[e.tick for e in events]} (seed {args.chaos_seed})")
+    return FaultInjector(events)
+
+
+def _degradation_summary(eng, inj=None):
+    """The degradation ladder's report and the invariant audit (DESIGN.md
+    §11): preempted, shed, deadline-missed and cancelled requests, blocks
+    spilled and restored, NaN quarantines, watchdog trips, the injector's
+    accounting when chaos is on; a failed audit exits non-zero."""
+    st = eng.stats()
+    c = st["counters"]
+    print("degradation summary (DESIGN.md §11):")
+    print(f"  preempted={c['preemptions']} shed={c['shed']} "
+          f"deadline_misses={c['deadline_misses']} "
+          f"cancelled={c['cancelled']} "
+          f"nan_quarantines={c['nan_quarantines']} "
+          f"watchdog_trips={c['watchdog_trips']} "
+          f"pool_stalls={c['pool_exhausted_stalls']}")
+    if "host_spill" in st:
+        t = st["host_spill"]
+        print(f"  host spill: {c['spilled_blocks']} spilled / "
+              f"{c['restored_blocks']} restored "
+              f"({t['bytes']}/{t['budget_bytes']} B resident, "
+              f"{t['evicted']} LRU-evicted, {t['rejected']} rejected)")
+    if inj is not None:
+        s = inj.stats()
+        print(f"  chaos: {s['injected']} injected, {s['skipped']} skipped, "
+              f"{s['active_holds']} holds outstanding")
+    try:
+        eng.check_invariants()
+        print("  invariant audit: PASS (no leaked blocks)")
+    except RuntimeError as e:
+        eng.close(drain=False)
+        print(f"FAIL: invariant audit: {e}", file=sys.stderr)
+        raise SystemExit(1)
 
 
 def main(argv=None):
@@ -176,6 +253,29 @@ def main(argv=None):
                     help="TTFT SLA bound for the goodput report, ms")
     ap.add_argument("--sla-tpot-ms", type=float, default=None,
                     help="TPOT SLA bound for the goodput report, ms")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline (DESIGN.md §11): a request "
+                         "still queued or running this many ms after submit "
+                         "finishes 'deadline' and frees its blocks")
+    ap.add_argument("--priority-mix", default="0",
+                    help="comma-separated priority levels assigned to "
+                         "requests (DESIGN.md §11); under pool pressure a "
+                         "higher-priority request preempts strictly-lower-"
+                         "priority running slots (e.g. '0,0,1')")
+    ap.add_argument("--host-spill-mb", type=float, default=0,
+                    help="host-RAM spill tier byte budget (DESIGN.md §11): "
+                         "cold pool blocks spill to host arrays and restore "
+                         "on demand (0 = off; needs the pool)")
+    ap.add_argument("--chaos", default="none",
+                    choices=("none", "pool", "nan", "crash", "timeout"),
+                    help="seeded fault injection (DESIGN.md §11): pool "
+                         "exhaustion bursts, NaN-logit quarantine, host-"
+                         "loop consumer crashes, or simulated device-step "
+                         "timeouts")
+    ap.add_argument("--chaos-events", type=int, default=4,
+                    help="number of chaos events to schedule")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="chaos trace seed (same seed, same fault ticks)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -193,6 +293,7 @@ def main(argv=None):
     corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
     rng = np.random.default_rng(args.seed)
     jit = args.max_new_jitter
+    mix = _priority_mix(args)
     reqs = []
     for i in range(n_req):
         max_new = max(1, args.new_tokens + (int(rng.integers(-jit, jit + 1))
@@ -204,7 +305,8 @@ def main(argv=None):
         prompt = corpus.sample(plen, np.random.default_rng(i))
         reqs.append(Request(prompt=prompt, max_new=max_new,
                             temperature=args.temperature, eos_id=args.eos_id,
-                            seed=i))
+                            deadline_ms=args.deadline_ms,
+                            priority=mix[i % len(mix)], seed=i))
     max_len = (args.prompt_len + args.prompt_jitter + args.new_tokens + jit
                + args.steps_per_sync)
     pooled = bool(args.pool_blocks or args.pool_memory_mb)
@@ -217,6 +319,7 @@ def main(argv=None):
                    for p in schedule.distinct()):
                 break
             max_len += 1
+    inj = _chaos_injector(args)
     eng = Engine(params, cfg, schedule, batch_slots=args.batch,
                  max_len=max_len,
                  backend=args.backend, steps_per_sync=args.steps_per_sync,
@@ -224,14 +327,15 @@ def main(argv=None):
                  pool_blocks=args.pool_blocks or None,
                  pool_block_tokens=args.pool_block_tokens,
                  pool_memory_bytes=int(args.pool_memory_mb * 2 ** 20) or None,
-                 async_host=args.async_host, device=dev)
+                 host_spill_bytes=int(args.host_spill_mb * 2 ** 20) or None,
+                 async_host=args.async_host, faults=inj, device=dev)
     if args.warmup:
         rep = eng.warmup()
         print(f"warmup: {rep['n_graphs']} CUDA graph(s) captured in "
               f"{rep['capture_s']:.2f}s, kernels loaded in "
               f"{rep['build_s']:.2f}s, rehearsal {rep['rehearse_s']:.2f}s")
     if args.open_loop:
-        return _open_loop(eng, args, cfg, n_req, policy)
+        return _open_loop(eng, args, cfg, n_req, policy, inj)
     t0 = time.perf_counter()
     handles = [eng.submit(r) for r in reqs]
     eng.run(handles)
@@ -257,6 +361,10 @@ def main(argv=None):
     info = eng.backend_info
     print(f"backend: name={info['name']} kernels={info['kernels']} "
           f"launches={launch_counts()}")
+    reasons = {}
+    for h in handles:
+        reasons[h.finish_reason] = reasons.get(h.finish_reason, 0) + 1
+    print(f"finish reasons: {reasons}")
     print(f"served {n_req} requests / {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s aggregate)")
     print(f"latency ms/request: p50={_pct(lat, 50):.0f} "
@@ -271,7 +379,6 @@ def main(argv=None):
               f"{eng.prefill_shapes}")
     if pooled:
         st = eng.stats()
-        eng.check_invariants()
         print(f"pool: {st['pool_blocks']} blocks x "
               f"{st['pool_block_tokens']} tok, peak used {st['peak_used']} "
               f"({st['peak_resident_bytes']} B packed vs "
@@ -285,11 +392,12 @@ def main(argv=None):
           f"({fp16_b / q_b:.1f}x compression)")
     if handles[0].tokens:
         print("sample:", handles[0].tokens[:16])
+    _degradation_summary(eng, inj)
     eng.close()
     return handles
 
 
-def _open_loop(eng, args, cfg, n_req, policy):
+def _open_loop(eng, args, cfg, n_req, policy, inj=None):
     """Open-loop serving run + SLA goodput report (DESIGN.md §10): a
     seeded Poisson trace from the CLI's prompt/max-new knobs, driven on
     the wall clock; prints offered vs achieved load, TTFT/TPOT/e2e
@@ -308,7 +416,8 @@ def _open_loop(eng, args, cfg, n_req, policy):
         prompt_lens=plens, max_news=mnews, temperature=args.temperature,
         eos_id=args.eos_id, shared_prefix_ratio=args.shared_prefix_ratio,
         shared_prefix_len=min(plens) // 2 if args.shared_prefix_ratio else 0,
-        vocab=cfg.vocab_size, seed=args.seed)
+        vocab=cfg.vocab_size, deadline_ms=args.deadline_ms,
+        priorities=_priority_mix(args), seed=args.seed)
     rec = MetricsRecorder()
     handles, makespan = run_open_loop(eng, poisson_trace(spec), rec)
     s = rec.summary(sla_ttft_ms=args.sla_ttft_ms,
@@ -341,9 +450,7 @@ def _open_loop(eng, args, cfg, n_req, policy):
               f"ok ({100 * g['attainment']:.0f}%), "
               f"{g['goodput_rps']:.2f} req/s, {g['goodput_tok_s']:.1f} tok/s")
     print(f"  finish reasons: {s.get('finish_reasons', {})}")
-    if st["pooled"]:
-        eng.check_invariants()
-        print("  pool invariant audit: PASS")
+    _degradation_summary(eng, inj)
     if args.warmup:
         rep = eng.warmup_report()
         if rep["post_warmup_misses"]:

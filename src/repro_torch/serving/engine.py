@@ -45,17 +45,33 @@ demand, a copy-on-write pass before every decode chunk makes private the
 blocks its ring evictions will write, and decode attends through the
 block-table mode of the decode_attn kernel.
 
+The degradation ladder and fault model of DESIGN.md §11: requests carry
+a ``deadline_ms`` and a ``priority``, and a handle can ``cancel()``; a
+deadline, a cancel or a NaN quarantine ends one stream with a structured
+:class:`FinishReason` and frees its blocks in the same tick.  Under pool
+pressure the queue head (ordered by priority, then arrival) preempts
+strictly-lower-priority slots, youngest first; a victim requeues and is
+recomputed from its prompt, and the replay filter asserts that the tokens
+it regenerates equal those already delivered.  With ``host_spill_bytes``
+a registered block whose last reference drops parks its bytes in an LRU
+host tier (:class:`~repro_torch.core.block_pool.HostSpillTier`) and a
+later admission of the same content restores them instead of inserting
+them from its prefill.  A watchdog sheds everything after
+``watchdog_max_trips`` consecutive decode chunks over ``step_timeout_s``,
+and ``faults=`` (``serving/faults.py``) injects the seeded chaos of the
+reference at exact scheduler ticks.  ``detokenize`` grows
+``handle.text`` in the synchronous loop and on the host loop.
+
 Greedy streams match the reference engine token for token.  Sampling
 (temperature > 0) uses a per-slot ``torch.Generator`` seeded from the
 engine and request seeds, so a stream is reproducible per seed but is not
-``jax.random``'s.  The host spill tier, preemption, deadlines, chaos
-injection, detokenization and the rest of the degradation ladder of the
-reference are not ported yet; the Engine does not accept their
-arguments.
+``jax.random``'s; a resumed request gets a fresh generator and redraws the
+rows it drew before, so its replay is bit-identical too.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
 import warnings
@@ -66,7 +82,7 @@ import torch
 
 from ..core import kv_cache as kvc
 from ..core import segments as seg
-from ..core.block_pool import BlockPool, prefix_block_keys
+from ..core.block_pool import BlockPool, HostSpillTier, prefix_block_keys
 from ..core.policy import QuantPolicy, as_schedule
 from ..device import resolve_device
 from ..models.config import ArchConfig
@@ -97,7 +113,8 @@ def sample_per_slot(logits: torch.Tensor, temps: torch.Tensor,
 
 def decode_one(params, cfg: ArchConfig, policy, token, caches, done, bad,
                live, temps, eos, uniforms: Optional[torch.Tensor] = None,
-               calib=None, backend=None):
+               calib=None, backend=None,
+               nan_inject: Optional[torch.Tensor] = None):
     """One decode step with per-slot sampling and EOS pinning, all on the
     device: the body of :func:`multi_decode` (the reference's scan body),
     and what :meth:`Engine.warmup` captures as a CUDA graph (DESIGN.md
@@ -110,10 +127,19 @@ def decode_one(params, cfg: ArchConfig, policy, token, caches, done, bad,
     ``live`` counts tokens emitted before pinning (the EOS token
     included); a slot whose logits go non-finite raises ``bad``, samples
     from zeroed logits and pins ``done``.  ``caches`` are updated in
-    place."""
+    place.
+
+    ``nan_inject`` (B,) bool is the per-slot NaN guard's test hook
+    (DESIGN.md §11): a flagged row's logits become NaN before the ``bad``
+    test, the path a numerically misbehaving model would take.  With
+    every flag False the ``where`` is the identity, so the guarded step is
+    bitwise the unguarded one (None leaves the guard out)."""
     logits, _ = T.decode_step(params, cfg, token, caches, policy,
                               calib=calib, backend=backend)
     row = logits[:, -1].to(torch.float32)
+    if nan_inject is not None:
+        row = torch.where(nan_inject[:, None],
+                          torch.full_like(row, float("nan")), row)
     bad = bad | ~torch.isfinite(row).all(dim=-1)
     safe = torch.where(bad[:, None], torch.zeros_like(row), row)
     nxt = sample_per_slot(safe, temps, uniforms)
@@ -126,12 +152,14 @@ def decode_one(params, cfg: ArchConfig, policy, token, caches, done, bad,
 
 def multi_decode(params, cfg: ArchConfig, policy, n_tokens: int, token,
                  caches, done, temps, eos, calib=None, backend=None,
-                 uniforms: Optional[Callable] = None):
+                 uniforms: Optional[Callable] = None,
+                 nan_inject: Optional[torch.Tensor] = None):
     """``n_tokens`` eager :func:`decode_one` steps (DESIGN.md §6; the
     reference's scanned multi-decode).
 
     token (B, 1), done (B,) bool, temps (B,) f32, eos (B,) (< 0 disables
-    EOS for that slot).  ``uniforms()`` returns (B, V) draws or None.
+    EOS for that slot).  ``uniforms()`` returns (B, V) draws or None;
+    ``nan_inject`` is the (B,) NaN guard of every step (DESIGN.md §11).
     Returns (tokens (B, n), token, caches, done, bad, live).  ``caches``
     are updated in place."""
     b = token.shape[0]
@@ -142,7 +170,7 @@ def multi_decode(params, cfg: ArchConfig, policy, n_tokens: int, token,
         nxt, done, bad, live = decode_one(
             params, cfg, policy, token, caches, done, bad, live, temps, eos,
             None if uniforms is None else uniforms(), calib=calib,
-            backend=backend)
+            backend=backend, nan_inject=nan_inject)
         token = nxt[:, None]
         out.append(nxt)
     return torch.stack(out, dim=1), token, caches, done, bad, live
@@ -151,50 +179,116 @@ def multi_decode(params, cfg: ArchConfig, policy, n_tokens: int, token,
 # ------------------------------------------------------------------ requests
 
 class FinishReason:
-    """Stream-termination reasons (DESIGN.md §11); the port's main path
-    ends streams with ``eos``, ``length`` or ``shed`` (non-finite logits)."""
+    """Stream-termination taxonomy (DESIGN.md §11).
+
+    Every stream ends with exactly one *terminal* reason: ``OK`` (generic
+    success, for tooling), ``EOS``, ``LENGTH`` (max_new), ``DEADLINE``
+    (``Request.deadline_ms`` expired, queued or running), ``CANCELLED``
+    (``StreamHandle.cancel()``) or ``SHED`` (dropped by the engine: NaN
+    quarantine or watchdog abort).  ``PREEMPTED`` is an *event*, not a
+    terminal state: a preempted request requeues, is recomputed from its
+    prompt and still ends with a terminal reason; the event is recorded in
+    ``StreamHandle.events``.  The no-hung-streams invariant is
+    ":meth:`valid` for every handle"."""
+    OK = "ok"
     EOS = "eos"
     LENGTH = "length"
+    DEADLINE = "deadline"
+    CANCELLED = "cancelled"
+    PREEMPTED = "preempted-requeued"
     SHED = "shed"
+    TERMINAL = frozenset({OK, EOS, LENGTH, DEADLINE, CANCELLED, SHED})
+
+    @classmethod
+    def valid(cls, reason) -> bool:
+        """True iff ``reason`` is a terminal FinishReason (DESIGN.md §11)."""
+        return reason in cls.TERMINAL
 
 
 @dataclasses.dataclass
 class Request:
     """One generation job (DESIGN.md §6): prompt (1-D token ids), max_new
     budget, temperature (<= 0 greedy), optional eos_id, and a seed for the
-    request's own sampling stream."""
+    request's own sampling stream.
+
+    ``deadline_ms`` and ``priority`` are the degradation-ladder knobs of
+    DESIGN.md §11: a request still queued or running ``deadline_ms`` after
+    submit (on the engine clock) ends ``deadline`` and frees its blocks at
+    once; under pool pressure the queue head preempts running requests of
+    *strictly lower* priority (larger = more important)."""
     prompt: Sequence[int]
     max_new: int = 32
     temperature: float = 0.0
     eos_id: Optional[int] = None
     seed: int = 0
+    deadline_ms: Optional[float] = None
+    priority: int = 0
 
 
 class StreamHandle:
     """Live view of one submitted request (DESIGN.md §6): ``tokens`` grows
     after every sync (with ``async_host``, as the host loop delivers;
-    DESIGN.md §10); ``finished``/``finish_reason`` flip at EOS or the
-    max_new budget; submit/admit/first-token/finish marks come from the
-    engine clock."""
+    DESIGN.md §10); ``finished``/``finish_reason`` flip at a terminal
+    :class:`FinishReason`; submit/admit/first-token/finish marks come from
+    the engine clock (the first token's mark survives preemptions).
+    ``preempted`` counts evictions, ``events`` records them (DESIGN.md
+    §11)."""
 
     def __init__(self, request: Request, rid: int,
                  now: Optional[float] = None):
         self.request = request
         self.rid = rid
         self.tokens: List[int] = []
+        self.text = ""                     # grows when a detokenizer is set
         self.finished = False
         self.finish_reason: Optional[str] = None
         self.submit_time = now
         self.admit_time: Optional[float] = None
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
-        self.text = ""                     # the host loop's detokenize hook
+        self.preempted = 0                 # times evicted + requeued (§11)
+        self.events: List[str] = []        # non-terminal lifecycle events
         self._sched_consumed = 0           # tokens the scheduler committed
         self._sched_fin: Optional[str] = None  # scheduler's finish verdict
+        self._cancel = False               # set by cancel(); acted on in step
+        self._t_submit: Optional[float] = None  # deadline epoch (engine clock)
+        self._replay_len = 0               # delivered tokens to replay (§11)
+        self._replay_cursor = 0
+
+    def cancel(self) -> None:
+        """Cooperative cancellation (DESIGN.md §11): the engine ends the
+        stream ``cancelled`` at its next tick; a queued request never takes
+        a slot, a running one frees its blocks at once.  Idempotent; a
+        no-op once the stream has finished."""
+        self._cancel = True
 
     def result(self) -> np.ndarray:
         """The generated tokens so far as a 1-D int32 array."""
         return np.asarray(self.tokens, np.int32)
+
+    def _absorb_replay(self, tokens) -> List[int]:
+        """Replay filter (DESIGN.md §11): a preempted request is recomputed
+        from its prompt, so the device regenerates tokens already
+        delivered.  They must equal what the stream holds (raises
+        otherwise) and are dropped; only the new suffix is returned."""
+        if self._replay_cursor >= self._replay_len:
+            return [int(t) for t in tokens]
+        fresh: List[int] = []
+        for t in tokens:
+            t = int(t)
+            if self._replay_cursor < self._replay_len:
+                want = self.tokens[self._replay_cursor]
+                if t != want:
+                    raise RuntimeError(
+                        f"preemption replay diverged for rid={self.rid}: "
+                        f"position {self._replay_cursor} regenerated {t} "
+                        f"but {want} was already delivered — "
+                        f"recompute-from-prompt must be bit-identical "
+                        f"(DESIGN.md §11)")
+                self._replay_cursor += 1
+            else:
+                fresh.append(t)
+        return fresh
 
     def __repr__(self):
         state = self.finish_reason if self.finished else "running"
@@ -277,6 +371,19 @@ class Engine:
     kernel libraries loaded, caches allocated, one decode step captured
     as a CUDA graph that every later chunk replays, one throwaway request
     rehearsed, every counter restored; ``warmup_report()`` accounts for it.
+
+    The degradation ladder (DESIGN.md §11): ``host_spill_bytes`` (pooled
+    engines only) bounds the LRU host tier that cold registered blocks
+    spill to; ``faults`` is a
+    :class:`~repro_torch.serving.faults.FaultInjector` (off during
+    warmup); ``step_timeout_s`` arms the watchdog, which sheds every
+    stream after ``watchdog_max_trips`` consecutive chunks over it (wall
+    time, device work included, plus any injected delay); ``detokenize``
+    (``tokens -> str``) grows ``handle.text``.  ``stats()["counters"]``
+    counts preemptions, spilled and restored blocks, deadline misses,
+    cancels, sheds, NaN quarantines and watchdog trips, and
+    ``stats()["host_spill"]`` the tier; ``check_invariants()`` audits the
+    tier with the pools.
     """
 
     def __init__(self, params, cfg: ArchConfig, policy, batch_slots: int,
@@ -287,7 +394,11 @@ class Engine:
                  pool_block_tokens: int = 16,
                  pool_memory_bytes: Optional[int] = None,
                  async_host: bool = False, host_queue: int = 8,
-                 clock: Optional[Callable[[], float]] = None, device=None):
+                 detokenize: Optional[Callable] = None,
+                 host_spill_bytes: Optional[int] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 faults=None, step_timeout_s: Optional[float] = None,
+                 watchdog_max_trips: int = 2, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if max_len < 1:
@@ -346,16 +457,45 @@ class Engine:
         self._tick = 0
         self._last_stall_tick = -1                # one stall count per tick
         self._counters = {"admitted": 0, "queue_wait_ticks": 0,
-                          "pool_exhausted_stalls": 0}
+                          "pool_exhausted_stalls": 0, "preemptions": 0,
+                          "spilled_blocks": 0, "restored_blocks": 0,
+                          "deadline_misses": 0, "cancelled": 0, "shed": 0,
+                          "nan_quarantines": 0, "watchdog_trips": 0}
+
+        # ----- degradation ladder + fault model (DESIGN.md §11) -----
+        if step_timeout_s is not None and step_timeout_s <= 0:
+            raise ValueError(f"step_timeout_s must be > 0, "
+                             f"got {step_timeout_s}")
+        if watchdog_max_trips < 1:
+            raise ValueError(f"watchdog_max_trips must be >= 1, "
+                             f"got {watchdog_max_trips}")
+        self._faults = faults
+        self.step_timeout_s = step_timeout_s
+        self.watchdog_max_trips = int(watchdog_max_trips)
+        self._watchdog_consec = 0
+        self._wedged = False
+        self._admit_seq = 0               # activation order, for victims
+        self._slot_seq = np.zeros((b,), np.int64)
+        self._nan_inject = np.zeros((b,), bool)
+        self._nan_dev: Optional[torch.Tensor] = None  # static (B,) guard
+        # slot -> {(group, bkey): [(phys, key, arrays)]} restored at
+        # activation, before the pool insert
+        self._pending_restore: Dict[int, dict] = {}
+        self._spill: Optional[HostSpillTier] = (
+            HostSpillTier(host_spill_bytes) if host_spill_bytes else None)
+        self._evicted: List[tuple] = []   # (group, bkey, key, phys) to spill
+        self._stage: Optional[torch.Tensor] = None   # pinned spill staging
 
         # ----- warmup graph cache + async host loop (DESIGN.md §10) -----
         self._graphs = GraphCache(self.device, clock=self._clock)
         self._unif: Optional[torch.Tensor] = None  # static (B, V) uniforms
         self._warm_s: Dict[str, Optional[float]] = {
             "build_s": None, "prefill_s": None, "rehearse_s": None}
+        self._detok = detokenize
         self._host: Optional[HostLoop] = HostLoop(
-            self._finish, max_queue=host_queue, clock=self._clock) \
-            if async_host else None
+            self._finish, detokenize, max_queue=host_queue,
+            fault_hook=getattr(faults, "on_consume", None),
+            clock=self._clock) if async_host else None
         self._ring: List[torch.Tensor] = []     # async token buffers
         self._ring_free: List[threading.Event] = []
         self._ring_next = 0
@@ -380,6 +520,11 @@ class Engine:
                 f"pool_memory_bytes={pool_memory_bytes}", stacklevel=2)
         if self.pool_blocks is not None:
             self._init_pool()
+        if self._spill is not None and not self._pools:
+            raise ValueError(
+                "host_spill_bytes requires the paged block pool "
+                "(set pool_blocks or pool_memory_bytes): only pooled "
+                "packed blocks spill to host RAM — DESIGN.md §11")
 
     # ------------------------------------------------------ pool set-up (§9)
 
@@ -451,8 +596,12 @@ class Engine:
         self._pools, self._pool_bands = {}, []
         for group, bkey, bs, be, pol, nb, nbytes in \
                 self._enumerate_pool_bands():
-            self._pools[(group, bkey)] = BlockPool(
-                self.pool_blocks, self.batch_slots, nb, block_nbytes=nbytes)
+            pool = BlockPool(self.pool_blocks, self.batch_slots, nb,
+                             block_nbytes=nbytes)
+            if self._spill is not None:
+                pool.on_evict = functools.partial(self._note_evict, group,
+                                                  bkey)
+            self._pools[(group, bkey)] = pool
             self._pool_bands.append((group, bkey, bs, be, pol, nb))
 
     # ------------------------------------------------------------ public API
@@ -569,13 +718,14 @@ class Engine:
         if self._unif is None:
             self._unif = torch.zeros((b, self.cfg.vocab_size),
                                      dtype=torch.float32, device=dev)
+            self._nan_dev = torch.zeros((b,), dtype=torch.bool, device=dev)
         static = (torch.zeros((b, 1), dtype=torch.int64, device=dev),
                   torch.ones((b,), dtype=torch.bool, device=dev),
                   torch.zeros((b,), dtype=torch.bool, device=dev),
                   torch.zeros((b,), dtype=torch.int32, device=dev),
                   torch.zeros((b,), dtype=torch.float32, device=dev),
                   torch.full((b,), -1, dtype=torch.int64, device=dev),
-                  self._unif)
+                  self._unif, self._nan_dev)
         self._graphs.warm("decode_step", self._step, static)
         self._restore()
         t0 = self._clock()
@@ -596,7 +746,11 @@ class Engine:
         self._warm_s["prefill_s"] = self._clock() - t0
         if rehearse:
             t0 = self._clock()
-            self._rehearse()
+            faults, self._faults = self._faults, None   # no chaos in warmup
+            try:
+                self._rehearse()
+            finally:
+                self._faults = faults
             self._restore()
             self._warm_s["rehearse_s"] = self._clock() - t0
         self._graphs.warmed = True
@@ -631,13 +785,21 @@ class Engine:
 
     def _restore(self):
         """Zero the caches in place (the graph is bound to them) and start
-        the pool, every counter and the host loop's accounting afresh."""
+        the pool, the host spill tier (the rehearsal's spills do not
+        count), every counter and the host loop's accounting afresh."""
         _zero(self._caches)
+        if self._spill is not None:
+            self._spill = HostSpillTier(self._spill.budget_bytes)
         if self._pools:
             self._init_pool()     # fresh free lists, registries, counters
         self._next_rid = 0
         self._tick = 0
         self._last_stall_tick = -1
+        self._watchdog_consec = 0
+        self._wedged = False
+        self._nan_inject[:] = False
+        self._pending_restore.clear()
+        self._evicted.clear()
         self._stall_reason = None
         self.n_decode_steps = 0
         self._graphs.replays = 0
@@ -664,6 +826,12 @@ class Engine:
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
             raise ValueError(f"Request.prompt token ids must lie in "
                              f"[0, {self.cfg.vocab_size})")
+        if request.deadline_ms is not None and request.deadline_ms <= 0:
+            raise ValueError(f"Request.deadline_ms must be > 0 (or None "
+                             f"for no deadline), got {request.deadline_ms}")
+        if request.priority != int(request.priority):
+            raise ValueError(f"Request.priority must be an integer, "
+                             f"got {request.priority!r}")
         if prompt.size + request.max_new > self.max_len:
             raise ValueError(
                 f"Request.prompt length ({prompt.size}) + Request.max_new "
@@ -683,17 +851,26 @@ class Engine:
                     f"shorten the request — it could never be admitted")
         request = dataclasses.replace(request, prompt=prompt)
         handle = StreamHandle(request, self._next_rid, now=self._clock())
+        handle._t_submit = handle.submit_time   # deadline epoch
         self._next_rid += 1
         self._queue.append(handle)
         return handle
 
     def step(self) -> bool:
-        """One scheduler tick: retire -> admit -> [one prefill chunk] ->
-        one decode chunk (DESIGN.md §6, §7).  In chunked mode at most one
-        prefill chunk runs a tick, before the decode chunk of the active
-        slots.  False when there is nothing left to do; a queue that waits
-        for pool blocks, or a prefill in flight, keeps returning True."""
+        """One scheduler tick: faults -> lifecycle -> retire -> admit ->
+        [one prefill chunk] -> one decode chunk (DESIGN.md §6, §7, §11).
+        In chunked mode at most one prefill chunk runs a tick, before the
+        decode chunk of the active slots.  False when there is nothing left
+        to do or the watchdog shed everything; a queue that waits for pool
+        blocks (pressure or seized blocks), or a prefill in flight, keeps
+        returning True."""
         self._tick += 1
+        tick = getattr(self._clock, "tick", None)
+        if callable(tick):
+            tick()                        # deterministic virtual clocks
+        if self._faults is not None:
+            self._faults.on_tick(self)
+        self._lifecycle()
         self._retire()
         self._admit()
         self._counters["queue_wait_ticks"] += len(self._queue)
@@ -704,6 +881,9 @@ class Engine:
             return self._prefill_job is not None or bool(self._queue)
         if any(not self._h_done(self._slot_handle[i]) for i in active):
             self._decode_chunk()
+            if self._wedged:
+                self._shed_all()          # watchdog abort: end every stream
+                return False
         self._retire()
         return True
 
@@ -739,6 +919,8 @@ class Engine:
                          p.cow_copies for p in self._pools.values()))}
         if self._host is not None:
             out["host"] = self._host.stats()
+        if self._spill is not None:
+            out["host_spill"] = self._spill.stats()
         if not self._pools:
             return out
         bands = {}
@@ -769,13 +951,18 @@ class Engine:
         return out
 
     def check_invariants(self) -> dict:
-        """Leak/consistency audit of every band's pool after a drain
-        (DESIGN.md §11): refcounts, free list, tables, reservations and
-        registry (:meth:`BlockPool.check_invariants`), keyed
-        ``"group/bkey"``.  Raises ``RuntimeError`` on the first violation;
-        ``{}`` for a striped engine."""
-        return {f"{group}/{bkey}": pool.check_invariants()
-                for (group, bkey), pool in self._pools.items()}
+        """Leak/consistency audit after a drain (DESIGN.md §11): every
+        band's pool (refcounts, free list, tables, seized holds,
+        reservations and registry; :meth:`BlockPool.check_invariants`),
+        keyed ``"group/bkey"``, and the host spill tier's byte accounting
+        under ``"host_spill"``.  Raises ``RuntimeError`` on the first
+        violation; ``{}`` for a striped engine."""
+        out = {f"{group}/{bkey}": pool.check_invariants()
+               for (group, bkey), pool in self._pools.items()}
+        if self._spill is not None:
+            self._spill.check_invariants()
+            out["host_spill"] = self._spill.stats()
+        return out
 
     # --------------------------------------------------------------- details
 
@@ -792,27 +979,223 @@ class Engine:
                 self._release_slot(i)
 
     def _release_slot(self, i: int):
-        """Free lane ``i``: host mirrors clear and the device row zeroes."""
+        """Free lane ``i``: pool blocks deref (cold registered ones spill to
+        the host tier when it is on, DESIGN.md §11), pending insert,
+        register and restore state drops (un-applied restores go back to
+        the tier), host mirrors clear and the device row zeroes.  Shared by
+        retirement, preemption, cancellation, deadline expiry and the
+        watchdog abort."""
         self._slot_handle[i] = None
         self._done[i] = True
         self._eos[i] = -1
         self._temps[i] = 0.0
         self._gens[i] = None
+        self._nan_inject[i] = False
         self._pending_insert.pop(i, None)
         self._pending_register.pop(i, None)
+        for rest in self._pending_restore.pop(i, {}).values():
+            for phys, key, arrays in rest:
+                self._spill.put(key, arrays,
+                                sum(a.nbytes for a in arrays.values()))
         for pool in self._pools.values():
             pool.release_slot(i)          # deref blocks; shared ones live on
+        self._spill_evicted()
         self._hostlen[i] = 0
         if self._caches is not None:
             kvc.reset_slot(self._caches, i, batch_axis=1)
 
+    # ------------------------------------- lifecycle + degradation (§11)
+
+    def _expired(self, h: StreamHandle, now: float) -> bool:
+        dl = h.request.deadline_ms
+        return (dl is not None and h._t_submit is not None
+                and (now - h._t_submit) * 1e3 > dl)
+
+    def _finish_now(self, h: StreamHandle, reason: str):
+        """End a stream outside the token path (deadline, cancel, shed;
+        DESIGN.md §11).  An async engine sends the verdict through the host
+        loop as a zero-token delivery (no ring buffer to release), so the
+        consumer thread stays the one writer of a stream, in FIFO order."""
+        if self._host is not None:
+            h._sched_fin = reason
+            self._host.put(TokenDelivery(
+                handles=[h], rows=[0], counts=[0], reasons=[reason],
+                tokens=np.zeros((1, 1), np.int64)))
+        else:
+            self._finish(h, reason)
+
+    def _end_for(self, h: StreamHandle):
+        """Cancel or deadline verdict of a stream leaving early, counted."""
+        if h._cancel:
+            self._counters["cancelled"] += 1
+            self._finish_now(h, FinishReason.CANCELLED)
+        else:
+            self._counters["deadline_misses"] += 1
+            self._finish_now(h, FinishReason.DEADLINE)
+
+    def _lifecycle(self):
+        """Deadline/cancel pass, once a tick (DESIGN.md §11): cancelled or
+        expired requests end with their FinishReason and free their pool
+        blocks at once; queued ones never take a slot."""
+        now = self._clock()
+        keep = []
+        for h in self._queue:
+            if h._cancel or self._expired(h, now):
+                self._end_for(h)
+            else:
+                keep.append(h)
+        self._queue = keep
+        job = self._prefill_job
+        if job is not None and (job.handle._cancel
+                                or self._expired(job.handle, now)):
+            self._end_for(job.handle)
+            self._prefill_job = None
+            self._chunk_state = job.state     # recycle the prefill buffers
+            self._release_slot(job.slot)
+        for i, h in enumerate(self._slot_handle):
+            if h is None or self._h_done(h):
+                continue
+            if h._cancel or self._expired(h, now):
+                self._end_for(h)
+                self._release_slot(i)
+
+    def _pick_victim(self, req: Request) -> Optional[int]:
+        """Victim policy (DESIGN.md §11): only slots of *strictly lower*
+        priority than the candidate are preemptible (equal priorities wait
+        FIFO: mutual eviction would livelock); lowest priority first, and
+        within a priority the last admitted (the least sunk work)."""
+        best = None
+        for i, h in enumerate(self._slot_handle):
+            if h is None or self._h_done(h):
+                continue
+            if h.request.priority >= req.priority:
+                continue
+            rank = (h.request.priority, -int(self._slot_seq[i]))
+            if best is None or rank < best[0]:
+                best = (rank, i)
+        return None if best is None else best[1]
+
+    def _preempt_slot(self, i: int):
+        """Evict slot ``i`` back to the queue for recompute-from-prompt
+        (DESIGN.md §11).  Delivered tokens stay on the handle; the resumed
+        stream regenerates them (greedy, or a fresh generator from the same
+        seeds) and the replay filter asserts the prefix matches before
+        anything new is appended.  The slot's registered blocks spill to
+        the host tier on release, so the resume can restore them.  An async
+        engine drains its host loop first, so no delivery of the slot's
+        earlier chunks is still in flight when the replay state resets."""
+        h = self._slot_handle[i]
+        if self._host is not None:
+            self._host.drain()
+        committed = (h._sched_consumed if self._host is not None
+                     else len(h.tokens))
+        h._replay_len = max(h._replay_len, committed)
+        h._replay_cursor = 0
+        h._sched_consumed = 0
+        h._sched_fin = None
+        h.preempted += 1
+        h.events.append(FinishReason.PREEMPTED)
+        self._counters["preemptions"] += 1
+        self._release_slot(i)
+        self._queue.append(h)   # re-sorted by (-priority, rid) at admission
+
+    def _plan_with_preemption(self, req: Request):
+        """Admission plan for the queue head, evicting strictly-lower
+        priority victims one at a time until it fits or none is left
+        (DESIGN.md §11)."""
+        plan = self._plan_pool_admission(req)
+        while plan is None:
+            victim = self._pick_victim(req)
+            if victim is None:
+                return None
+            self._preempt_slot(victim)
+            plan = self._plan_pool_admission(req)
+        return plan
+
+    def _shed_all(self):
+        """Watchdog abort (DESIGN.md §11): the device step is declared
+        wedged, so every queued and active stream ends ``shed`` (a valid
+        FinishReason: ``run()`` returns instead of hanging) and every pool
+        block frees."""
+        job = self._prefill_job
+        if job is not None:
+            self._prefill_job = None
+            self._chunk_state = job.state
+            self._counters["shed"] += 1
+            self._finish_now(job.handle, FinishReason.SHED)
+            self._release_slot(job.slot)
+        for i, h in enumerate(self._slot_handle):
+            if h is None:
+                continue
+            if not self._h_done(h):
+                self._counters["shed"] += 1
+                self._finish_now(h, FinishReason.SHED)
+            self._release_slot(i)
+        for h in self._queue:
+            self._counters["shed"] += 1
+            self._finish_now(h, FinishReason.SHED)
+        self._queue = []
+
+    def _watchdog(self, dt: float):
+        """Device-step watchdog (DESIGN.md §11): a decode chunk over
+        ``step_timeout_s`` (its wall time, the host's wait for the device
+        included, plus any injected delay) is a trip;
+        ``watchdog_max_trips`` consecutive trips declare the device wedged
+        and :meth:`step` sheds everything.  A healthy chunk resets the
+        streak."""
+        extra = (self._faults.take_step_delay()
+                 if self._faults is not None else 0.0)
+        if self.step_timeout_s is None:
+            return
+        if dt + extra > self.step_timeout_s:
+            self._counters["watchdog_trips"] += 1
+            self._watchdog_consec += 1
+            if self._watchdog_consec >= self.watchdog_max_trips:
+                self._wedged = True
+        else:
+            self._watchdog_consec = 0
+
+    # --------------------------------------------- host spill tier (§11)
+
+    def _note_evict(self, group: str, bkey: str, key: str, phys: int):
+        """``BlockPool.on_evict``: a registered block just reached refcount
+        0.  Its bytes are read off the device by :meth:`_spill_evicted`
+        before anything can write the block again."""
+        self._evicted.append((group, bkey, key, phys))
+
+    def _spill_evicted(self):
+        """Park the blocks a release just freed in the host tier, in the
+        order their hooks fired (DESIGN.md §11): one gathered read per band
+        (:func:`kv_cache.pool_read_blocks`, one device->host copy), then one
+        tier entry per content key."""
+        ev, self._evicted = self._evicted, []
+        if not ev or self._spill is None or self._caches is None:
+            return
+        got = {}
+        for band in dict.fromkeys((g, k) for g, k, _, _ in ev):
+            phys = [p for g, k, _, p in ev if (g, k) == band]
+            blocks = kvc.pool_read_blocks(_band(self._caches, *band), phys,
+                                          pool_axis=1,
+                                          stage=self._host_stage())
+            got[band] = iter(blocks)
+        for group, bkey, key, _ in ev:
+            arrays = next(got[(group, bkey)])
+            if self._spill.put(key, arrays,
+                               sum(a.nbytes for a in arrays.values())):
+                self._counters["spilled_blocks"] += 1
+
     def _admit(self):
-        """Whole-prompt admission into free slots (DESIGN.md §6): equal
-        prompt lengths prefill as one batch, distinct lengths batch-of-1 —
-        no cross-slot padding ever enters the model.  With a pool (§9)
-        admission is FIFO in blocks: the head request is admitted only
-        when the pool covers its prompt blocks (minus resident prefix
-        hits) plus its decode reservation."""
+        """Move queued requests toward decode slots (DESIGN.md §6, §11).
+        The queue orders by (priority desc, rid asc), FIFO within a
+        priority.  Whole-prompt admission: equal prompt lengths prefill as
+        one batch, distinct lengths batch-of-1, no cross-slot padding.
+        Chunked admission reserves a free slot for one job at a time.  With
+        a pool (§9) admission is FIFO in blocks: the head is admitted only
+        when every band covers its prompt blocks (minus resident prefix
+        hits) plus its decode reservation, and under pressure it may
+        preempt strictly-lower-priority slots (§11)."""
+        if len(self._queue) > 1:
+            self._queue.sort(key=lambda h: (-h.request.priority, h.rid))
         job = self._prefill_job
         free = [i for i in range(self.batch_slots)
                 if self._slot_handle[i] is None
@@ -824,7 +1207,7 @@ class Engine:
                 return                    # one chunked job at a time
             if self._pools:
                 self._stall_reason = None
-                plan = self._plan_pool_admission(self._queue[0].request)
+                plan = self._plan_with_preemption(self._queue[0].request)
                 if plan is None:
                     self._note_stall()          # FIFO: the head waits
                     return
@@ -839,7 +1222,7 @@ class Engine:
             taken: List[tuple] = []
             self._stall_reason = None
             while self._queue and len(taken) < len(free):
-                plan = self._plan_pool_admission(self._queue[0].request)
+                plan = self._plan_with_preemption(self._queue[0].request)
                 if plan is None:
                     self._note_stall()          # FIFO: the head waits
                     break
@@ -919,18 +1302,32 @@ class Engine:
         ``register=False`` (a chunked job, whose blocks are written only at
         its last chunk) the miss keys wait in ``_pending_register`` until
         :meth:`_apply_pool_insert`, so no admission takes a prefix hit on a
-        block whose content is not on the device yet."""
-        pend, pend_reg = {}, {}
+        block whose content is not on the device yet.
+
+        A miss first asks the host spill tier (DESIGN.md §11): a spilled
+        key restores its exact bytes into the fresh block instead of an
+        insert from the prefill, counts as a prefix hit, and its host
+        arrays are popped now (the LRU could drop them before the slot
+        activates) and written at :meth:`_apply_pool_insert`."""
+        pend, pend_reg, pend_res = {}, {}, {}
         for band, (hits, tail_key, tail_phys, eventual, n_hit) in \
                 plans.items():
             pool = self._pools[band]
-            miss_pairs, reg = [], []
+            miss_pairs, reg, restores = [], [], []
 
-            def take(lb, key, pool=pool, miss_pairs=miss_pairs, reg=reg):
+            def take(lb, key, pool=pool, miss_pairs=miss_pairs, reg=reg,
+                     restores=restores):
                 fresh = pool.alloc(slot)
                 pool.assign(slot, lb, fresh)
-                pool.misses += 1
-                miss_pairs.append((lb, fresh))
+                arrays = (self._spill.pop(key)
+                          if self._spill is not None else None)
+                if arrays is not None:
+                    pool.hits += 1
+                    restores.append((fresh, key, arrays))
+                    self._counters["restored_blocks"] += 1
+                else:
+                    pool.misses += 1
+                    miss_pairs.append((lb, fresh))
                 reg.append((key, fresh))
 
             for lb, key, phys in hits:
@@ -949,26 +1346,32 @@ class Engine:
                     take(len(hits), tail_key)
             # decode still needs (eventual - full hits - allocated now)
             # blocks; a shared tail counts: its first write goes CoW
-            pool.set_reservation(slot, max(0, eventual - n_hit
-                                           - len(miss_pairs)))
+            pool.set_reservation(slot, max(0, eventual - n_hit - len(reg)))
             if register:
                 for key, phys in reg:
                     pool.register(key, phys)
             else:
                 pend_reg[band] = reg
             pend[band] = miss_pairs
+            if restores:
+                pend_res[band] = restores
         if not register:
             self._pending_register[slot] = pend_reg
         self._pending_insert[slot] = pend
+        if pend_res:
+            self._pending_restore[slot] = pend_res
 
     def _apply_pool_insert(self, slot: int, src_caches, row: int):
-        """Quantize-once commit, band by band: copy the slot's miss blocks
+        """Quantize-once commit, band by band: write the slot's restored
+        blocks back from the host tier (DESIGN.md §11), copy its miss blocks
         from its freshly prefilled striped cache into the band's pool (hits
         are resident already and are never inserted again), then register
         any deferred prefix keys, now that their content is on the
-        device."""
+        device.  Everything lands in place, in stream order, before the
+        table flush and the next decode chunk read it."""
         pend = self._pending_insert.pop(slot, {})
         pend_reg = self._pending_register.pop(slot, {})
+        self._restore_blocks(self._pending_restore.pop(slot, {}))
         for (group, bkey), pairs in pend.items():
             if pairs:
                 kvc.pool_insert_blocks(
@@ -977,6 +1380,30 @@ class Engine:
                     src_slot=row, pool_axis=1)
             for key, phys in pend_reg.get((group, bkey), ()):
                 self._pools[(group, bkey)].register(key, phys)
+
+    def _restore_blocks(self, restores: dict):
+        """Write popped host-tier blocks into their fresh physical blocks,
+        one host->device copy per band (:func:`kv_cache.pool_write_blocks`;
+        DESIGN.md §11)."""
+        for (group, bkey), rest in restores.items():
+            kvc.pool_write_blocks(_band(self._caches, group, bkey),
+                                  [a for _, _, a in rest],
+                                  [p for p, _, _ in rest], pool_axis=1,
+                                  stage=self._host_stage())
+
+    def _host_stage(self) -> Optional[torch.Tensor]:
+        """The pinned host buffer every spill read and restore write of a
+        card stages through (None on the CPU): one table's worth of blocks
+        of the widest band, the most one release or one activation moves,
+        allocated at first use and reused, so no copy pays for page-locking
+        or first touch."""
+        if self._stage is None and self.device.type == "cuda":
+            need = max(nb * kvc.pool_block_bytes(_band(self._caches, g, k),
+                                                 pool_axis=1)
+                       for g, k, _, _, _, nb in self._pool_bands)
+            self._stage = torch.empty(need, dtype=torch.uint8,
+                                      pin_memory=True)
+        return self._stage
 
     def _cow_cap(self) -> int:
         # a span of sps tokens touches at most ceil((sps-1)/bt)+1 blocks
@@ -1086,15 +1513,23 @@ class Engine:
                 self._apply_pool_insert(slot, caches, row)
                 self._hostlen[slot] = len(h.request.prompt)
             req = h.request
-            self._slot_handle[slot] = h
+            self._activate(slot, h)
             self._tok[slot, 0] = first[row]
             self._temps[slot] = temps[row]
             self._gens[slot] = gens[row]
             self._eos[slot] = -1 if req.eos_id is None else req.eos_id
             self._done[slot] = (req.eos_id is not None
                                 and int(first[row]) == req.eos_id)
-            h.admit_time = now
+            if h.admit_time is None:      # the first residency's mark
+                h.admit_time = now
             self._admit_deliver(slot, h, int(first[row]))
+
+    def _activate(self, slot: int, h: StreamHandle):
+        """Seat ``h`` in ``slot``, stamped with its activation order (the
+        victim policy's age, DESIGN.md §11)."""
+        self._slot_handle[slot] = h
+        self._slot_seq[slot] = self._admit_seq
+        self._admit_seq += 1
 
     # ------------------------------------------- chunked prefill (§7)
 
@@ -1163,7 +1598,7 @@ class Engine:
                 pool.dirty = True         # unmask the slot's table rows
         self._chunk_state = job.state     # recycled by the next job
         self._counters["admitted"] += 1
-        self._slot_handle[slot] = h
+        self._activate(slot, h)
         self._tok[slot, 0] = first
         self._temps[slot] = temp
         self._gens[slot] = gen
@@ -1176,6 +1611,7 @@ class Engine:
             self._pool_prewrite()
             self._flush_tables()
         dev, n = self.device, self.steps_per_sync
+        t0 = self._clock()
         temps = self._temps.copy()
         gens = list(self._gens)
         toks, done, bad, live = self._decode_steps(
@@ -1187,20 +1623,28 @@ class Engine:
                             live[:, None].long()], dim=1)
         self.n_decode_steps += n
         if self._host is not None:
-            self._enqueue_chunk(packed)
+            r, arr, ready = self._to_ring(packed)
+        else:
+            arr = packed.cpu().numpy()         # ONE device->host copy
+        # one-shot NaN flags reset only once the chunk has run
+        self._nan_inject[:] = False
+        self._watchdog(self._clock() - t0)     # device work included
+        self._tok = arr[:, n - 1:n].copy()
+        self._done = arr[:, n].astype(bool)
+        if self._host is not None:
+            self._enqueue_chunk(arr, r, ready)
             return
-        host = packed.cpu().numpy()            # ONE device->host copy
-        self._tok = host[:, n - 1:n].copy()
-        self._done = host[:, n].astype(bool)
         for i in range(self.batch_slots):
             h = self._slot_handle[i]
             if h is None:
                 continue
             self._hostlen[i] += n
-            if host[i, n + 1] and not h.finished:
+            if arr[i, n + 1] and not h.finished:
+                # NaN quarantine (§11): drop the chunk, shed the stream
+                self._counters["nan_quarantines"] += 1
                 self._finish(h, FinishReason.SHED)   # retire frees the slot
                 continue
-            self._deliver(i, host[i, :n].tolist())
+            self._deliver(i, arr[i, :n].tolist())
 
     def _decode_steps(self, n: int, token, done, temps, eos, gens,
                       temps_host):
@@ -1208,17 +1652,26 @@ class Engine:
         :func:`multi_decode` until :meth:`warmup` has captured the step,
         then ``n`` replays of the captured :func:`decode_one` (DESIGN.md
         §10), the uniforms buffer filled from the same generators in the
-        same slot order before each step, so streams stay identical."""
+        same slot order before each step, so streams stay identical.  The
+        NaN guard (DESIGN.md §11) of the chunk's flagged slots is written
+        into the static guard buffer before the replays and zeroed after
+        them, in stream order; with no slot flagged it is not touched."""
+        armed = bool(self._nan_inject.any())
         if self._unif is None:
+            nan = (torch.tensor(self._nan_inject, device=self.device)
+                   if armed else None)
             toks, _, self._caches, done, bad, live = multi_decode(
                 self.params, self.cfg, self.schedule, n, token, self._caches,
                 done, temps, eos, calib=self.calib, backend=self.backend,
-                uniforms=lambda: self._uniforms(gens, temps_host))
+                uniforms=lambda: self._uniforms(gens, temps_host),
+                nan_inject=nan)
             return toks, done, bad, live
         b, dev = self.batch_slots, self.device
         bad = torch.zeros(b, dtype=torch.bool, device=dev)
         live = torch.zeros(b, dtype=torch.int32, device=dev)
         toks = torch.empty((b, n), dtype=torch.int64, device=dev)
+        if armed:
+            self._nan_dev.copy_(torch.as_tensor(self._nan_inject))
         for s in range(n):
             unif = self._uniforms(gens, temps_host)
             if unif is not None:
@@ -1227,16 +1680,21 @@ class Engine:
             # graph serves greedy, sampled and mixed batches alike
             nxt, done, bad, live = self._graphs.call(
                 "decode_step", self._step, token, done, bad, live, temps,
-                eos, self._unif)
+                eos, self._unif, self._nan_dev)
             toks[:, s] = nxt
             token = nxt[:, None]
+        if armed:
+            self._nan_dev.zero_()
         return toks, done, bad, live
 
-    def _step(self, token, done, bad, live, temps, eos, uniforms):
-        """The captured step: :func:`decode_one` on the engine's caches."""
+    def _step(self, token, done, bad, live, temps, eos, uniforms,
+              nan_inject):
+        """The captured step: :func:`decode_one` on the engine's caches,
+        with the static NaN guard."""
         return decode_one(self.params, self.cfg, self.schedule, token,
                           self._caches, done, bad, live, temps, eos,
-                          uniforms, calib=self.calib, backend=self.backend)
+                          uniforms, calib=self.calib, backend=self.backend,
+                          nan_inject=nan_inject)
 
     def _ring_slot(self, shape) -> int:
         """A free host buffer of the async delivery ring (``host_queue +
@@ -1261,12 +1719,10 @@ class Engine:
         free.clear()
         return r
 
-    def _enqueue_chunk(self, packed: torch.Tensor):
-        """Async delivery of one chunk (DESIGN.md §10): tokens and flags
-        go to a ring buffer by a non-blocking copy with a CUDA event behind
-        it; the scheduler decides every finish from the ``done``/``bad``/
-        ``live`` flags, and the consumer thread delivers the tokens."""
-        n = self.steps_per_sync
+    def _to_ring(self, packed: torch.Tensor):
+        """One chunk's tokens and flags into a ring buffer: a non-blocking
+        copy with a CUDA event behind it, synchronized here for the flags
+        the scheduler reads.  Returns (ring index, host array, event)."""
         r = self._ring_slot(tuple(packed.shape))
         buf = self._ring[r]
         ready = None
@@ -1277,9 +1733,13 @@ class Engine:
             ready.synchronize()                # the flags, for the scheduler
         else:
             buf.copy_(packed)
-        arr = buf.numpy()
-        self._tok = arr[:, n - 1:n].copy()
-        self._done = arr[:, n].astype(bool)
+        return r, buf.numpy(), ready
+
+    def _enqueue_chunk(self, arr: np.ndarray, r: int, ready):
+        """Async delivery of one chunk (DESIGN.md §10): the scheduler
+        decides every finish from the ``done``/``bad``/``live`` flags of
+        ring buffer ``r``, and the consumer thread delivers the tokens."""
+        n = self.steps_per_sync
         handles, rows, counts, reasons = [], [], [], []
         for i in range(self.batch_slots):
             h = self._slot_handle[i]
@@ -1287,7 +1747,8 @@ class Engine:
                 continue
             self._hostlen[i] += n
             if arr[i, n + 1]:
-                # non-finite logits: drop the chunk, shed the stream
+                # NaN quarantine (§11): drop the chunk, shed the stream
+                self._counters["nan_quarantines"] += 1
                 consumed, reason = 0, FinishReason.SHED
             else:
                 left = h.request.max_new - h._sched_consumed
@@ -1317,7 +1778,8 @@ class Engine:
         the synchronous loop, through the host-loop queue in async mode —
         the transport every decode chunk takes (DESIGN.md §10)."""
         if self._host is None:
-            h.first_token_time = self._clock()
+            if h.first_token_time is None:   # kept across preemptions
+                h.first_token_time = self._clock()
             self._deliver(slot, [first])
             return
         req = h.request
@@ -1334,17 +1796,25 @@ class Engine:
             tokens=np.asarray([[first]], np.int64)))
 
     def _deliver(self, slot: int, tokens: List[int]):
-        """Append chunk tokens to a slot's handle, honoring eos/max_new."""
+        """Append chunk tokens to a slot's handle, honoring eos/max_new.
+        After a preemption the replay filter runs first (DESIGN.md §11):
+        regenerated tokens already delivered are checked and dropped."""
         h = self._slot_handle[slot]
+        if h.finished:
+            return
         req = h.request
-        for t in tokens:
+        taken: List[int] = []
+        for t in h._absorb_replay(tokens):
             if h.finished:
                 break
-            h.tokens.append(int(t))
+            h.tokens.append(t)
+            taken.append(t)
             if req.eos_id is not None and t == req.eos_id:
                 self._finish(h, FinishReason.EOS)
             elif len(h.tokens) >= req.max_new:
                 self._finish(h, FinishReason.LENGTH)
+        if self._detok is not None and taken:
+            h.text += self._detok(taken)
 
     def _finish(self, h: StreamHandle, reason: str):
         h.finished = True

@@ -29,8 +29,11 @@ Fault containment (DESIGN.md §11): a transient consumer failure raised as
 :class:`HostLoopCrash` is *contained*, not fatal: the loop counts the
 crash, retries the same item in order (bounded retries), and keeps
 serving.  Any other exception keeps the capture-and-re-raise contract.
-The port's Engine passes no ``fault_hook`` (chaos injection is not ported)
-and has no preemption, so delivery has no replay filter.
+The Engine passes its fault injector's ``on_consume`` as the
+``fault_hook``; a retried item keeps its ring buffer until it is finally
+consumed.  After a preemption, delivery runs the stream's replay filter
+(``StreamHandle._absorb_replay``): regenerated tokens are checked against
+the delivered ones and dropped.
 """
 from __future__ import annotations
 
@@ -212,7 +215,9 @@ class HostLoop:
         now = self._clock()
         for h, row, n, reason in zip(item.handles, item.rows, item.counts,
                                      item.reasons):
-            toks = [int(t) for t in arr[row, :n]]
+            toks = h._absorb_replay(arr[row, :n]) \
+                if getattr(h, "_absorb_replay", None) else \
+                [int(t) for t in arr[row, :n]]
             if toks and h.first_token_time is None:
                 h.first_token_time = now
             h.tokens.extend(toks)

@@ -23,10 +23,9 @@ being silently absorbed by the harness:
   :class:`~repro_torch.serving.metrics.MetricsRecorder` per submit and per
   step.
 
-The port's :class:`~repro_torch.serving.engine.Request` has no deadline
-or priority (the degradation ladder of DESIGN.md §11 is not ported), so
-:class:`WorkloadSpec` keeps those fields at their defaults and raises on
-any other value.
+The degradation knobs of DESIGN.md §11 ride along: every request gets the
+spec's ``deadline_ms`` and a priority drawn from ``priorities``, by the
+reference's draws, so the traces stay byte-equal.
 """
 from __future__ import annotations
 
@@ -50,11 +49,10 @@ class WorkloadSpec:
     ``shared_prefix_ratio`` is the fraction of prompts that start with one
     common ``shared_prefix_len``-token prefix (the pool's prefix-sharing
     traffic knob); ``temperature``/``eos_id`` pass through to each
-    :class:`repro_torch.serving.engine.Request`.  ``deadline_ms`` and
-    ``priorities`` (the reference's degradation knobs, DESIGN.md §11) must
-    stay None and ``(0,)``: the port's requests carry neither.
-    Everything is driven by ``seed`` — two specs with equal fields produce
-    identical traces.
+    :class:`repro_torch.serving.engine.Request`, as do the degradation
+    knobs (DESIGN.md §11): every request gets ``deadline_ms`` and a
+    priority sampled uniformly from ``priorities``.  Everything is driven
+    by ``seed`` — two specs with equal fields produce identical traces.
     """
     n_requests: int = 16
     arrival_rate: float = 4.0
@@ -93,13 +91,6 @@ class WorkloadSpec:
                              f"got {self.deadline_ms}")
         if not self.priorities:
             raise ValueError("priorities must be non-empty")
-        if self.deadline_ms is not None:
-            raise ValueError("deadline_ms is not supported: the port has no "
-                             "request deadlines (DESIGN.md §11 not ported)")
-        if tuple(self.priorities) != (0,):
-            raise ValueError(f"priorities must be (0,): the port has no "
-                             f"request priorities (DESIGN.md §11 not "
-                             f"ported), got {tuple(self.priorities)}")
 
 
 @dataclasses.dataclass
@@ -132,12 +123,14 @@ def poisson_trace(spec: WorkloadSpec) -> List[Arrival]:
         body = rng.integers(0, spec.vocab,
                             size=plen - (len(prefix) if shared else 0))
         prompt = np.concatenate([prefix, body]) if shared else body
-        # the reference draws a priority here only for a mix of more than
-        # one level; the port's spec allows only (0,), so no draw happens
-        # and the trace stays byte-equal to the reference's
+        # only consume rng state for priorities when the mix is non-trivial,
+        # so pre-degradation traces stay byte-identical (DESIGN.md §11)
+        prio = int(rng.choice(np.asarray(spec.priorities))) \
+            if len(spec.priorities) > 1 else int(spec.priorities[0])
         out.append(Arrival(t=t, request=Request(
             prompt=prompt.astype(np.int32), max_new=max_new,
             temperature=spec.temperature, eos_id=spec.eos_id,
+            deadline_ms=spec.deadline_ms, priority=prio,
             seed=spec.seed * 100003 + i)))
     return out
 

@@ -47,6 +47,13 @@ runs on a machine with only torch:
   bit for bit; a self-calibrated smoke model served by warmed striped and
   pooled engines with equal streams and the launch identities, and fused-V
   weights giving the unfused prefill logits (f32, ``atol=rtol=1e-4``).
+* degradation (DESIGN.md §11): ``pool_read_blocks``/``pool_write_blocks``
+  round trips BYTE-equal on every plane leaf; the captured step with the
+  NaN guard disarmed BITWISE equal to the unguarded eager step (every
+  cache leaf and output); an armed guard sheds exactly its slot with the
+  other rows BITWISE unchanged; a preempted request, its blocks spilled
+  to the host tier and restored, resumes to the uninterrupted stream on a
+  warmed pooled async engine.
 """
 import dataclasses
 
@@ -1046,3 +1053,172 @@ def test_calibrated_model_on_the_card(cuda_device):
     b, _ = T.prefill_model(fused, cfg, toks, PAPER_POLICY,
                            calib=dict(cal, perm_v=eye), max_len=517)
     torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+# ----------------------------------------------------- degradation (§11)
+
+def test_pool_block_read_write_round_trip_on_the_card(cuda_device):
+    """Layer-stacked pooled leaves (L, NP+1, BT, H, W): blocks read to
+    the host and written back elsewhere land byte for byte, in place."""
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=128, window=8,
+                      n_sink=2)
+    shapes = kvc.pooled_cache_shapes(3, 10 + 16 * 6, 4, 128, pol, 20, 16)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    cache = {k: (torch.randint(0, 256, (2,) + sh, generator=gen,
+                               dtype=torch.int32, device=cuda_device)
+                 .to(dt) if kvc.is_plane_key(k) else
+                 torch.zeros((2,) + sh, dtype=dt, device=cuda_device))
+             for k, (sh, dt) in shapes.items()}
+    before = {k: v.clone() for k, v in cache.items()}
+    ptrs = {k: v.data_ptr() for k, v in cache.items()}
+    src, dst = [3, 7, 11, 19], [1, 5, 9, 20]
+    blocks = kvc.pool_read_blocks(cache, src, pool_axis=1)
+    for b, phys in zip(blocks, src):
+        assert sorted(b) == sorted(k for k in cache if kvc.is_plane_key(k))
+        for k, a in b.items():
+            assert isinstance(a, np.ndarray)
+            np.testing.assert_array_equal(a, before[k][:, phys].cpu().numpy())
+    one = kvc.pool_read_block(cache, 11, pool_axis=1)
+    assert all(np.array_equal(one[k], blocks[2][k]) for k in one)
+    kvc.pool_write_blocks(cache, blocks, dst, pool_axis=1)
+    kvc.pool_write_block(cache, blocks[0], 2, pool_axis=1)
+    torch.cuda.synchronize()
+    assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+    for k, v in cache.items():
+        want = before[k].clone()
+        if kvc.is_plane_key(k):
+            for s_, d_ in zip(src + [3], dst + [2]):
+                want[:, d_] = before[k][:, s_]
+        assert torch.equal(_leaf_bytes(v), _leaf_bytes(want)), k
+
+
+def _guard_setup(cuda_device):
+    """A striped harness engine mid-stream (3 slots admitted, one chunk
+    decoded) and a snapshot of its caches and step inputs."""
+    cfg, eng = _harness_engine(cuda_device)
+    hs = [eng.submit(r) for r in _harness_traffic(cfg)[:3]]
+    eng.step()
+    assert all(not h.finished for h in hs)
+    snap = {k: v.clone() for k, v in eng._caches["scan"].items()}
+    b = eng.batch_slots
+    ins = (torch.as_tensor(eng._tok, device=cuda_device),
+           torch.zeros(b, dtype=torch.bool, device=cuda_device),
+           torch.zeros(b, dtype=torch.bool, device=cuda_device),
+           torch.zeros(b, dtype=torch.int32, device=cuda_device),
+           torch.zeros(b, dtype=torch.float32, device=cuda_device),
+           torch.full((b,), -1, dtype=torch.int64, device=cuda_device),
+           torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
+                       device=cuda_device))
+    return cfg, eng, snap, ins
+
+
+def _guarded_steps(cfg, eng, snap, ins, flags, cuda_device):
+    """``steps_per_sync`` replays of the captured guarded step (the
+    static guard set to ``flags``) and as many unguarded eager steps, each
+    from the snapshot; returns their outputs and caches."""
+    from repro_torch.serving import GraphCache, decode_one
+    cg = {"scan": {k: v.clone() for k, v in snap.items()}}
+    ce = {"scan": {k: v.clone() for k, v in snap.items()}}
+    guard = torch.zeros(eng.batch_slots, dtype=torch.bool,
+                        device=cuda_device)
+
+    def step(caches, with_guard):
+        def fn(token, done, bad, live, temps, eos, unif, *g):
+            return decode_one(eng.params, cfg, HARNESS_POL, token, caches,
+                              done, bad, live, temps, eos, unif,
+                              backend="cuda",
+                              nan_inject=g[0] if with_guard else None)
+        return fn
+
+    gc = GraphCache(cuda_device)
+    gc.warm("step", step(cg, True), tuple(x.clone() for x in ins) + (guard,))
+    for k, v in cg["scan"].items():            # undo the warmup iterations
+        v.copy_(snap[k])
+    guard.copy_(torch.as_tensor(flags))
+    tg, dg, bg, lg = ins[0], ins[1], ins[2], ins[3]
+    te, de, be, le = ins[0], ins[1], ins[2], ins[3]
+    outs = []
+    for _ in range(eng.steps_per_sync):
+        got = gc.call("step", step(cg, True), tg, dg, bg, lg, *ins[4:],
+                      guard)
+        got = tuple(x.clone() for x in got)
+        want = step(ce, False)(te, de, be, le, *ins[4:])
+        outs.append((got, want))
+        tg, dg, bg, lg = got[0][:, None], got[1], got[2], got[3]
+        te, de, be, le = want[0][:, None], want[1], want[2], want[3]
+    torch.cuda.synchronize()
+    assert gc.replays == eng.steps_per_sync
+    return outs, cg["scan"], ce["scan"]
+
+
+def test_disarmed_nan_guard_replay_bitwise_equals_unguarded_eager(
+        cuda_device):
+    """The captured step carries the NaN guard (DESIGN.md §11): with every
+    flag False its outputs and every cache leaf equal the unguarded eager
+    step's bitwise, step after step."""
+    cfg, eng, snap, ins = _guard_setup(cuda_device)
+    outs, cg, ce = _guarded_steps(cfg, eng, snap, ins, [False] * 3,
+                                  cuda_device)
+    for got, want in outs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for k in snap:
+        assert torch.equal(_leaf_bytes(cg[k]), _leaf_bytes(ce[k])), k
+
+
+def test_armed_nan_guard_sheds_exactly_its_slot(cuda_device):
+    """An armed guard on slot 1: that row raises ``bad`` and pins
+    ``done`` from the first step; the other rows' outputs and cache rows
+    equal the unguarded eager step's bitwise."""
+    cfg, eng, snap, ins = _guard_setup(cuda_device)
+    outs, cg, ce = _guarded_steps(cfg, eng, snap, ins, [False, True, False],
+                                  cuda_device)
+    keep = torch.tensor([0, 2], device=cuda_device)
+    for got, want in outs:
+        nxt, done, bad, live = got
+        assert bool(bad[1]) and bool(done[1]) and int(live[1]) == 0
+        for g, w in zip(got, want):
+            assert torch.equal(g[keep], w[keep])
+    for k, v in cg.items():                    # (L, B, ...) leaves
+        assert torch.equal(_leaf_bytes(v[:, keep]),
+                           _leaf_bytes(ce[k][:, keep])), k
+
+
+def test_preempted_stream_resumes_bit_identically_on_the_card(cuda_device):
+    """A priority-5 request preempts a running priority-0 one on a warmed
+    pooled async engine with the host spill tier: the victim's blocks
+    spill, restore at its resume, and both streams equal an uninterrupted
+    run's; the audit is clean and no call missed the graph."""
+    from repro_torch.serving import Request
+    cfg = configs.get_smoke("llama2_7b")
+    rng = np.random.default_rng(12)
+    lo_p, hi_p = (rng.integers(0, cfg.vocab_size, 40) for _ in range(2))
+
+    def serve(pool, late):
+        _, eng = _harness_engine(cuda_device, pool, async_host=True,
+                                 host_spill_bytes=1 << 22)
+        eng.warmup()
+        lo = eng.submit(Request(prompt=lo_p, max_new=12, seed=0))
+        hi, n = None, 0
+        while True:
+            worked = eng.step()
+            n += 1
+            assert n < 200
+            if hi is None and (not late or lo._sched_consumed >= 3):
+                hi = eng.submit(Request(prompt=hi_p, max_new=12, seed=1,
+                                        priority=5))
+            if not worked and hi is not None:
+                break
+        eng.drain()
+        eng.check_invariants()
+        c = eng.stats()["counters"]
+        assert eng.warmup_report()["post_warmup_misses"] == 0
+        eng.close()
+        return [lo.tokens, hi.tokens], [lo.finish_reason, hi.finish_reason], c
+
+    got, reasons, c = serve(8, True)
+    want, _, c0 = serve(40, False)
+    assert c["preemptions"] >= 1 and c["restored_blocks"] >= 1
+    assert c["spilled_blocks"] >= 1 and c0["preemptions"] == 0
+    assert reasons == ["length", "length"]
+    assert got == want

@@ -131,12 +131,18 @@ def test_workload_spec_rejects_what_jax_rejects(bad):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("bad", [dict(deadline_ms=100.0),
-                                 dict(priorities=(0, 1))])
+@pytest.mark.parametrize("bad", [dict(deadline_ms=0.0),
+                                 dict(deadline_ms=-100.0)])
 def test_workload_spec_rejects_unported_degradation_knobs(bad):
-    jload.WorkloadSpec(**bad)                 # valid for the reference
-    with pytest.raises(ValueError, match="not ported"):
+    """The degradation knobs (DESIGN.md §11) are ported: a bad deadline is
+    refused with the reference's message, and valid knobs are taken."""
+    with pytest.raises(ValueError) as want:
+        jload.WorkloadSpec(**bad)
+    with pytest.raises(ValueError) as got:
         tload.WorkloadSpec(**bad)
+    assert str(got.value) == str(want.value)
+    spec = tload.WorkloadSpec(deadline_ms=100.0, priorities=(0, 1))
+    assert {a.request.priority for a in tload.poisson_trace(spec)} <= {0, 1}
 
 
 # ------------------------------------------------- metrics: the same numbers
