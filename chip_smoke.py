@@ -165,7 +165,36 @@ not from the 50 MB L2, as each layer of a decode step does.
    after its tick, one trip, no shed), and a real-clock watchdog below a
    chunk's time shedding everything after two chunks; the replayed step
    with the guard input against the step without it, ABBA at 4 x 2048.
-12. a ``timing`` line of seconds per phase, then the kernel summary line
+12. serve_families — the gemma local/global family and qwen2-vl's M-RoPE
+   decoder at full width (random bf16 weights from seed 0, PAPER_POLICY,
+   identity calibration, 4 slots; every earlier model freed first, the
+   peak so far reported), one JSON line a part: (kernels) decode_attn at
+   gemma3's Hkv 4 / Gq 2 / D 256, over its 1024-token local_slice view,
+   at gemma2's Hkv 16 / Gq 2 / D 128 with softcap 50 and a 4096-token
+   window (lo > 0) and at qwen2-vl's Gq 7 (the G 8 template), each
+   against its plain version (f32 tolerance), pruned == full == a second
+   launch bitwise, L2-cold ms, bound and SDPA; kv_append at Hkv 4 / D 256
+   and Hkv 16 / D 128 over 300 steps (byte-equal, graph replay); the bulk
+   quantizer at one gemma3 layer's 3000-token prefill (11,468 rows x
+   256, 0 differing bytes); (gemma3) gemma3-4b through eager striped,
+   then warmed striped, pooled (768 blocks) and chunked (512) engines on
+   mix (a): every request finished, replayed and pooled streams equal
+   the eager ones, chunked final logits within relative L2 0.05 of
+   whole-prompt (bitwise reported), the launch identities, no plain
+   call, no graph miss, blocks visited by the first local and global
+   layer, cuda-vs-reference logits, and (b) the unrolled step at 4 x
+   2048 against the default step (relative L2 gated at 0.05, top-1, one
+   step's launches, eager step ms in ABBA turns); (qwen2_vl)
+   qwen2-vl-7b on mix (a) eager and warmed striped (equal streams, the
+   identities), cuda-vs-reference logits, and one prefill from patch
+   embeddings (32 text + 16 x 16 patches + 32 text, distinct (t, h, w)
+   positions) with 8 decode steps from embeddings, cuda against
+   reference per step (gated at 0.05); (gemma2) gemma2-27b (54.5 GB of
+   weights) on one card: 4 requests of 1024-6000 tokens, 32 new, through
+   a warmed striped Engine at max_len 8325 (identities, lo > 0 on the
+   local layers for the 5000- and 6000-token prompts), replayed steps at
+   4 x 2048 (CUDA events), peak memory, cuda-vs-reference logits.
+13. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
@@ -174,10 +203,11 @@ not from the 50 MB L2, as each layer of a decode step does.
    ``calib_bound_ms``, ``calib_plain_ms``, ``calib_rows`` and
    ``calib_launches``; decode_attn and kv_append the calibrate phase's
    ``calib_us_per_call``; every entry the ``widths`` of serve_schedule
-   (a) and (e); launches count the serve, serve_pooled (b),
-   serve_chunked (b), calibrate (a), (b), serve_schedule (b), (e) and
-   serve_degrade runs), the card line, and the last line ``{"ok": true,
-   "device": {...}}``.
+   (a) and (e); decode_attn, kv_append and kv_quant the ``families``
+   rows of serve_families; launches count the serve, serve_pooled (b),
+   serve_chunked (b), calibrate (a), (b), serve_schedule (b), (e),
+   serve_degrade and serve_families serve runs), the card line, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
 """
@@ -218,7 +248,8 @@ KERNEL_EXTRAS = ("long_ms", "long_bound_ms", "long_library_ms", "prefill_ms",
                  "prefill_bound_ms", "prefill_rows", "plain_wall_ms",
                  "chunk_ms", "chunk_bound_ms", "chunk_plain_ms", "chunk_rows",
                  "widths", "calib_ms", "calib_bound_ms", "calib_plain_ms",
-                 "calib_rows", "calib_launches", "calib_us_per_call")
+                 "calib_rows", "calib_launches", "calib_us_per_call",
+                 "families")
 
 
 def emit(obj) -> None:
@@ -368,16 +399,17 @@ def phase_kv_quant(state):
                          "prefill_rows": PREFILL_ROWS}
 
 
-def _kv_quant_prefill(gen, dev, bits):
+def _kv_quant_prefill(gen, dev, bits, rows=PREFILL_ROWS, d=128, h=32):
     """One layer of the longest prompt's prefill through the bulk kernel:
-    PREFILL_ROWS x 128 bf16 rows (edge rows first), per-head (32, G) clip
-    factors read by row % 32; 0 differing bytes from the plain version,
-    L2-cold times, the byte bound and its share."""
+    ``rows`` x ``d`` bf16 rows (edge rows first; llama2-7b's PREFILL_ROWS
+    x 128 by default), per-head (h, G) clip factors read by row % h; 0
+    differing bytes from the plain version, L2-cold times, the byte bound
+    and its share."""
     import torch
     from repro_torch.core.quant import dequantize_groups, n_meta_groups
     from repro_torch.kernels import kv_quant as KQ
-    d, gs, h = 128, 128, 32
-    x = torch.randn((PREFILL_ROWS, d), generator=gen, device=dev)
+    gs = 128
+    x = torch.randn((rows, d), generator=gen, device=dev)
     x[:8] = _edge_rows(gen, d, dev)
     x = x.to(torch.bfloat16)
     alpha = 0.8 + 0.2 * torch.rand((h, n_meta_groups(d, bits, gs)),
@@ -401,8 +433,8 @@ def _kv_quant_prefill(gen, dev, bits):
     bound_ms, bound_by = bound(in_b + out_b, 7 * x.numel())
     del xs, x, got
     torch.cuda.empty_cache()
-    return {"rows": PREFILL_ROWS, "d": d, "bits": bits, "dtype": "bfloat16",
-            "alpha": "per head (32, G)", "diff_bytes": diff,
+    return {"rows": rows, "d": d, "bits": bits, "dtype": "bfloat16",
+            "alpha": f"per head ({h}, G)", "diff_bytes": diff,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bytes": in_b + out_b, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms}
@@ -593,10 +625,11 @@ def phase_kv_append(state):
 
 
 def _attn_case(gen, dev, b, hkv, gq, d, live, max_len=MAX_LEN,
-               bits=(2.0, 1.5)):
+               bits=(2.0, 1.5), window=0):
     """Packed planes of a ``max_len``-token cache (the serve phase's: 4096
-    packed tokens) at widths ``bits`` with ``live`` packed tokens per slot,
-    built by the port's own prefill + masks."""
+    packed tokens) at widths ``bits`` with ``live`` packed tokens per slot
+    (of which a local ``window`` keeps the last ones), built by the port's
+    own prefill + masks."""
     import torch
     from repro_torch.core import kv_cache as kvc
     from repro_torch.kernels import ops
@@ -614,11 +647,14 @@ def _attn_case(gen, dev, b, hkv, gq, d, live, max_len=MAX_LEN,
     cap = cache["qk_codes_hi"].shape[1]
     bs, s_pad = ops._block_pad(cap, 256)
     ok = ops._packed_ok(ops._padded_j(cap, s_pad, dev), lens, lens - 1,
-                        seg.effective_window(0), POL, b)
+                        seg.effective_window(window), POL, b)
     k_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qk_")}
     v_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qv_")}
     q = torch.randn((b, hkv, gq, d), generator=gen, device=dev)
-    check(int((ok > 0).sum()) == sum(live), "decode_attn case: live tokens")
+    # a local window of W attends the query's last W tokens: the fp
+    # window's POL.window of them, and the W - POL.window newest packed
+    reach = [n if not window else min(n, window - POL.window) for n in live]
+    check(int((ok > 0).sum()) == sum(reach), "decode_attn case: live tokens")
     return (POL, q, k_qt, v_qt, ok.to(torch.float32),
             seg.packed_block_bounds(ok, bs), bs)
 
@@ -681,18 +717,22 @@ def _check_attn(name, got, want, *same):
 
 
 def _attn_row(name, pol, q, k_qt, v_qt, mask, bounds, bs, live,
-              table=None, long=False):
+              table=None, long=False, scale=None, softcap=0.0):
     """Check one decode_attn case (striped, or pooled with ``table``) and
-    time it L2-cold next to its plain version and SDPA."""
+    time it L2-cold next to its plain version and SDPA (which has no
+    softcap: with one, a yardstick of the same size, not the same
+    function).  ``live``: the attended packed tokens per slot."""
     import torch
     from repro_torch.kernels import decode_attn as DA
     b, hkv, gq, d = q.shape
-    scale = d ** -0.5
-    kw = dict(block_s=bs, block_bounds=bounds, block_table=table)
+    scale = d ** -0.5 if scale is None else scale
+    kw = dict(block_s=bs, block_bounds=bounds, block_table=table,
+              softcap=softcap)
     args = (q, k_qt, v_qt, mask, pol, d, scale)
     got = DA.decode_attn(*args, **kw)
     again = DA.decode_attn(*args, **kw)
-    full = DA.decode_attn(*args, block_s=bs, block_table=table)
+    full = DA.decode_attn(*args, block_s=bs, block_table=table,
+                          softcap=softcap)
     want = DA.decode_attn_plain(*args, **kw)
     same = [("a second launch", again), ("the full walk", full)]
     k_g = v_g = None
@@ -701,7 +741,8 @@ def _attn_row(name, pol, q, k_qt, v_qt, mask, bounds, bs, live,
                                                                    table)
         same.append(("the striped kernel over the gathered planes",
                       DA.decode_attn(q, k_g, v_g, mask, pol, d, scale,
-                                     block_s=bs, block_bounds=bounds)))
+                                     block_s=bs, block_bounds=bounds,
+                                     softcap=softcap)))
     err = _check_attn(name, got, want, *same)
     del got, again, full, want, same
     ks, vs = copies(k_qt), copies(v_qt)
@@ -709,8 +750,8 @@ def _attn_row(name, pol, q, k_qt, v_qt, mask, bounds, bs, live,
                                                    scale, **kw)
                   for k, v in zip(ks, vs)])
     full_ms = cuda_ms([lambda k=k, v=v: DA.decode_attn(
-        q, k, v, mask, pol, d, scale, block_s=bs, block_table=table)
-        for k, v in zip(ks, vs)])
+        q, k, v, mask, pol, d, scale, block_s=bs, block_table=table,
+        softcap=softcap) for k, v in zip(ks, vs)])
     del ks, vs
     plain_ms = cuda_ms(lambda: DA.decode_attn_plain(*args, **kw),
                        iters=1 if long else 3, warmup=0 if long else 1)
@@ -2470,8 +2511,8 @@ def _granite(state):
 
 
 def _width_row(row, **extra):
-    keys = ("bits", "layout", "rows", "hkv", "gq", "d", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("bits", "layout", "rows", "hkv", "gq", "d", "lo", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return dict({k: row[k] for k in keys if k in row}, **extra)
 
 
@@ -3073,6 +3114,522 @@ def phase_serve_degrade(state):
           "watchdog": watchdog, "abba_guard_4x2048": guard})
 
 
+# ------------------------------- serve_families (gemma local/global, M-RoPE)
+
+GEMMA2_LENS, GEMMA2_NEW = [1024, 3000, 5000, 6000], 32
+GEMMA2_MAX_LEN = 8325            # 5 sinks + 128 window + 8192 packed tokens
+FAMILY_LIVE = [500, 1500, 2900, 3900]          # packed tokens of the rows
+GEMMA2_LIVE = [900, 2800, 4800, 5800]
+UNROLL_ROUNDS = 4
+PATCH_GRID, TEXT_LEN, EMBED_STEPS = 16, 32, 8   # qwen2-vl's embeds run
+
+
+def _family_engine(params, cfg, warm, max_len=MAX_LEN, pool_blocks=None,
+                   prefill_chunk=None):
+    """An Engine of the serve shape for one of the new families (eager, or
+    warmed with one captured decode step)."""
+    import gc
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.serving import Engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = Engine(params, cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
+                 max_len=max_len, steps_per_sync=SERVE_SPS, backend="cuda",
+                 pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
+                 prefill_chunk=prefill_chunk, device=torch.device("cuda"))
+    rep = None
+    if warm:
+        rep = eng.warmup()
+        check(rep["n_graphs"] == 1 and rep["post_warmup_misses"] == 0,
+              f"{cfg.name}: warmup captured no decode step: {rep}")
+    return eng, rep
+
+
+def _block_probe(eng, cfg):
+    """Wrap the Engine's decode chunk: before its first chunk, the pruning
+    report (``decode_block_report``, the kernel's [lo, hi) bounds) of the
+    first local and the first global layer, by slot with each slot's
+    prompt length; returns the dict it fills."""
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels.ops import decode_block_report
+    probe = {}
+    chunk = eng._decode_chunk
+    kinds = {}
+    for i in range(cfg.n_layers):
+        kinds.setdefault("local" if cfg.layer_is_local(i) else "global", i)
+
+    def first():
+        if not probe:
+            lens = [None if h is None else len(h.request.prompt)
+                    for h in eng._slot_handle]
+            for kind, i in kinds.items():
+                rep = decode_block_report(
+                    {k: v[i] for k, v in eng._caches["scan"].items()},
+                    PAPER_POLICY, cfg.head_dim,
+                    window=cfg.local_window if kind == "local" else 0)
+                probe[kind] = {"layer": i, "prompt_lens": lens,
+                               "lo": rep["bounds"][:, 0].tolist(),
+                               "visited": rep["visited"].tolist(),
+                               "total": rep["total"]}
+        chunk()
+    eng._decode_chunk = first
+    return probe
+
+
+def _family_serve(state, cfg, eng, reqs, what):
+    """``reqs`` through ``eng``: every request finished at its budget, the
+    main path's launch identities for its mode (eager, replayed or
+    chunked), the launches added to the kernel line's totals.  Returns the
+    streams, each request's last prompt logits (whole, or of its final
+    chunk; f32 on the host) and the run's report."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    logits = {}
+    if eng.prefill_chunk:
+        finish = eng._finish_prefill
+
+        def keep(job, lg):
+            logits[job.handle.rid] = lg[0, -1].float().cpu()
+            finish(job, lg)
+        eng._finish_prefill = keep
+        prefills = None
+    else:
+        prefills = _counted_prefills(eng, logits)
+    chunks = _timed_chunks(eng)
+    torch.cuda.synchronize()
+    reset_launch_counts()                                    # main path only
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    check(all(h.finished and h.finish_reason == "length"
+              and len(h.tokens) == r.max_new
+              and all(0 <= t < cfg.vocab_size for t in h.tokens)
+              for h, r in zip(handles, reqs)),
+          f"{what}: not every request finished: "
+          f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
+    steps = eng.n_decode_steps
+    if eng.prefill_chunk:
+        _check_chunked_path(cfg, eng, counts, _evicting_chunks(
+            [len(r.prompt) for r in reqs], eng.prefill_chunk), what)
+    elif eng.warmup_report()["warmed"]:
+        _check_graph_path(cfg, eng, counts, prefills, what)
+    else:
+        check(counts["decode_attn"]["kernel"] == cfg.n_layers * steps,
+              f"{what}: decode_attn launches {counts['decode_attn']} != "
+              f"layers x steps = {cfg.n_layers * steps}")
+        _check_main_path(cfg, counts, steps, len(prefills), what)
+    if eng.stats()["pooled"]:
+        eng.check_invariants()
+    _add_launches(state, counts)
+    tokens = sum(len(h.tokens) for h in handles)
+    return [list(h.tokens) for h in handles], [logits[h.rid]
+                                                for h in handles], {
+        "decode_steps": steps, "wall_s": wall, "tokens": tokens,
+        "tokens_per_s": tokens / wall,
+        "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]
+                                      or [ms for ms, _ in chunks]),
+        "launches": counts}
+
+
+def _replayed_step_ms(eng, cfg, chunks: int = 4):
+    """CUDA-event ms per replayed step of a warmed Engine with its slots
+    loaded at STEP_CONTEXT (``_load_slots``), over ``chunks`` chunks."""
+    import numpy as np
+    import torch
+    _load_slots(eng, cfg)
+    dev = eng.device
+    tok = torch.as_tensor(eng._tok, device=dev)
+    done = torch.zeros(SERVE_SLOTS, dtype=torch.bool, device=dev)
+    temps = torch.zeros(SERVE_SLOTS, dtype=torch.float32, device=dev)
+    eos = torch.full((SERVE_SLOTS,), -1, dtype=torch.int64, device=dev)
+    run = lambda: eng._decode_steps(SERVE_SPS, tok, done, temps, eos,
+                                    [None] * SERVE_SLOTS,
+                                    np.zeros(SERVE_SLOTS, np.float32))
+    run()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(chunks + 1)]
+    ev[0].record()
+    for e in ev[1:]:
+        run()
+        e.record()
+    torch.cuda.synchronize()
+    return _spread([a.elapsed_time(b) / SERVE_SPS
+                    for a, b in zip(ev, ev[1:])])
+
+
+def _family_init(cfg):
+    """Random bf16 weights of ``cfg`` from seed 0 on the card (the peak
+    memory counter restarts here)."""
+    import torch
+    from repro_torch.models import transformer as T
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                           device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in _leaves(params))
+    return params, {"params_init_s": time.monotonic() - t0, "params": n,
+                    "weight_bytes": 2 * n}
+
+
+def _leaves(tree):
+    import torch
+    if torch.is_tensor(tree):
+        return [tree]
+    return [x for v in tree.values() for x in _leaves(v)]
+
+
+def _mix_a(state, cfg, params, what, chunked=True, pooled=True):
+    """Mix (a) through an eager striped Engine, then warmed striped, pooled
+    (768 blocks) and chunked (512) Engines: replayed and pooled streams
+    equal the eager ones, final-chunk logits within relative L2 0.05 of
+    whole-prompt."""
+    import gc
+    import torch
+    eng, _ = _family_engine(params, cfg, False)
+    probe = _block_probe(eng, cfg)
+    streams, whole, eager = _family_serve(
+        state, cfg, eng, _serve_requests(cfg)[1], f"{what} eager striped")
+    del eng
+    runs = {"eager_striped": dict(eager, blocks=probe)}
+    modes = [("graph_striped", {})]
+    if pooled:
+        modes.append(("graph_pooled", {"pool_blocks": 768}))
+    if chunked:
+        modes.append(("graph_chunked", {"prefill_chunk": CHUNK}))
+    for name, kw in modes:
+        eng, warm = _family_engine(params, cfg, True, **kw)
+        got, final, rep = _family_serve(
+            state, cfg, eng, _serve_requests(cfg)[1], f"{what} {name}")
+        del eng
+        gc.collect()
+        same = [a == b for a, b in zip(got, streams)]
+        rep.update(warmup=warm, streams_equal_eager=same)
+        if name == "graph_chunked":
+            rel = [float((final[i] - whole[i]).norm() / whole[i].norm())
+                   for i in range(len(SERVE_LENS))]
+            check(max(rel) <= LOGIT_REL_TOL and all(
+                bool(torch.isfinite(v).all()) for v in final),
+                f"{what}: final-chunk logits vs whole-prompt relative L2 "
+                f"{max(rel):.4f} > {LOGIT_REL_TOL}")
+            rep.update(final_logits_rel_l2_vs_whole=rel,
+                       final_logits_bitwise_whole=[
+                           bool(torch.equal(final[i], whole[i]))
+                           for i in range(len(SERVE_LENS))])
+        else:
+            check(all(same), f"{what} {name}: streams differ from the "
+                  f"eager striped streams (request equal: {same})")
+        runs[name] = rep
+    return runs
+
+
+def _unroll_turns(params, cfg):
+    """(b) From one 4 x 2048 prefill: the unrolled step (local layers over
+    their hoisted 1024-token slices, pre-append) against the default step:
+    logits relative L2 (gated at 0.05) and top-1, the launches of one
+    unrolled step, and eager step times in ABBA turns from cloned
+    caches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    batch = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (SERVE_SLOTS, STEP_CONTEXT)),
+                            device=dev)
+    _, base = T.prefill_model(params, cfg, batch, PAPER_POLICY,
+                              max_len=MAX_LEN, backend="cuda")
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1)),
+                          device=dev)
+    step = {"default": lambda c: T.decode_step(params, cfg, tok, c,
+                                               PAPER_POLICY, backend="cuda"),
+            "unrolled": lambda c: T.decode_step(params, cfg, tok, c,
+                                                PAPER_POLICY, backend="cuda",
+                                                unroll=True)}
+    ld = step["default"](_clone(base))[0][:, -1].float()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lu = step["unrolled"](_clone(base))[0][:, -1].float()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["decode_attn"]["kernel"] == cfg.n_layers
+          and counts["kv_quant"]["append"] == cfg.n_layers
+          and counts["decode_attn"]["plain"] == 0,
+          f"unrolled step: launches {counts}")
+    check(bool(torch.isfinite(lu).all()), "unrolled logits not finite")
+    rel = float((lu - ld).norm() / ld.norm())
+    check(rel <= LOGIT_REL_TOL, f"unrolled vs default step: relative L2 "
+          f"{rel:.4f} > {LOGIT_REL_TOL}")
+    times = {"default": [], "unrolled": []}
+    for _ in range(UNROLL_ROUNDS):
+        for name in ("default", "unrolled", "unrolled", "default"):
+            c = _clone(base)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step[name](c)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            del c
+    out = {k: _spread(v) for k, v in times.items()}
+    return {"context": STEP_CONTEXT, "local_layers": sum(
+        cfg.layer_is_local(i) for i in range(cfg.n_layers)),
+        "slice_tokens": cfg.local_window, "logits_rel_l2": rel,
+        "top1_agreement": float((lu.argmax(-1) == ld.argmax(-1)).float()
+                                .mean()), "launches_one_step": counts,
+        "eager_step_ms": out, "order": "ABBA (A default, B unrolled)",
+        "unrolled_over_default": out["unrolled"]["mean"]
+        / out["default"]["mean"]}
+
+
+def _gemma3(state):
+    """(a) + (b): gemma3-4b at full width."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    cfg = configs.get("gemma3_4b")
+    params, init = _family_init(cfg)
+    runs = _mix_a(state, cfg, params, "gemma3")
+    backends = _backend_logits(params, cfg, PAPER_POLICY, seed=6)
+    unroll = _unroll_turns(params, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    return dict(init, arch=cfg.name, runs=runs, cuda_vs_reference=backends,
+                unroll=unroll, peak_mem_bytes=peak)
+
+
+def _gemma2(state):
+    """(c) gemma2-27b at full width on one card: 4 requests through a
+    warmed striped Engine; lo > 0 on the local layers for the two long
+    prompts; replayed steps at 4 x 2048 (CUDA events); cuda against
+    reference logits."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.serving import Request
+    cfg = configs.get("gemma2_27b")
+    params, init = _family_init(cfg)
+    eng, warm = _family_engine(params, cfg, True, max_len=GEMMA2_MAX_LEN)
+    probe = _block_probe(eng, cfg)
+    rng = np.random.default_rng(8)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new=GEMMA2_NEW, seed=i)
+            for i, n in enumerate(GEMMA2_LENS)]
+    _, _, rep = _family_serve(state, cfg, eng, reqs, "gemma2 graph striped")
+    replayed = _replayed_step_ms(eng, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    loc = probe["local"]
+    long_lo = [lo for n, lo in zip(loc["prompt_lens"], loc["lo"])
+               if n in GEMMA2_LENS[2:]]
+    check(len(long_lo) == 2 and min(long_lo) > 0,
+          f"gemma2: the local layers' lower bound is 0 for a long prompt: "
+          f"{loc}")
+    del eng
+    gc.collect()
+    backends = _backend_logits(params, cfg, PAPER_POLICY, seed=9,
+                               context=1024)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(init, arch=cfg.name, max_len=GEMMA2_MAX_LEN,
+                prompt_lens=GEMMA2_LENS, max_new=GEMMA2_NEW, warmup=warm,
+                run=dict(rep, blocks=probe), peak_mem_bytes=peak,
+                replayed_step_ms_4x2048=replayed,
+                cuda_vs_reference=backends)
+
+
+def _patch_inputs(params, cfg, rng, dev):
+    """Qwen2-VL-style inputs for the stubbed frontend: TEXT_LEN text
+    tokens, a PATCH_GRID x PATCH_GRID grid of patch embeddings, TEXT_LEN
+    text tokens, per slot; M-RoPE positions: text (i, i, i), patch (r, c)
+    at (T0, T0 + r, T0 + c), the text after at max + 1 on."""
+    import numpy as np
+    import torch
+    g, n = PATCH_GRID, TEXT_LEN
+    t0 = n
+    text = np.arange(n)
+    pt = np.full(g * g, t0)
+    ph = t0 + np.repeat(np.arange(g), g)
+    pw = t0 + np.tile(np.arange(g), g)
+    after = t0 + g + np.arange(n)
+    pos = np.stack([np.concatenate([text, pt, after]),
+                    np.concatenate([text, ph, after]),
+                    np.concatenate([text, pw, after])])
+    s = pos.shape[1]
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, s)),
+                          device=dev)
+    emb = params["embed"][ids]
+    patches = (torch.randn((SERVE_SLOTS, g * g, cfg.d_model), device=dev,
+                           generator=torch.Generator(dev).manual_seed(3))
+               * 0.02).to(emb.dtype)
+    emb[:, n:n + g * g] = patches
+    positions = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    return emb, positions[:, None].expand(3, SERVE_SLOTS, s).contiguous(), \
+        int(pos.max()) + 1
+
+
+def _embeds_run(params, cfg):
+    """(d) One prefill from patch embeddings with distinct (t, h, w)
+    positions, then EMBED_STEPS decode steps from embeddings on the cuda
+    and the reference backends from the same cache: logits relative L2 per
+    step (gated at 0.05), top-1, the cuda side's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    emb, pos, nxt = _patch_inputs(params, cfg, rng, dev)
+    logits, base = T.prefill_model(params, cfg, None, PAPER_POLICY,
+                                   max_len=MAX_LEN, backend="cuda",
+                                   embeds=emb, positions=pos)
+    check(bool(torch.isfinite(logits).all()), "embeds prefill not finite")
+    caches = {"cuda": _clone(base), "reference": base}
+    rel, top1 = [], []
+    reset_launch_counts()
+    for step in range(EMBED_STEPS):
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (SERVE_SLOTS, 1)), device=dev)
+        e = params["embed"][ids]
+        p3 = torch.full((3, SERVE_SLOTS, 1), nxt + step, dtype=torch.int32,
+                        device=dev)
+        out = {}
+        for name in ("cuda", "reference"):
+            lg, caches[name] = T.decode_step(params, cfg, None, caches[name],
+                                             PAPER_POLICY, backend=name,
+                                             embeds=e, positions=p3)
+            out[name] = lg[:, -1].float()
+        check(bool(torch.isfinite(out["cuda"]).all()),
+              "embeds decode not finite")
+        rel.append(float((out["cuda"] - out["reference"]).norm()
+                         / out["reference"].norm()))
+        top1.append(float((out["cuda"].argmax(-1)
+                           == out["reference"].argmax(-1)).float().mean()))
+    counts = launch_counts()
+    check(max(rel) <= LOGIT_REL_TOL, f"embeds run: cuda vs reference "
+          f"relative L2 {max(rel):.4f} > {LOGIT_REL_TOL}")
+    check(counts["decode_attn"]["kernel"] == cfg.n_layers * EMBED_STEPS
+          and counts["kv_quant"]["append"] == cfg.n_layers * EMBED_STEPS,
+          f"embeds run: cuda launches {counts}")
+    return {"prompt": {"text": TEXT_LEN, "patches": PATCH_GRID ** 2,
+                       "text_after": TEXT_LEN, "tokens": pos.shape[-1]},
+            "steps": EMBED_STEPS, "logits_rel_l2": rel,
+            "top1_agreement": top1, "cuda_launches": counts}
+
+
+def _qwen2vl(state):
+    """(d) qwen2-vl-7b at full width: mix (a) whole-prompt and striped
+    (eager and warmed), cuda against reference logits, and the embeds
+    run."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    cfg = configs.get("qwen2_vl_7b")
+    params, init = _family_init(cfg)
+    runs = _mix_a(state, cfg, params, "qwen2-vl", chunked=False,
+                  pooled=False)
+    backends = _backend_logits(params, cfg, PAPER_POLICY, seed=10)
+    embeds = _embeds_run(params, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    return dict(init, arch=cfg.name, runs=runs, cuda_vs_reference=backends,
+                embeds=embeds, peak_mem_bytes=peak)
+
+
+def _slice_case(case, live, window):
+    """The per-slot local view the unrolled step hands the kernel: each
+    slot's last ``window`` packed tokens of ``case``'s planes, with the
+    mask and bounds of a local layer at that window."""
+    import torch
+    from repro_torch.core import segments as seg
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import slice_indices, take_tokens
+    pol, q, k_qt, v_qt, _, _, bs = case
+    lens = torch.tensor(live, device=q.device) + pol.n_sink + pol.window
+    j = slice_indices(lens, pol, window, k_qt["codes_hi"].shape[1])
+    k_sl = {k: take_tokens(v, j) for k, v in k_qt.items()}
+    v_sl = {k: take_tokens(v, j) for k, v in v_qt.items()}
+    bs, s_pad = ops._block_pad(window, bs)
+    ok = ops._packed_ok(ops._pad_j(j, s_pad), lens, lens - 1,
+                        seg.effective_window(window), pol, q.shape[0])
+    return (pol, q, k_sl, v_sl, ok.to(torch.float32),
+            seg.packed_block_bounds(ok, bs), bs)
+
+
+def _family_kernels():
+    """Both kernels at the new families' shapes, each against its plain
+    version, L2-cold, with its bound (and SDPA for decode_attn)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    attn = {}
+
+    def row(name, case, **kw):
+        mask = case[4]
+        live = [int(x) for x in (mask > 0).sum(dim=1).tolist()]
+        r = _attn_row(f"decode_attn {name}", *case, live, **kw)
+        r["lo"] = case[5][:, 0].tolist()
+        attn[name] = r
+        return r
+    g3 = _attn_case(gen, dev, 4, 4, 2, 256, FAMILY_LIVE)
+    row("gemma3 (Hkv 4, Gq 2, D 256)", g3)
+    row("gemma3 local_slice 1024", _slice_case(g3, FAMILY_LIVE, 1024))
+    del g3
+    g2 = _attn_case(gen, dev, 4, 16, 2, 128, GEMMA2_LIVE,
+                    max_len=GEMMA2_MAX_LEN, window=4096)
+    r = row("gemma2 (Hkv 16, Gq 2, D 128, softcap 50, window 4096)", g2,
+            scale=(4608 / 32) ** -0.5, softcap=50.0)
+    check(r["lo"][2] > 0 and r["lo"][3] > 0,
+          f"gemma2 row: the local window sets no lower bound: {r['lo']}")
+    del g2
+    row("qwen2-vl (Hkv 4, Gq 7 on the G 8 template, D 128)",
+        _attn_case(gen, dev, 4, 4, 7, 128, FAMILY_LIVE))
+    torch.cuda.empty_cache()
+    append = {f"Hkv {h} D {d}": _append_case(gen, dev, h, d, 128, False)
+              for h, d in ((4, 256), (16, 128))}
+    quant = {f"K{bits}": _kv_quant_prefill(gen, dev, bits, rows=2867 * 4,
+                                           d=256, h=4)
+             for bits in (2.0, 1.5)}
+    return attn, append, quant
+
+
+def phase_serve_families(state):
+    """The gemma local/global family and qwen2-vl's M-RoPE decoder at full
+    width, and both kernels at their head shapes."""
+    import gc
+    import torch
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {"peak_bytes_so_far": torch.cuda.max_memory_allocated(),
+              "allocated_after_free": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    head = {"phase": "serve_families", "gpu": state["gpu"]}
+    attn, append, quant = _family_kernels()
+    for name, rows in (("decode_attn", attn), ("kv_append", append),
+                       ("kv_quant", quant)):
+        state.setdefault(name, {})["families"] = {
+            k: _width_row(r) for k, r in rows.items()}
+    emit(dict(head, part="kernels", before=before, decode_attn=attn,
+              kv_append=append, kv_quant=quant, atol=ATOL, rtol=RTOL))
+    common = {"max_len": MAX_LEN, "slots": SERVE_SLOTS,
+              "steps_per_sync": SERVE_SPS}
+    emit(dict(head, part="gemma3", **common, **_gemma3(state)))
+    emit(dict(head, part="qwen2_vl", **common, **_qwen2vl(state)))
+    emit(dict(head, part="gemma2", **_gemma2(state)))
+
+
 # kernel-name fragments of each kind, first match wins
 KERNEL_KINDS = (
     ("port: decode_attn + merge", ("decode_attn_split", "merge_splits")),
@@ -3156,7 +3713,8 @@ def main(argv=None) -> int:
                   phase_decode_attn, phase_decode_attn_pooled, phase_serve,
                   phase_serve_pooled, phase_serve_graph,
                   phase_serve_chunked, phase_calibrate,
-                  phase_serve_schedule, phase_serve_degrade):
+                  phase_serve_schedule, phase_serve_degrade,
+                  phase_serve_families):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

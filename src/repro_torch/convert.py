@@ -2,10 +2,11 @@
 and the port as nested dicts of numpy arrays.
 
 The reference's params pytree (``jax.tree.map(np.asarray, params)``) maps
-one-to-one: the same key names (``embed``, ``final_norm``, ``lm_head``,
-``layers/{norm1,norm2,attn/{wq,wk,wv,wo_attn},mlp/{wi_gate,wi_up,wo}}``),
-the stacked leading layer axis of ``layers``, and ``(d_in, d_out)``
-weights — no transposes.  bf16 may arrive as a ``uint16`` view (or as
+one-to-one: the same key names (``embed``, ``final_norm``, ``lm_head``
+when untied, ``layers/{norm1,norm2,attn/{wq,wk,wv,wo_attn},mlp/{wi_gate,
+wi_up,wo}}``, and per config ``attn/{q_norm,k_norm}`` (``qk_norm``) and
+``attn/{bq,bk,bv}`` (``qkv_bias``)), the stacked leading layer axis of
+``layers``, and ``(d_in, d_out)`` weights — no transposes.  bf16 may arrive as a ``uint16`` view (or as
 numpy's bfloat16 extension type) and is re-viewed as ``torch.bfloat16``;
 FP8 metadata travels as its uint8 bit pattern.
 """
@@ -40,16 +41,35 @@ def tree_from_numpy(tree, device=None, dtype=None):
     return _to_torch(tree, dev, dtype)
 
 
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg=None, device=None,
                       dtype=None) -> Dict[str, Any]:
     """Reference params (numpy leaves) -> port params; ``dtype`` casts the
-    floating leaves, ``cfg`` (optional) checks the layer count."""
+    floating leaves.  ``cfg`` (optional) checks the tree against the
+    config's ``transformer.param_shapes``: a missing or extra leaf, or one
+    of another shape, raises naming the leaf."""
     params = tree_from_numpy(tree, device, dtype)
     if cfg is not None:
-        n = params["layers"]["norm1"]["w"].shape[0]
-        if n != cfg.n_layers:
-            raise ValueError(f"params hold {n} layers, config {cfg.name} "
-                             f"wants {cfg.n_layers}")
+        from .models.transformer import param_shapes
+        want = param_shapes(cfg)
+        got = {k: tuple(v.shape) for k, v in _leaves(params)}
+        for k in sorted(set(want) | set(got)):
+            if k not in got:
+                raise ValueError(f"params lack leaf {k!r} that config "
+                                 f"{cfg.name} needs")
+            if k not in want:
+                raise ValueError(f"params hold leaf {k!r} that config "
+                                 f"{cfg.name} has no use for")
+            if got[k] != want[k]:
+                raise ValueError(f"params leaf {k!r} has shape {got[k]}, "
+                                 f"config {cfg.name} wants {want[k]}")
     return params
 
 

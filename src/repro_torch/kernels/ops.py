@@ -20,8 +20,12 @@ route is chosen by the policy, never by a failed launch.
 :func:`fp16_chunk_append` write its rows with ``kv_cache``'s fp16
 branches; ``FP16_CALLS`` counts the three (``launch_counts()["fp16"]``).
 
-Not ported yet: the ``local_slice``/``packed_override`` levers with their
-pre-append ``extra_kv``/``q_pos`` protocol.
+The local-window levers of the unrolled decode (``local_slice``,
+``packed_override``) hand the kernel a per-slot sliced view of the packed
+planes, walked in striped mode; a pooled cache is gathered into its
+striped view first for them, as in the JAX package.  The pre-append
+protocol's current token (``extra_kv``, ``q_pos``) joins the fp partial
+in torch.
 """
 from __future__ import annotations
 
@@ -88,9 +92,18 @@ def _packed_capacity(cache) -> int:
     return cache["block_tbl"].shape[-1] * s if is_pooled(cache) else s
 
 
+def _pad_j(j: torch.Tensor, s_pad: int) -> torch.Tensor:
+    """Packed indices ``j`` ((S,) or per-slot (B, S)) padded along the last
+    axis to ``s_pad`` with the always-masked position."""
+    j = j.to(torch.int32)
+    tail = torch.full((*j.shape[:-1], s_pad - j.shape[-1]), _FAR,
+                      dtype=torch.int32, device=j.device)
+    return torch.cat([j, tail], dim=-1)
+
+
 def _padded_j(s_q: int, s_pad: int, device) -> torch.Tensor:
-    j = torch.arange(s_pad, dtype=torch.int32, device=device)
-    return torch.where(j < s_q, j, torch.full_like(j, _FAR))
+    """``arange(s_q)`` padded to ``s_pad`` (:func:`_pad_j`)."""
+    return _pad_j(torch.arange(s_q, dtype=torch.int32, device=device), s_pad)
 
 
 def make_kernel_quant_fn():
@@ -119,25 +132,39 @@ def make_kernel_quant_fn():
 
 def cuda_decode_attention(q, cache, policy: QuantPolicy, *, scale: float,
                           softcap: float = 0.0, window=None,
-                          dtype=torch.bfloat16, block_s: int = BLOCK_S,
-                          prune_blocks: bool = True):
+                          dtype=torch.bfloat16, chunk: int = 0,
+                          local_slice: int = 0, packed_override=None,
+                          extra_kv=None, q_pos=None,
+                          block_s: int = BLOCK_S, prune_blocks: bool = True):
     """Fused-kernel decode over the SKVQ cache (DESIGN.md §4).
 
-    q (B, 1, Hq, D) -> (B, 1, Hq, D); the query token is already appended.
-    ``cache["length"]`` is per-slot, so the kernel takes a per-(slot,
-    token) mask.  With ``prune_blocks`` the mask reduces on the device to
-    per-slot block bounds ``[lo, hi)`` and the kernel skips dead tiles,
-    bit-identically to the full walk.  A pooled cache takes the kernel's
-    block-table mode at the same tile as a striped cache of the same
-    capacity, so the two give bitwise equal results (DESIGN.md §9).
+    q (B, 1, Hq, D) -> (B, 1, Hq, D); the query token is already appended,
+    or, in the pre-append protocol, rides as ``extra_kv = (k, v, pos)``
+    with ``q_pos`` its position.  ``cache["length"]`` is per-slot, so the
+    kernel takes a per-(slot, token) mask.  With ``prune_blocks`` the mask
+    reduces on the device to per-slot block bounds ``[lo, hi)`` and the
+    kernel skips dead tiles, bit-identically to the full walk.  A pooled
+    cache takes the kernel's block-table mode at the same tile as a
+    striped cache of the same capacity, so the two give bitwise equal
+    results (DESIGN.md §9).
+
+    ``local_slice``/``packed_override`` narrow the walk to a per-slot view
+    (``attention.packed_view``) that the kernel walks in striped mode,
+    padded to its tile; a pooled cache is unpooled first for them, as the
+    reference's wrapper does (``repro/kernels/ops.py:167-170``).
+    ``chunk`` is accepted and ignored, as there: the kernel streams
+    ``block_s``-token tiles.
 
     An fp16 policy has nothing packed: it attends over the dense ``k``/
     ``v`` cache with the shared flash partial, no kernel (the JAX
     package's fallback, ``repro.kernels.ops``)."""
-    from ..models.attention import fp_segment_partial
+    from ..models.attention import fp_segment_partial, packed_view
+    if is_pooled(cache) and (packed_override is not None or local_slice):
+        cache = kvc.unpool_cache(cache)
     b, _, hq, d = q.shape
     lens = slot_lengths(cache, b)
-    t_now = lens - 1
+    t_now = lens - 1 if q_pos is None else torch.as_tensor(
+        q_pos, device=lens.device).expand(b)
     weff = seg.effective_window(window)
     if policy.is_fp16:
         FP16_CALLS["attend"] += 1
@@ -154,11 +181,17 @@ def cuda_decode_attention(q, cache, policy: QuantPolicy, *, scale: float,
     parts = []
     s_q = _packed_capacity(cache)
     if s_q > 0:
-        k_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qk_")}
-        v_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qv_")}
-        bs, s_pad = _block_pad(s_q, block_s)
-        ok = _packed_ok(_padded_j(s_q, s_pad, q.device), lens, t_now, weff,
-                        policy, b)
+        if packed_override is not None or (local_slice and s_q > local_slice):
+            k_qt, v_qt, j = packed_view(cache, policy, lens, local_slice,
+                                        packed_override)
+        else:       # the whole region; a pooled cache keeps its table
+            k_qt = {kk[3:]: vv for kk, vv in cache.items()
+                    if kk.startswith("qk_")}
+            v_qt = {kk[3:]: vv for kk, vv in cache.items()
+                    if kk.startswith("qv_")}
+            j = torch.arange(s_q, dtype=torch.int32, device=q.device)
+        bs, s_pad = _block_pad(j.shape[-1], block_s)
+        ok = _packed_ok(_pad_j(j, s_pad), lens, t_now, weff, policy, b)
         bounds = seg.packed_block_bounds(ok, bs) if prune_blocks else None
         num, m, l = decode_attn(qg, k_qt, v_qt, ok.to(torch.float32), policy,
                                 d, scale, block_s=bs, softcap=softcap,
@@ -166,7 +199,7 @@ def cuda_decode_attention(q, cache, policy: QuantPolicy, *, scale: float,
                                 block_table=cache.get("block_tbl"))
         parts.append((num, m[..., 0], l[..., 0]))
     parts.extend(fp_segment_partial(qg, cache, policy, lens, t_now, weff,
-                                    scale, softcap, dtype))
+                                    scale, softcap, dtype, extra_kv))
     return seg.finalize(parts).reshape(b, 1, hq, d).to(q.dtype)
 
 

@@ -8,8 +8,12 @@ reference-decode paths of ``repro.models.attention``).
   over the chunked-prefill workspace.
 * :func:`decode_attention_skvq` — the ``"reference"`` backend: dequantize
   the packed region in the compute dtype and attend with the shared flash
-  partials (DESIGN.md §4); a pooled cache is unpooled first (§9).  Its
-  ``chunk``/``local_slice``/``packed_override`` levers are not ported yet.
+  partials (DESIGN.md §4); a pooled cache is unpooled first (§9).  With
+  the reference's levers: ``chunk`` tiles (dead ones skipped),
+  ``local_slice`` / ``packed_override`` views of a local layer's window,
+  and the pre-append ``extra_kv`` / ``q_pos`` protocol.
+* :func:`decode_attention` and :func:`decode_attention_fp` — one token
+  over gathered full-precision K/V (the plain-cache baseline).
 """
 from __future__ import annotations
 
@@ -107,20 +111,111 @@ def prefill_chunk_attention(q, ws_k, ws_v, pos_q, cfg: ArchConfig,
                                    window=window)
 
 
+def decode_attention(q, keys, values, pos_k, valid, t_now, cfg: ArchConfig,
+                     window: Optional[int] = None):
+    """One-token attention over gathered full-precision segments.
+
+    q (B, 1, Hq, D); keys/values (B, T, Hkv, D); ``pos_k``/``valid`` (T,)
+    or per-slot (B, T); ``t_now`` the query's absolute position, a scalar
+    or (B,).  A plain softmax in f32, as the reference's."""
+    b, _, hq, d = q.shape
+    hkv = keys.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).to(torch.float32) * _scale(cfg)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, keys.to(torch.float32))
+    s = softcap(s, cfg.attn_softcap)
+    ok = seg.attend_ok(pos_k, valid, t_now, seg.effective_window(window))
+    okb = ok[None, None, None, :] if ok.ndim == 1 else ok[:, None, None, :]
+    s = torch.where(okb, s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", p, values.to(torch.float32))
+    return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def decode_attention_fp(q, cache, cfg: ArchConfig,
+                        window: Optional[int] = None):
+    """Decode over a plain full-precision cache ``{k, v, length}`` (the
+    baseline): the query token is already appended."""
+    lens = kvc.slot_lengths(cache, q.shape[0])
+    pos = torch.arange(cache["k"].shape[1], dtype=torch.int32,
+                       device=q.device)
+    return decode_attention(q, cache["k"], cache["v"], pos,
+                            pos[None, :] < lens[:, None], lens - 1, cfg,
+                            window)
+
+
+def take_tokens(a: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Per-slot gather along the token axis of packed planes: ``a``
+    (..., B, S, H, W), ``j`` (B, n) token indices -> (..., B, n, H, W),
+    a contiguous copy."""
+    idx = j[:, :, None, None].expand(*a.shape[:-4], *j.shape, *a.shape[-2:])
+    return torch.gather(a, a.ndim - 3, idx)
+
+
+def slice_indices(lens, policy: QuantPolicy, lw: int, s_q: int
+                  ) -> torch.Tensor:
+    """(B, lw) packed indices of each slot's last ``lw`` packed tokens,
+    for slots holding ``lens`` tokens once the step's token is appended:
+    ``start = clip(qc - lw, 0, s_q - lw)``, ``qc`` the packed count
+    (reference ``attention.py:306-326``, ``transformer.py:923-950``)."""
+    qc = seg.quantized_count(lens, policy.n_sink, policy.window)
+    return (qc - lw).clamp(0, s_q - lw)[:, None] + torch.arange(
+        lw, device=qc.device)
+
+
+def packed_planes(cache):
+    """The packed K and V plane dicts of a (layer or band) cache, their
+    ``qk_``/``qv_`` prefixes stripped."""
+    return ({kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qk_")},
+            {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qv_")})
+
+
+def packed_view(cache, policy: QuantPolicy, lens, local_slice: int = 0,
+                packed_override=None):
+    """The packed planes a decode walks and their packed indices ``j``:
+    ``packed_override`` ``(k_qt, v_qt, j)`` as given (the unrolled step's
+    hoisted slice), else each slot's last ``local_slice`` packed tokens
+    (:func:`slice_indices`, when the region is longer), else the whole
+    region with ``j = arange(s_q)``.  Shared by both decode backends
+    (reference ``attention.py:306-326``)."""
+    if packed_override is not None:
+        return packed_override
+    k_qt, v_qt = packed_planes(cache)
+    s_q = k_qt["codes_hi"].shape[1]
+    if local_slice and s_q > local_slice:
+        j = slice_indices(lens, policy, local_slice, s_q)
+        return ({kk: take_tokens(vv, j) for kk, vv in k_qt.items()},
+                {kk: take_tokens(vv, j) for kk, vv in v_qt.items()}, j)
+    return k_qt, v_qt, torch.arange(s_q, device=k_qt["codes_hi"].device)
+
+
 def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
                           window: Optional[int] = None,
-                          dtype=torch.bfloat16):
+                          dtype=torch.bfloat16, chunk: int = 0,
+                          local_slice: int = 0, packed_override=None,
+                          extra_kv=None, q_pos=None,
+                          prune_blocks: bool = True):
     """Reference decode over the SKVQ cache: dequantize -> attend
-    (DESIGN.md §4).  Per-slot aware: ``cache["length"]`` is (B,); the query
-    token is already appended.  q (B, 1, Hq, D) -> (B, 1, Hq, D).  A pooled
-    cache (§9) is gathered into its striped view first, so pooled decode
-    equals striped decode on this backend by construction."""
+    (DESIGN.md §4).  Per-slot aware: ``cache["length"]`` is (B,).  q
+    (B, 1, Hq, D) -> (B, 1, Hq, D).  A pooled cache (§9) is gathered into
+    its striped view first, so pooled decode equals striped decode on this
+    backend by construction.
+
+    By default the query token is already appended.  The pre-append
+    protocol passes it as ``extra_kv = (k, v, pos)`` (one more fp segment)
+    with ``q_pos`` its position.  ``local_slice``/``packed_override``
+    narrow the packed walk (:func:`packed_view`).  ``chunk`` walks the
+    packed view in ``chunk``-token tiles merged online (when it divides
+    the view); with ``prune_blocks`` a tile no slot can attend
+    (``segments.block_live``) is skipped, whose merge would be an exact
+    no-op.  The skip reads the tiles' liveness on the host once a call:
+    this is the oracle path, not the served one."""
     if kvc.is_pooled(cache):
         cache = kvc.unpool_cache(cache)
     w, ns = policy.window, policy.n_sink
     b, _, hq, d = q.shape
     lens = kvc.slot_lengths(cache, b)
-    t_now = lens - 1
+    t_now = lens - 1 if q_pos is None else torch.as_tensor(
+        q_pos, device=lens.device).expand(b)
     scale = _scale(cfg)
     weff = seg.effective_window(window)
 
@@ -142,26 +237,51 @@ def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
     s_q = cache["qk_codes_hi"].shape[1] if "qk_codes_hi" in cache else 0
     if s_q > 0:
         gsz = min(policy.group_size, d)
-        k_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qk_")}
-        v_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qv_")}
-        j = torch.arange(s_q, device=q.device)
+        k_qt, v_qt, j = packed_view(cache, policy, lens, local_slice,
+                                    packed_override)
         pos_q, stored_q = seg.packed_segment(j, lens, ns, w)
-        ok_q = seg.attend_ok(pos_q, stored_q, t_now, weff)
-        keys = dequantize_groups(k_qt, d, policy.bits_k, gsz, policy.fp8_meta,
-                                 dtype)
-        values = dequantize_groups(v_qt, d, policy.bits_v, gsz,
-                                   policy.fp8_meta, dtype)
-        parts.append(seg.partial_attend(qg, keys, values, ok_q, scale,
-                                        cfg.attn_softcap))
+        ok_q = seg.bcast_rows(seg.attend_ok(pos_q, stored_q, t_now, weff), b)
+
+        def dq(qt, bits):
+            return dequantize_groups(qt, d, bits, gsz, policy.fp8_meta, dtype)
+
+        sq_eff = k_qt["codes_hi"].shape[1]
+        if chunk and sq_eff > chunk and sq_eff % chunk == 0:
+            nc = sq_eff // chunk
+            live = (seg.block_live(ok_q, chunk).any(dim=0).tolist()
+                    if prune_blocks else [True] * nc)
+            part = (torch.zeros((b, hkv, hq // hkv, d), dtype=torch.float32,
+                                device=q.device),
+                    torch.full((b, hkv, hq // hkv), _NEG,
+                               dtype=torch.float32, device=q.device),
+                    torch.zeros((b, hkv, hq // hkv), dtype=torch.float32,
+                                device=q.device))
+            for c in range(nc):
+                if not live[c]:
+                    continue          # a dead tile: an exact no-op merge
+                sl = slice(c * chunk, (c + 1) * chunk)
+                tile = lambda qt: {kk: vv[:, sl] for kk, vv in qt.items()}
+                part = seg.merge_partials(part, seg.partial_attend(
+                    qg, dq(tile(k_qt), policy.bits_k),
+                    dq(tile(v_qt), policy.bits_v), ok_q[:, sl], scale,
+                    cfg.attn_softcap))
+            parts.append(part)
+        else:
+            parts.append(seg.partial_attend(
+                qg, dq(k_qt, policy.bits_k), dq(v_qt, policy.bits_v), ok_q,
+                scale, cfg.attn_softcap))
     parts.extend(fp_segment_partial(qg, cache, policy, lens, t_now, weff,
-                                    scale, cfg.attn_softcap, dtype))
+                                    scale, cfg.attn_softcap, dtype,
+                                    extra_kv))
     return seg.finalize(parts).reshape(b, 1, hq, d).to(q.dtype)
 
 
 def fp_segment_partial(qg, cache, policy: QuantPolicy, lens, t_now, weff,
-                       scale: float, cap: float, dtype):
+                       scale: float, cap: float, dtype, extra_kv=None):
     """The fp sink + window-ring partial shared by both decode backends
-    (DESIGN.md §1, §4): ``[]`` when the policy keeps no fp segment."""
+    (DESIGN.md §1, §4), with the pre-append protocol's current token
+    ``extra_kv = (k (B, 1, Hkv, D), v, pos (B,))`` as one more segment:
+    ``[]`` when there is no fp segment."""
     b = qg.shape[0]
     ks, vs, pos, valid = [], [], [], []
     w, ns = policy.window, policy.n_sink
@@ -177,6 +297,14 @@ def fp_segment_partial(qg, cache, policy: QuantPolicy, lens, t_now, weff,
         p, st = seg.window_segment(w, ns, lens)
         pos.append(seg.bcast_rows(p, b))
         valid.append(seg.bcast_rows(st, b))
+    if extra_kv is not None:
+        k1, v1, p1 = extra_kv
+        ks.append(k1)
+        vs.append(v1)
+        p1 = torch.as_tensor(p1, device=qg.device).reshape(-1, 1)
+        pos.append(seg.bcast_rows(p1.to(torch.int32), b))
+        valid.append(torch.ones((b, 1), dtype=torch.bool,
+                                device=qg.device))
     if not ks:
         return []
     kf = torch.cat(ks, dim=1).to(dtype)

@@ -78,11 +78,17 @@ class ReferenceBackend:
     name: str = "reference"
 
     def attend(self, q, cache, cfg: ArchConfig, policy: QuantPolicy, *,
-               window=None, dtype=torch.bfloat16):
-        """One query token against the SKVQ cache (DESIGN.md §4)."""
+               window=None, dtype=torch.bfloat16, chunk: int = 0,
+               local_slice: int = 0, packed_override=None, extra_kv=None,
+               q_pos=None, prune_blocks: bool = True):
+        """One query token against the SKVQ cache (DESIGN.md §4), with the
+        reference's levers (``attention.decode_attention_skvq``)."""
         from .attention import decode_attention_skvq
-        return decode_attention_skvq(q, cache, cfg, as_layer_policy(policy),
-                                     window=window, dtype=dtype)
+        return decode_attention_skvq(
+            q, cache, cfg, as_layer_policy(policy), window=window,
+            dtype=dtype, chunk=chunk, local_slice=local_slice,
+            packed_override=packed_override, extra_kv=extra_kv, q_pos=q_pos,
+            prune_blocks=prune_blocks)
 
     def quant_fn(self, policy: QuantPolicy) -> Optional[Callable]:
         """None: kv_cache falls back to ``quantize_groups`` (DESIGN.md §2)."""
@@ -123,14 +129,20 @@ class CudaBackend:
     name: str = "cuda"
 
     def attend(self, q, cache, cfg: ArchConfig, policy: QuantPolicy, *,
-               window=None, dtype=torch.bfloat16):
+               window=None, dtype=torch.bfloat16, chunk: int = 0,
+               local_slice: int = 0, packed_override=None, extra_kv=None,
+               q_pos=None, prune_blocks: bool = True):
         """One query token via ``kernels.ops.cuda_decode_attention``, with
-        ``BLOCK_S``-token tiles and dead-tile pruning (DESIGN.md §4)."""
+        ``BLOCK_S``-token tiles and dead-tile pruning (DESIGN.md §4), and
+        the reference's levers."""
         from ..kernels.ops import cuda_decode_attention
         from .attention import _scale
         return cuda_decode_attention(
             q, cache, as_layer_policy(policy), scale=_scale(cfg),
-            softcap=cfg.attn_softcap, window=window, dtype=dtype)
+            softcap=cfg.attn_softcap, window=window, dtype=dtype,
+            chunk=chunk, local_slice=local_slice,
+            packed_override=packed_override, extra_kv=extra_kv, q_pos=q_pos,
+            prune_blocks=prune_blocks)
 
     def quant_fn(self, policy: QuantPolicy) -> Optional[Callable]:
         """The bulk ``kv_quant`` kernel for every quantized policy

@@ -1,8 +1,10 @@
 """ArchConfig — declarative model description (port of
-``repro.models.config``, the fields the dense family reads).
+``repro.models.config``, the fields the dense and vlm families read).
 
-The port's transformer runs ``family="dense"`` only; the other families of
-the reference (moe, hybrid, ssm, encdec, vlm) are not ported yet.
+The port's transformer runs ``family="dense"`` (llama, granite and the
+gemma local/global stacks) and ``family="vlm"`` (qwen2-vl: a dense decoder
+with M-RoPE and an embedding input, the vision frontend stubbed as in the
+reference); the reference's moe, hybrid, ssm and encdec are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # only "dense" runs in the port so far
+    family: str                    # "dense" or "vlm" run in the port
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,17 +25,23 @@ class ArchConfig:
     vocab_size: int
     # --- attention ---
     rope_theta: float = 10_000.0
+    rope_theta_local: float = 0.0     # gemma3: local layers use a different base
+    mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE half-dim sections
     attn_softcap: float = 0.0
     logit_softcap: float = 0.0
     query_scale: float = 0.0           # 0 -> 1/sqrt(head_dim)
     local_window: int = 0              # sliding-window size for "local" layers
     local_pattern: Tuple[int, ...] = ()
+    qk_norm: bool = False              # gemma3 RMS-norms q and k
+    qkv_bias: bool = False             # qwen2
     # --- mlp ---
     mlp_act: str = "silu"              # silu | gelu | relu
     mlp_gated: bool = True
     tie_embeddings: bool = True
     embed_scale: bool = False
     norm_eps: float = 1e-6
+    # --- io stubs ---
+    input_embeds: bool = False         # vlm: inputs may be embeddings
 
     @property
     def q_dim(self) -> int:

@@ -44,6 +44,29 @@ def rope_table(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_tables(positions3: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, ...]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL M-RoPE: ``positions3`` (3, B, S); ``sections`` are half-dim
+    widths summing to ``head_dim // 2``.  Each frequency band takes its
+    angle from the (temporal | height | width) position stream it belongs
+    to.  The band picks are built on the device from the static sections
+    (no host tensor), so a captured decode step may hold them."""
+    half = head_dim // 2
+    dev = positions3.device
+    idx = torch.arange(0, half, dtype=torch.float32, device=dev)
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32, device=dev),
+                     -idx / half)
+    ang = positions3.to(torch.float32)[..., None] * freq   # (3, B, S, half)
+    edges = [0]
+    for w in sections:
+        edges.append(edges[-1] + w)
+    pick = torch.stack([((idx >= lo) & (idx < hi)).to(torch.float32)
+                        for lo, hi in zip(edges[:-1], edges[1:])])
+    ang = (ang * pick[:, None, None, :]).sum(dim=0)        # (B, S, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """x (B, S, H, D); cos/sin (B, S, D/2) or (S, D/2) — rotate-half form."""
     if cos.ndim == 2:

@@ -27,8 +27,18 @@ path of ``repro.models.transformer``).
 
 Chunked prefill (DESIGN.md §7: :func:`prefill_chunk_init`,
 :func:`prefill_chunk`) streams a prompt through the cache a chunk at a
-time, band by band.  Only the dense family is ported; ``unroll`` and
-``chunk`` come later.
+time, band by band.
+
+Families: ``dense`` (llama, granite, and the gemma local/global stacks
+with softcaps, ``qk_norm`` and a local RoPE base) and ``vlm`` (qwen2-vl:
+qkv bias, M-RoPE, untied head; its vision frontend is stubbed, so the
+entry points take ``embeds=`` (B, S, d) in place of tokens and
+``positions=`` (3, B, S); text-only M-RoPE broadcasts ``arange`` to the 3
+streams).  The layer loop is static, so a layer's locality (its window
+and RoPE base) is a Python fact, where the reference scans flag arrays.
+:func:`decode_step` takes the reference's ``chunk`` and ``unroll``
+levers; ``unroll=True`` slices each band's packed planes once to the
+local window and lets local layers attend before their append.
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ import torch
 from .config import ArchConfig
 from . import layers as L
 from . import backends as bk
-from .attention import prefill_block_attention, prefill_chunk_attention
+from .attention import (packed_planes, prefill_block_attention,
+                        prefill_chunk_attention, slice_indices, take_tokens)
 from ..core.policy import (PolicySchedule, QuantPolicy, as_layer_policy,
                            as_schedule)
 from ..core import kv_cache as kvc
@@ -50,47 +61,80 @@ from ..device import resolve_device
 Params = Dict
 
 
-def _check_dense(cfg: ArchConfig):
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port runs the dense family only, "
-                                  f"got family={cfg.family!r}")
+FAMILIES = ("dense", "vlm")
+
+
+def _check_family(cfg: ArchConfig):
+    """The port runs the dense decoder and the vlm decoder (M-RoPE over
+    the same blocks); the reference's other families are not ported."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"the port runs the {' and '.join(FAMILIES)}"
+                                  f" families, got family={cfg.family!r}")
 
 
 # =============================================================== init
+
+def param_specs(cfg: ArchConfig) -> Dict[str, tuple]:
+    """``{"path/to/leaf": (shape, scale)}`` of every leaf the config's
+    params hold (the reference's ``init_params`` tree), in draw order;
+    scale 0 means zeros.  The one place that knows the params layout:
+    :func:`init_params` builds it and ``convert.params_from_numpy`` checks
+    a tree against it."""
+    _check_family(cfg)
+    n, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.head_dim
+    w = lambda din, dout: ((n, din, dout), din ** -0.5)
+    spec = {"embed": ((cfg.vocab_size, d), 0.02), "final_norm/w": ((d,), 0)}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ((d, cfg.vocab_size), d ** -0.5)
+    spec.update({"layers/mlp/wi_up": w(d, f), "layers/mlp/wo": w(f, d)})
+    if cfg.mlp_gated:
+        spec["layers/mlp/wi_gate"] = w(d, f)
+    spec.update({"layers/attn/wq": w(d, cfg.q_dim),
+                 "layers/attn/wk": w(d, cfg.kv_dim),
+                 "layers/attn/wv": w(d, cfg.kv_dim),
+                 "layers/attn/wo_attn": w(cfg.q_dim, d)})
+    if cfg.qkv_bias:
+        spec.update({"layers/attn/bq": ((n, cfg.q_dim), 0),
+                     "layers/attn/bk": ((n, cfg.kv_dim), 0),
+                     "layers/attn/bv": ((n, cfg.kv_dim), 0)})
+    if cfg.qk_norm:
+        spec.update({"layers/attn/q_norm": ((n, hd), 0),
+                     "layers/attn/k_norm": ((n, hd), 0)})
+    spec.update({"layers/norm1/w": ((n, d), 0), "layers/norm2/w": ((n, d), 0)})
+    return spec
+
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """``{"path/to/leaf": shape}`` of :func:`param_specs`."""
+    return {k: shape for k, (shape, _) in param_specs(cfg).items()}
+
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> Params:
     """Random params with the reference's scales (``transformer.py:49-155``),
     drawn from a seeded ``torch.Generator`` on ``device`` (default CUDA;
-    raises without a card unless ``device="cpu"``)."""
-    _check_dense(cfg)
+    raises without a card unless ``device="cpu"``): the leaves of
+    :func:`param_specs`, a ``layers/`` weight drawn layer by layer."""
+    spec = param_specs(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-
-    def normal(shape, scale):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
-
-    def stacked(din, dout):
-        out = torch.empty((n, din, dout), dtype=dtype, device=dev)
-        for i in range(n):
-            out[i] = normal((din, dout), din ** -0.5)
-        return out
-
-    zeros = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
-    params: Params = {"embed": normal((cfg.vocab_size, d), 0.02),
-                      "final_norm": {"w": zeros(d)}}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
-    mlp = {"wi_up": stacked(d, f), "wo": stacked(f, d)}
-    if cfg.mlp_gated:
-        mlp["wi_gate"] = stacked(d, f)
-    params["layers"] = {
-        "norm1": {"w": zeros(n, d)}, "norm2": {"w": zeros(n, d)},
-        "attn": {"wq": stacked(d, cfg.q_dim), "wk": stacked(d, cfg.kv_dim),
-                 "wv": stacked(d, cfg.kv_dim),
-                 "wo_attn": stacked(cfg.q_dim, d)},
-        "mlp": mlp}
+    params: Params = {}
+    for path, (shape, scale) in spec.items():
+        if scale == 0:
+            leaf = torch.zeros(shape, dtype=dtype, device=dev)
+        elif path.startswith("layers/"):
+            leaf = torch.empty(shape, dtype=dtype, device=dev)
+            for i in range(shape[0]):
+                leaf[i] = (torch.randn(shape[1:], generator=g, device=dev)
+                           * scale).to(dtype)
+        else:
+            leaf = (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+        *parents, name = path.split("/")
+        node = params
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = leaf
     return params
 
 
@@ -212,24 +256,76 @@ def _check_calib_schedule(calib, sched: PolicySchedule, cfg: ArchConfig):
 # =========================================================== attention sub
 
 def _rope_tables(cfg: ArchConfig, positions):
-    return L.rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    """The (global, local) pair of (cos, sin) tables at ``positions``
+    ((3, B, S) under M-RoPE): the local pair is the global one unless the
+    config gives local layers their own base (``rope_theta_local``)."""
+    if cfg.mrope_sections:
+        rope = L.mrope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                              cfg.mrope_sections)
+        return rope, rope
+    rope = L.rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.rope_theta_local > 0:
+        return rope, L.rope_table(positions, cfg.head_dim,
+                                  cfg.rope_theta_local)
+    return rope, rope
+
+
+def _layer_rope(cfg: ArchConfig, ropes, i: int):
+    """Layer ``i``'s tables: static, where the reference selects by a
+    scanned flag (``jnp.where(is_local, local, global)``)."""
+    return ropes[1] if cfg.layer_is_local(i) else ropes[0]
+
+
+def _proj(x, p, w: str, bias: str):
+    """``x @ p[w]``, plus ``p[bias]`` where the layer has one (qkv_bias)."""
+    y = x @ p[w]
+    return y + p[bias] if bias in p else y
 
 
 def _qkv(x, p, cfg: ArchConfig, rope):
-    """Project + rope: q, k, v (B, S, H, hd) post-rope (pre-perm)."""
+    """Project (+ bias), RMS-norm q and k per head (``qk_norm``, the
+    ``(1 + w)`` form), rope: q, k, v (B, S, H, hd) post-rope (pre-perm)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = _proj(x, p, "wq", "bq").reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = _proj(x, p, "wk", "bk").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = _proj(x, p, "wv", "bv").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
+
+
+def _embed_in(params: Params, cfg: ArchConfig, tokens, embeds):
+    """The model's input rows: ``embeds`` (B, S, d) when the config takes
+    embeddings (the stubbed vision frontend's patch embeddings), else the
+    token embedding of ``tokens`` (B, S)."""
+    if embeds is not None:
+        if not cfg.input_embeds:
+            raise ValueError(f"{cfg.name} takes tokens, not embeds")
+        return embeds
+    if tokens is None:
+        raise ValueError("pass tokens or embeds")
+    return L.embed(tokens, params["embed"], cfg.embed_scale)
+
+
+def _positions(cfg: ArchConfig, s: int, positions, device):
+    """Prefill positions: ``arange(s)``, or under M-RoPE the (3, B, S)
+    streams given, text-only ``arange`` broadcast to (3, 1, S)."""
+    if not cfg.mrope_sections:
+        if positions is not None:
+            raise ValueError("positions= is for M-RoPE configs")
+        return torch.arange(s, dtype=torch.int32, device=device)
+    if positions is not None:
+        return positions
+    return torch.arange(s, dtype=torch.int32, device=device).expand(3, 1, s)
 
 
 def _window(cfg: ArchConfig, i: int) -> int:
     return cfg.local_window if cfg.layer_is_local(i) else 0
 
 
-def _block_full(x, params: Params, cfg: ArchConfig, rope, i: int):
+def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int):
     """Layer ``i`` over the whole sequence in full precision (the fixed
     128-wide key blocks of DESIGN.md §7): returns (x, k, v) with k/v
     (B, S, H_kv, D) post-RoPE and unpermuted, the K/V the cache
@@ -237,7 +333,7 @@ def _block_full(x, params: Params, cfg: ArchConfig, rope, i: int):
     b, s, _ = x.shape
     p = _layer(params["layers"], i)
     hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
-    q, k, v = _qkv(hn, p["attn"], cfg, rope)
+    q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
     attn = prefill_block_attention(q, k, v, cfg, window=_window(cfg, i))
     x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
     x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p["mlp"],
@@ -258,34 +354,39 @@ def _bands(cfg: ArchConfig, policy, calib):
     return sched.bands()
 
 
-def prefill_model(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                  policy, calib: Optional[Dict] = None,
-                  max_len: Optional[int] = None, dtype=None, backend=None):
-    """Paper Sec. 3.2 prefill of ``tokens`` (B, S): full-precision attention
-    (fixed 128-wide key blocks, DESIGN.md §7), then quantize all but the
-    sinks and the window through the backend's quantizer, band by band
-    with each band's policy (DESIGN.md §8).
+def prefill_model(params: Params, cfg: ArchConfig, tokens, policy,
+                  calib: Optional[Dict] = None,
+                  max_len: Optional[int] = None, dtype=None, backend=None,
+                  *, embeds: Optional[torch.Tensor] = None,
+                  positions: Optional[torch.Tensor] = None):
+    """Paper Sec. 3.2 prefill of ``tokens`` (B, S) (or, for a config with
+    ``input_embeds``, of ``embeds`` (B, S, d) with ``tokens`` None):
+    full-precision attention (fixed 128-wide key blocks, DESIGN.md §7),
+    then quantize all but the sinks and the window through the backend's
+    quantizer, band by band with each band's policy (DESIGN.md §8).
+    ``positions`` (3, B, S) are the M-RoPE streams (default: ``arange``
+    on each).
 
     Returns (last-token logits (B, 1, V), {"scan": caches}): layer-stacked,
     band-keyed when the schedule has more than one band."""
-    _check_dense(cfg)
+    _check_family(cfg)
     bands = _bands(cfg, policy, calib)
-    dev = tokens.device
-    backend = bk.resolve_backend(backend, dev)
     params = _cast_params(params, dtype)
-    x = L.embed(tokens, params["embed"], cfg.embed_scale)
+    x = _embed_in(params, cfg, tokens, embeds)
+    dev = x.device
+    backend = bk.resolve_backend(backend, dev)
     if dtype is not None:
         x = x.to(dtype)
     s = x.shape[1]
     ml = max_len or (s + 64)
-    rope = _rope_tables(cfg, torch.arange(s, dtype=torch.int32, device=dev))
+    ropes = _rope_tables(cfg, _positions(cfg, s, positions, dev))
     outs = {}
     for bs, be, pol in bands:
         quant_fn = backend.quant_fn(pol)
         cal = _band_calib(calib, cfg, pol, bs, be, dev)
         caches = []
         for i in range(bs, be):
-            x, k, v = _block_full(x, params, cfg, rope, i)
+            x, k, v = _block_full(x, params, cfg, ropes, i)
             j = i - bs
             caches.append(kvc.prefill(
                 _apply_perm(k, cal["perm_k"][j]).to(x.dtype),
@@ -299,21 +400,23 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 # ============================================================= collect_kv
 
-def collect_kv(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-               max_samples: int = 4096):
+def collect_kv(params: Params, cfg: ArchConfig, tokens,
+               max_samples: int = 4096, *,
+               embeds: Optional[torch.Tensor] = None,
+               positions: Optional[torch.Tensor] = None):
     """Post-RoPE K/V of every layer for calibration: (L, N, H_kv, D) each,
     N = B x S tokens cut to ``max_samples``, in the params' dtype on the
     tokens' device.  The layer loop is :func:`prefill_model`'s
     (:func:`_block_full`), so calibration sees exactly the K/V that the
-    cache quantizes (before the channel permutation)."""
-    _check_dense(cfg)
-    x = L.embed(tokens, params["embed"], cfg.embed_scale)
+    cache quantizes (before the channel permutation); ``embeds`` and
+    ``positions`` as in :func:`prefill_model`."""
+    _check_family(cfg)
+    x = _embed_in(params, cfg, tokens, embeds)
     b, s, _ = x.shape
-    rope = _rope_tables(cfg, torch.arange(s, dtype=torch.int32,
-                                          device=tokens.device))
+    ropes = _rope_tables(cfg, _positions(cfg, s, positions, x.device))
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = _block_full(x, params, cfg, rope, i)
+        x, k, v = _block_full(x, params, cfg, ropes, i)
         ks.append(k.reshape(b * s, cfg.n_kv_heads, cfg.head_dim)[:max_samples])
         vs.append(v.reshape(b * s, cfg.n_kv_heads, cfg.head_dim)[:max_samples])
     return torch.stack(ks), torch.stack(vs)
@@ -339,12 +442,15 @@ def fuse_v_permutation(attn_params: Dict, perm_v, n_heads: int) -> Dict:
 
 def _check_chunkable(cfg: ArchConfig):
     """Chunked prefill runs the dense family without M-RoPE (the
-    reference's ``_check_chunkable``)."""
+    reference's ``_check_chunkable``, with its messages)."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"chunked prefill supports the dense family only, got "
-            f"family={cfg.family!r}: use whole-prompt prefill")
-    if getattr(cfg, "mrope_sections", None):
+            f"family={cfg.family!r}: ssm/hybrid/encdec prefill state is not "
+            f"chunk-carried yet, and moe expert capacity scales with the "
+            f"token count, so a chunked run would drop different tokens "
+            f"than a whole-prompt run — use whole-prompt prefill")
+    if cfg.mrope_sections:
         raise NotImplementedError(
             "chunked prefill does not support M-RoPE position streams")
 
@@ -415,7 +521,7 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         x = x.to(dtype)
     b, c, _ = x.shape
     pos, _ = seg.chunk_segment(t0, n_valid, c, device=dev)
-    rope = _rope_tables(cfg, pos)
+    ropes = _rope_tables(cfg, pos)
     for bs, be, pol in bands:
         append = backend.chunk_append_fn(pol)
         cal = _band_calib(calib, cfg, pol, bs, be, dev)
@@ -426,7 +532,7 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             p = _layer(params["layers"], i)
             cache = {k: v[j] for k, v in group.items()}
             hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
-            q, k, v = _qkv(hn, p["attn"], cfg, rope)
+            q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
             _ws_write(ws["k"][j], k, t0, n_valid)
             _ws_write(ws["v"][j], v, t0, n_valid)
             attn = prefill_chunk_attention(q, ws["k"][j], ws["v"][j], pos,
@@ -445,10 +551,50 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 # ================================================================= decode
 
-def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
-                caches, policy, calib: Optional[Dict] = None,
-                dtype=None, backend=None):
-    """One decode step for ``token`` (B, 1) at each slot's own position.
+def _decode_positions(cfg: ArchConfig, t, positions):
+    """Each slot's position for the step, as the table functions take it:
+    (B, 1) from the cache lengths ``t`` (or ``positions``, broadcast to
+    (B,)), or under M-RoPE (3, B, 1) (``positions`` as given)."""
+    b = t.shape[0]
+    if cfg.mrope_sections:
+        return t[None, :, None].expand(3, b, 1) if positions is None \
+            else positions
+    pos = t if positions is None else torch.as_tensor(
+        positions, device=t.device).reshape(-1).expand(b)
+    return pos[:, None]
+
+
+def _local_hoist(cfg: ArchConfig, group, pol: QuantPolicy, t, bs: int,
+                 be: int):
+    """The unrolled step's hoisted local view of one band: ONE stacked
+    gather of each slot's last ``local_window`` packed tokens of every
+    layer, ``(k_planes, v_planes, j)`` with planes ``(L_band, B, lw, ...)``
+    and ``j`` (B, lw) their packed indices, taken from the pre-step cache
+    (reference ``transformer.py:923-950``).  None when the band has no
+    local layer, no packed region longer than the window, or is pooled
+    (pool-major planes have no per-slot token axis; its local layers take
+    the backend's ``local_slice`` route instead)."""
+    lw = cfg.local_window
+    if (lw <= 0 or "block_tbl" in group or "qk_codes_hi" not in group
+            or not any(cfg.layer_is_local(i) for i in range(bs, be))):
+        return None
+    s_q = group["qk_codes_hi"].shape[2]
+    if s_q <= lw:
+        return None
+    gidx = slice_indices(t + 1, pol, lw, s_q)                 # (B, lw)
+    k_qt, v_qt = packed_planes(group)
+    return ({k: take_tokens(v, gidx) for k, v in k_qt.items()},
+            {k: take_tokens(v, gidx) for k, v in v_qt.items()}, gidx)
+
+
+def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
+                calib: Optional[Dict] = None, dtype=None, backend=None, *,
+                embeds: Optional[torch.Tensor] = None, positions=None,
+                chunk: int = 0, unroll: bool = False,
+                prune_blocks: bool = True):
+    """One decode step for ``token`` (B, 1) (or ``embeds`` (B, 1, d)) at
+    each slot's own position (``positions`` overrides it: (B,), or
+    (3, B, 1) under M-RoPE).
 
     Band by band (DESIGN.md §8), each layer appends + quantizes the
     evicted token through the backend's ``append_fn`` for the band's
@@ -456,35 +602,73 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     §4): each band's route and kernel launch plan are fixed by its policy,
     so a captured step stays static.  ``caches`` (as
     :func:`prefill_model` builds them) are updated **in place** and
-    returned with the logits (B, 1, V)."""
-    _check_dense(cfg)
+    returned with the logits (B, 1, V).
+
+    ``chunk`` tiles the reference backend's packed walk (the kernel
+    ignores it); ``prune_blocks`` toggles dead-block skipping.
+    ``unroll=True`` is the reference's long-context lever for
+    local-attention layers (off by default, as there): per band,
+    :func:`_local_hoist` slices the packed planes once, and each local
+    layer attends over its slice BEFORE its append, the current token
+    riding as an fp segment (``extra_kv``, ``q_pos``), then appends; a
+    local layer of a band without the hoist (a pooled band) attends after
+    its append through ``local_slice``; global layers are unchanged.  As
+    in the reference, the two orders differ where the policy window is
+    shorter than the local window: the token the append evicts is read in
+    fp before it and quantized after, so a pooled band's unrolled step is
+    not the striped one's there."""
+    _check_family(cfg)
     bands = _bands(cfg, policy, calib)
-    dev = token.device
-    backend = bk.resolve_backend(backend, dev)
     params = _cast_params(params, dtype)
-    x = L.embed(token, params["embed"], cfg.embed_scale)
+    x = _embed_in(params, cfg, token, embeds)
+    dev = x.device
+    backend = bk.resolve_backend(backend, dev)
     if dtype is not None:
         x = x.to(dtype)
     b = x.shape[0]
     t = _first_stack(caches["scan"])["length"][0]    # (B,) per-slot position
-    rope = _rope_tables(cfg, t[:, None])
+    if unroll:
+        # a view of layer 0's length, which its append bumps in place; the
+        # pre-append layers read it after that, so they take a copy
+        t = t.clone()
+    ropes = _rope_tables(cfg, _decode_positions(cfg, t, positions))
+    lever = {"chunk": chunk, "prune_blocks": prune_blocks}
     for bs, be, pol in bands:
         append = backend.append_fn(pol)
         cal = _band_calib(calib, cfg, pol, bs, be, dev)
         perm_q = _expand_perm(cal["perm_k"], cfg.n_heads)
         inv_v = _expand_perm(_inverse_perm(cal["perm_v"]), cfg.n_heads)
         group = _band_cache(caches["scan"], bands, bs)
+        hoist = _local_hoist(cfg, group, pol, t, bs, be) if unroll else None
         for i in range(bs, be):
             j = i - bs
             p = _layer(params["layers"], i)
             cache = {k: v[j] for k, v in group.items()}
             hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
-            q, k, v = _qkv(hn, p["attn"], cfg, rope)
-            append(cache, _apply_perm(k, cal["perm_k"][j]),
-                   _apply_perm(v, cal["perm_v"][j]), pol, cal["alpha_k"][j],
-                   cal["alpha_v"][j])
-            attn = backend.attend(_apply_perm(q, perm_q[j]), cache, cfg, pol,
-                                  window=_window(cfg, i), dtype=x.dtype)
+            q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
+            qp = _apply_perm(q, perm_q[j])
+            kp = _apply_perm(k, cal["perm_k"][j])
+            vp = _apply_perm(v, cal["perm_v"][j])
+            local = unroll and cfg.layer_is_local(i) and cfg.local_window > 0
+            if local and hoist is not None:
+                # pre-append: the slice holds the pre-step cache, so attend
+                # first (the current token as an fp segment), then append
+                po = ({n: a[j] for n, a in hoist[0].items()},
+                      {n: a[j] for n, a in hoist[1].items()}, hoist[2])
+                attn = backend.attend(
+                    qp, cache, cfg, pol, window=_window(cfg, i),
+                    dtype=x.dtype, packed_override=po,
+                    extra_kv=(kp.to(x.dtype), vp.to(x.dtype), t), q_pos=t,
+                    **lever)
+                append(cache, kp, vp, pol, cal["alpha_k"][j],
+                       cal["alpha_v"][j])
+            else:
+                append(cache, kp, vp, pol, cal["alpha_k"][j],
+                       cal["alpha_v"][j])
+                attn = backend.attend(
+                    qp, cache, cfg, pol, window=_window(cfg, i),
+                    dtype=x.dtype,
+                    local_slice=cfg.local_window if local else 0, **lever)
             attn = _apply_perm(attn, inv_v[j])
             x = x + attn.reshape(b, 1, -1) @ p["attn"]["wo_attn"]
             x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),

@@ -539,8 +539,9 @@ class Engine:
             raise ValueError(f"pool_block_tokens must be >= 8, got {bt}")
         if cfg.family != "dense":
             raise ValueError(
-                f"the paged KV block pool supports the dense family only, "
-                f"got family={cfg.family!r}")
+                f"the paged KV block pool supports the dense family only "
+                f"(the scan-family recurrence has no packed planes to "
+                f"pool), got family={cfg.family!r}")
         rows: List[tuple] = []
         for bs, be, pol in self.schedule.bands():
             if pol.is_fp16:

@@ -22,7 +22,11 @@ runs on a machine with only torch:
   every plane width (1/2/4/8 bits, one and two planes), fp16 metadata,
   Gq up to 8 and head dims 16..256 against the plain version.
 * one decode step of a smoke model: ``"cuda"`` backend vs ``"reference"``
-  backend in f32, where both dequantize in f32 — ``atol=rtol=1e-4``.
+  backend in f32, where both dequantize in f32 — ``atol=rtol=1e-4``; the
+  same bound for gemma3 smoke's unrolled step (hoisted local slices,
+  pre-append attends) against its default step.  decode_attn also at the
+  new families' head shapes (Gq 7 / D 128, Gq 2 / D 256, softcap 50) and
+  kv_append at Hkv 4 / D 256.
 * the serving harness (DESIGN.md §10): a CUDA-graph replay of one decode
   step BYTE-equal to an eager step in every cache leaf and the logits,
   striped and pooled; the launch counters after N replays; every cache
@@ -234,7 +238,8 @@ def _caches_equal(a, c, pooled, what):
                            if y.dtype != torch.int32 else y), f"{what} {k}"
 
 
-@pytest.mark.parametrize("d,hkv,gs", [(128, 32, 128), (64, 8, 64)])
+@pytest.mark.parametrize("d,hkv,gs", [(128, 32, 128), (64, 8, 64),
+                                      (256, 4, 128)])
 @pytest.mark.parametrize("pooled", [False, True])
 @pytest.mark.parametrize("window", [32, 0])
 def test_kv_append_kernel_matches_plain_300_steps(d, hkv, gs, pooled,
@@ -312,8 +317,11 @@ def _ragged(rng, dev, hkv, gq, d, s_mask=1024, bs=256):
     return pol, q, k_qt, v_qt, mask, bounds, bs
 
 
-@pytest.mark.parametrize("gq,hkv,d", [(1, 32, 128), (4, 8, 64)])
-@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("gq,hkv,d,cap", [
+    (1, 32, 128, 0.0), (1, 32, 128, 30.0), (4, 8, 64, 0.0), (4, 8, 64, 30.0),
+    (7, 4, 128, 0.0),          # qwen2-vl: Gq 7 on the G = 8 template
+    (2, 4, 256, 0.0),          # gemma3
+    (2, 16, 128, 50.0)])       # gemma2's softcap; slots 2, 3 have lo > 0
 def test_decode_attn_kernel_matches_plain(gq, hkv, d, cap, cuda_device):
     rng = np.random.default_rng(1)
     pol, q, k_qt, v_qt, mask, bounds, bs = _ragged(rng, cuda_device, hkv, gq,
@@ -499,6 +507,32 @@ def test_decode_step_cuda_backend_matches_reference(arch, cuda_device):
     want, _ = T.decode_step(params, cfg, tok, clone(), pol,
                             backend="reference")
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_unrolled_gemma3_step_on_the_card(cuda_device):
+    """gemma3 smoke (5 of 6 layers local, window 8; 52 packed slots): the
+    unrolled step (the hoisted slice, pre-append attends) on the kernels
+    against the default step, f32, ``atol=rtol=1e-4``; one striped
+    decode_attn launch a layer, over the slices on the local ones."""
+    cfg = configs.get_smoke("gemma3_4b")
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
+                      n_sink=4)
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(0))
+    _, base = T.prefill_model(params, cfg, toks, pol, max_len=64,
+                              backend="cuda")
+    clone = lambda: {"scan": {k: v.clone() for k, v in base["scan"].items()}}
+    unrolled, default = clone(), clone()
+    for step in range(4):
+        tok = toks[:, step:step + 1]
+        before = DA.LAUNCHES["kernel"]
+        got, unrolled = T.decode_step(params, cfg, tok, unrolled, pol,
+                                      backend="cuda", unroll=True)
+        assert DA.LAUNCHES["kernel"] == before + cfg.n_layers
+        want, default = T.decode_step(params, cfg, tok, default, pol,
+                                      backend="cuda")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_pooled_engine_streams_equal_striped_on_the_card(cuda_device):
