@@ -194,7 +194,30 @@ not from the 50 MB L2, as each layer of a decode step does.
    a warmed striped Engine at max_len 8325 (identities, lo > 0 on the
    local layers for the 5000- and 6000-token prompts), replayed steps at
    4 x 2048 (CUDA events), peak memory, cuda-vs-reference logits.
-13. a ``timing`` line of seconds per phase, then the kernel summary line
+13. serve_moe — the MoE family at full width (random bf16 weights from
+   seed 0, PAPER_POLICY, identity calibration, 4 slots; every earlier
+   model freed first, the peak so far reported), one JSON line a part:
+   (kernels) decode_attn at deepseek's Hkv 16 / Gq 1 / D 128 and
+   granite-moe's Hkv 8 / Gq 2 / D 64 over 4096 packed tokens (live
+   500/1500/2900/3900), each against its plain version (f32 tolerance),
+   pruned == full == a second launch bitwise, L2-cold ms, bound and SDPA;
+   kv_append at Hkv 8 / D 64 over 300 steps (byte-equal, graph replay);
+   the bulk quantizer at one deepseek layer's 3000-token prefill (45,872
+   rows x 128, 0 differing bytes); (deepseek) deepseek-moe-16b (28
+   layers, 64 experts top-6 of 1408 and 2 shared, the first layer dense;
+   32.75 GB of weights) and (granite_moe) granite-moe-1b-a400m (24
+   layers, 32 experts top-8 of 512), each on mix (a) through an eager
+   striped, then a warmed striped Engine: every request finished,
+   replayed streams equal the eager ones, the launch identities, no plain
+   call, no graph miss; cuda-vs-reference logits at 4 x 2048 (gated at
+   0.05); the 3000-token prefill's ms; the replayed step at 4 x 2048
+   (CUDA events) with its profile by kind of kernel, beside the bytes of
+   the weights a step reads over the HBM rate with every expert, with at
+   most 4 x top_k experts a layer, and with the experts that step's
+   router picked (counted in one eager step); the pool and chunked
+   prefill refusing the family with the reference's messages; peak
+   memory.
+14. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
@@ -204,9 +227,10 @@ not from the 50 MB L2, as each layer of a decode step does.
    ``calib_launches``; decode_attn and kv_append the calibrate phase's
    ``calib_us_per_call``; every entry the ``widths`` of serve_schedule
    (a) and (e); decode_attn, kv_append and kv_quant the ``families``
-   rows of serve_families; launches count the serve, serve_pooled (b),
-   serve_chunked (b), calibrate (a), (b), serve_schedule (b), (e),
-   serve_degrade and serve_families serve runs), the card line, and the
+   rows of serve_families and the ``moe`` rows of serve_moe; launches
+   count the serve, serve_pooled (b), serve_chunked (b), calibrate (a),
+   (b), serve_schedule (b), (e), serve_degrade, serve_families and
+   serve_moe serve runs), the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
@@ -249,7 +273,7 @@ KERNEL_EXTRAS = ("long_ms", "long_bound_ms", "long_library_ms", "prefill_ms",
                  "chunk_ms", "chunk_bound_ms", "chunk_plain_ms", "chunk_rows",
                  "widths", "calib_ms", "calib_bound_ms", "calib_plain_ms",
                  "calib_rows", "calib_launches", "calib_us_per_call",
-                 "families")
+                 "families", "moe")
 
 
 def emit(obj) -> None:
@@ -3237,7 +3261,8 @@ def _family_serve(state, cfg, eng, reqs, what):
 
 def _replayed_step_ms(eng, cfg, chunks: int = 4):
     """CUDA-event ms per replayed step of a warmed Engine with its slots
-    loaded at STEP_CONTEXT (``_load_slots``), over ``chunks`` chunks."""
+    loaded at STEP_CONTEXT (``_load_slots``), over ``chunks`` chunks, and
+    the function that runs one such chunk of SERVE_SPS replays."""
     import numpy as np
     import torch
     _load_slots(eng, cfg)
@@ -3257,7 +3282,7 @@ def _replayed_step_ms(eng, cfg, chunks: int = 4):
         e.record()
     torch.cuda.synchronize()
     return _spread([a.elapsed_time(b) / SERVE_SPS
-                    for a, b in zip(ev, ev[1:])])
+                    for a, b in zip(ev, ev[1:])]), run
 
 
 def _family_init(cfg):
@@ -3424,7 +3449,7 @@ def _gemma2(state):
                     max_new=GEMMA2_NEW, seed=i)
             for i, n in enumerate(GEMMA2_LENS)]
     _, _, rep = _family_serve(state, cfg, eng, reqs, "gemma2 graph striped")
-    replayed = _replayed_step_ms(eng, cfg)
+    replayed, _ = _replayed_step_ms(eng, cfg)
     peak = torch.cuda.max_memory_allocated()
     loc = probe["local"]
     long_lo = [lo for n, lo in zip(loc["prompt_lens"], loc["lo"])
@@ -3630,6 +3655,196 @@ def phase_serve_families(state):
     emit(dict(head, part="gemma2", **_gemma2(state)))
 
 
+# ------------------------------------------ serve_moe (deepseek, granite-moe)
+
+MOE_PREFILL = 3000               # the longest serve prompt, timed alone
+PREFILL_TURNS = 3
+
+
+def _moe_kernels():
+    """Both kernels at the MoE models' head shapes, each against its plain
+    version, L2-cold, with its bound (and SDPA for decode_attn): decode_attn
+    at deepseek's Hkv 16 / Gq 1 / D 128 and granite-moe's Hkv 8 / Gq 2 /
+    D 64 over 4096 packed tokens; kv_append at Hkv 8 / D 64; the bulk
+    quantizer on one deepseek layer's 3000-token prefill (2867 x 16 rows x
+    128, K2 and V1.5)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    attn = {}
+    for name, hkv, gq, d in (("deepseek (Hkv 16, Gq 1, D 128)", 16, 1, 128),
+                             ("granite-moe (Hkv 8, Gq 2, D 64)", 8, 2, 64)):
+        case = _attn_case(gen, dev, 4, hkv, gq, d, FAMILY_LIVE)
+        attn[name] = _attn_row(f"decode_attn {name}", *case, FAMILY_LIVE)
+        del case
+        torch.cuda.empty_cache()
+    append = {"Hkv 8 D 64": _append_case(gen, dev, 8, 64, 128, False)}
+    quant = {f"K{bits}": _kv_quant_prefill(gen, dev, bits, rows=2867 * 16,
+                                           d=128, h=16)
+             for bits in (2.0, 1.5)}
+    return attn, append, quant
+
+
+def _weight_bytes(params, cfg, experts_read=None):
+    """Bytes of the weights one decode step reads: every leaf but the
+    embedding table (the step gathers 4 of its rows; a tied table is read
+    whole as the head), with the routed experts counted in full, or
+    ``experts_read`` of them a MoE layer (a list, one count a layer)."""
+    moe = params["layers"]["moe"]
+    total = sum(v.numel() * v.element_size() for v in _leaves(params))
+    if not cfg.tie_embeddings:
+        total -= params["embed"].numel() * params["embed"].element_size()
+    if experts_read is None:
+        return total
+    per_expert = sum(moe[k][0, 0].numel() * moe[k].element_size()
+                     for k in moe if k.startswith("experts_"))
+    n_moe = moe["router"].shape[0]
+    return total - per_expert * (cfg.n_experts * n_moe - sum(experts_read))
+
+
+def _routed_experts(params, cfg, eng):
+    """Distinct experts each MoE layer's router picks in one eager decode
+    step of ``eng``'s loaded slots (from a copy of its caches)."""
+    import torch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    seen, route = [], M.route
+
+    def spy(*args, **kw):
+        out = route(*args, **kw)
+        seen.append(int(torch.unique(out[1]).numel()))
+        return out
+    M.route = spy
+    try:
+        tok = torch.as_tensor(eng._tok, device=eng.device)
+        T.decode_step(params, cfg, tok, _clone(eng._caches), eng.schedule,
+                      calib=eng.calib, backend="cuda")
+    finally:
+        M.route = route
+    return seen
+
+
+def _moe_refusals(params, cfg):
+    """The pool and chunked prefill refuse the family on the card."""
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.serving import Engine
+    out = {}
+    for what, kw in (("pool", dict(pool_blocks=768,
+                                   pool_block_tokens=POOL_BT)),
+                     ("chunk", dict(prefill_chunk=CHUNK))):
+        try:
+            Engine(params, cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
+                   max_len=MAX_LEN, backend="cuda",
+                   device=torch.device("cuda"), **kw)
+        except (ValueError, NotImplementedError) as e:
+            out[what] = str(e)
+        else:
+            fail(f"{cfg.name}: the {what} accepted the moe family")
+    check("dense family only" in out["pool"]
+          and "moe expert capacity" in out["chunk"],
+          f"{cfg.name}: refusal messages {out}")
+    return out
+
+
+def _prefill_ms(params, cfg):
+    """Host ms (synchronised) of one whole-prompt prefill of MOE_PREFILL
+    tokens, PREFILL_TURNS times after one warm call."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.models import transformer as T
+    toks = torch.as_tensor(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (1, MOE_PREFILL)), device=torch.device("cuda"))
+    times = []
+    for i in range(PREFILL_TURNS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.prefill_model(params, cfg, toks, PAPER_POLICY, max_len=MAX_LEN,
+                        backend="cuda")
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return _spread(times)
+
+
+def _moe_model(state, arch, seed):
+    """One MoE model at full width: mix (a) eager and warmed striped
+    (streams equal, the launch identities, no plain call, no graph miss),
+    cuda against reference logits, the 3000-token prefill, the replayed
+    step at 4 x 2048 with its profile by kind beside the two weight-read
+    bounds, the refusals, peak memory."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    cfg = configs.get(arch)
+    params, init = _family_init(cfg)
+    runs = _mix_a(state, cfg, params, cfg.name, chunked=False, pooled=False)
+    backends = _backend_logits(params, cfg, PAPER_POLICY, seed=seed)
+    prefill = _prefill_ms(params, cfg)
+    eng, warm = _family_engine(params, cfg, True)
+    replayed, run = _replayed_step_ms(eng, cfg)
+    prof = _profile_decode(run)
+    per_step = {k: prof[k] / SERVE_SPS for k in (
+        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
+    by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
+               for k, e in prof["by_kind"].items()}
+    routed = _routed_experts(params, cfg, eng)
+    del eng
+    gc.collect()
+    n_moe = cfg.n_layers - cfg.first_dense
+    reads = {"all_experts": _weight_bytes(params, cfg),
+             "routed_at_most": _weight_bytes(
+                 params, cfg, [min(cfg.n_experts, SERVE_SLOTS * cfg.top_k)]
+                 * n_moe),
+             "routed_this_step": _weight_bytes(params, cfg, routed)}
+    bounds = {k: {"bytes": b, "ms": b / HBM_BYTES_PER_S * 1e3,
+                  "share_of_replayed": b / HBM_BYTES_PER_S * 1e3
+                  / replayed["mean"]} for k, b in reads.items()}
+    refusals = _moe_refusals(params, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(init, arch=cfg.name, runs=runs, cuda_vs_reference=backends,
+                prefill_ms=dict(prefill, tokens=MOE_PREFILL),
+                warmup=warm, replayed_step_ms_4x2048=replayed,
+                replay_profile=dict(per_step=per_step, by_kind=by_kind,
+                                    busy_share=prof["device_busy_share"],
+                                    port_kernels=prof["port_kernels"]),
+                experts_routed_per_layer=routed,
+                weight_read_bounds=bounds, refusals=refusals,
+                peak_mem_bytes=peak)
+
+
+def phase_serve_moe(state):
+    """The MoE family at full width, and both kernels at its head
+    shapes."""
+    import gc
+    import torch
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {"peak_bytes_so_far": torch.cuda.max_memory_allocated(),
+              "allocated_after_free": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    head = {"phase": "serve_moe", "gpu": state["gpu"]}
+    attn, append, quant = _moe_kernels()
+    for name, rows in (("decode_attn", attn), ("kv_append", append),
+                       ("kv_quant", quant)):
+        state.setdefault(name, {})["moe"] = {
+            k: _width_row(r) for k, r in rows.items()}
+    emit(dict(head, part="kernels", before=before, decode_attn=attn,
+              kv_append=append, kv_quant=quant, atol=ATOL, rtol=RTOL))
+    common = {"max_len": MAX_LEN, "slots": SERVE_SLOTS,
+              "steps_per_sync": SERVE_SPS}
+    emit(dict(head, part="deepseek", **common,
+              **_moe_model(state, "deepseek_moe_16b", seed=15)))
+    emit(dict(head, part="granite_moe", **common,
+              **_moe_model(state, "granite_moe_1b_a400m", seed=16)))
+
+
 # kernel-name fragments of each kind, first match wins
 KERNEL_KINDS = (
     ("port: decode_attn + merge", ("decode_attn_split", "merge_splits")),
@@ -3714,7 +3929,7 @@ def main(argv=None) -> int:
                   phase_serve_pooled, phase_serve_graph,
                   phase_serve_chunked, phase_calibrate,
                   phase_serve_schedule, phase_serve_degrade,
-                  phase_serve_families):
+                  phase_serve_families, phase_serve_moe):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``get(name)`` / ``get_smoke(name)``.
 
 Only the configurations the port runs are here (the dense llama/granite/
-gemma stacks and the qwen2-vl decoder); each module is a copy of its
-counterpart in ``repro.configs``.
+gemma stacks, the qwen2-vl decoder and the deepseek/granite MoE models);
+each module is a copy of its counterpart in ``repro.configs``.
 """
 from __future__ import annotations
 
@@ -11,10 +11,13 @@ import importlib
 from ..models.config import ArchConfig
 
 ARCHS = ("llama3p2_1b", "llama2_7b", "granite_8b", "gemma2_27b",
-         "gemma3_4b", "qwen2_vl_7b")
+         "gemma3_4b", "qwen2_vl_7b", "deepseek_moe_16b",
+         "granite_moe_1b_a400m")
 ALIASES = {"llama3.2-1b": "llama3p2_1b", "llama2-7b": "llama2_7b",
            "granite-8b": "granite_8b", "gemma2-27b": "gemma2_27b",
-           "gemma3-4b": "gemma3_4b", "qwen2-vl-7b": "qwen2_vl_7b"}
+           "gemma3-4b": "gemma3_4b", "qwen2-vl-7b": "qwen2_vl_7b",
+           "deepseek-moe-16b": "deepseek_moe_16b",
+           "granite-moe-1b-a400m": "granite_moe_1b_a400m"}
 
 
 def _module(name: str):

@@ -5,8 +5,13 @@ The reference's params pytree (``jax.tree.map(np.asarray, params)``) maps
 one-to-one: the same key names (``embed``, ``final_norm``, ``lm_head``
 when untied, ``layers/{norm1,norm2,attn/{wq,wk,wv,wo_attn},mlp/{wi_gate,
 wi_up,wo}}``, and per config ``attn/{q_norm,k_norm}`` (``qk_norm``) and
-``attn/{bq,bk,bv}`` (``qkv_bias``)), the stacked leading layer axis of
-``layers``, and ``(d_in, d_out)`` weights — no transposes.  bf16 may arrive as a ``uint16`` view (or as
+``attn/{bq,bk,bv}`` (``qkv_bias``); an MoE config's ``layers`` hold
+``moe/{router,experts_up,experts_gate,experts_down,shared_up,shared_gate,
+shared_down}`` in place of ``mlp`` (experts ``(E, d_in, d_out)``, shared
+ones as the config asks) and its first ``first_dense`` layers sit in a
+``dense_layers`` stack of the same leaves with ``mlp``), the stacked
+leading layer axis of each stack, and ``(d_in, d_out)`` weights — no
+transposes.  bf16 may arrive as a ``uint16`` view (or as
 numpy's bfloat16 extension type) and is re-viewed as ``torch.bfloat16``;
 FP8 metadata travels as its uint8 bit pattern.
 """

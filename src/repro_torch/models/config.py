@@ -1,10 +1,12 @@
 """ArchConfig — declarative model description (port of
-``repro.models.config``, the fields the dense and vlm families read).
+``repro.models.config``, the fields the dense, vlm and moe families read).
 
 The port's transformer runs ``family="dense"`` (llama, granite and the
-gemma local/global stacks) and ``family="vlm"`` (qwen2-vl: a dense decoder
+gemma local/global stacks), ``family="vlm"`` (qwen2-vl: a dense decoder
 with M-RoPE and an embedding input, the vision frontend stubbed as in the
-reference); the reference's moe, hybrid, ssm and encdec are not ported yet.
+reference) and ``family="moe"`` (deepseek-moe, granite-moe: dense
+attention with a routed-expert FFN after ``first_dense`` dense layers);
+the reference's hybrid, ssm and encdec are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # "dense" or "vlm" run in the port
+    family: str                    # "dense", "vlm" or "moe" run in the port
     n_layers: int
     d_model: int
     n_heads: int
@@ -40,6 +42,14 @@ class ArchConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False
     norm_eps: float = 1e-6
+    # --- moe ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_expert: int = 0                  # per-expert FFN width
+    first_dense: int = 0               # leading dense layers (deepseek: 1)
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "grouped"      # grouped (GShard-style) | scatter
     # --- io stubs ---
     input_embeds: bool = False         # vlm: inputs may be embeddings
 
@@ -50,6 +60,10 @@ class ArchConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     def layer_is_local(self, i: int) -> bool:
         if not self.local_pattern:

@@ -30,6 +30,10 @@ _ACTS = {"silu": F.silu, "relu": F.relu,
          "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
+def act_fn(name: str):
+    return _ACTS[name]
+
+
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (...,) -> cos/sin (..., head_dim//2) in f32; nothing
@@ -79,7 +83,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 def mlp(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
     """Gated (or plain) MLP: act(x @ wi_gate) * (x @ wi_up) @ wo."""
-    a = _ACTS[cfg.mlp_act]
+    a = act_fn(cfg.mlp_act)
     if cfg.mlp_gated:
         h = a(x @ p["wi_gate"]) * (x @ p["wi_up"])
     else:

@@ -30,12 +30,22 @@ Chunked prefill (DESIGN.md §7: :func:`prefill_chunk_init`,
 time, band by band.
 
 Families: ``dense`` (llama, granite, and the gemma local/global stacks
-with softcaps, ``qk_norm`` and a local RoPE base) and ``vlm`` (qwen2-vl:
+with softcaps, ``qk_norm`` and a local RoPE base), ``vlm`` (qwen2-vl:
 qkv bias, M-RoPE, untied head; its vision frontend is stubbed, so the
 entry points take ``embeds=`` (B, S, d) in place of tokens and
 ``positions=`` (3, B, S); text-only M-RoPE broadcasts ``arange`` to the 3
-streams).  The layer loop is static, so a layer's locality (its window
-and RoPE base) is a Python fact, where the reference scans flag arrays.
+streams) and ``moe`` (deepseek-moe, granite-moe: the dense attention with
+a routed-expert FFN, ``models/moe.py``; the first ``first_dense`` layers
+keep a dense MLP and their params sit in a ``dense_layers`` stack, as in
+the reference, read through :func:`_layer_params`).  The caches stay ONE
+``"scan"`` group over all ``n_layers``, whatever ``first_dense`` is: MoE
+changes no attention shape, and every serving module keys on ``"scan"``.
+The reference splits its caches at ``first_dense`` into ``{"dense",
+"scan"}``; the two map onto each other by concatenation along the layer
+axis, and a schedule's bands here split at policy changes only (a
+calibration table is sliced by absolute layer in both packages).  The
+layer loop is static, so a layer's locality (its window and RoPE base)
+is a Python fact, where the reference scans flag arrays.
 :func:`decode_step` takes the reference's ``chunk`` and ``unroll``
 levers; ``unroll=True`` slices each band's packed planes once to the
 local window and lets local layers attend before their append.
@@ -49,6 +59,7 @@ import torch
 from .config import ArchConfig
 from . import layers as L
 from . import backends as bk
+from . import moe as moe_lib
 from .attention import (packed_planes, prefill_block_attention,
                         prefill_chunk_attention, slice_indices, take_tokens)
 from ..core.policy import (PolicySchedule, QuantPolicy, as_layer_policy,
@@ -61,12 +72,13 @@ from ..device import resolve_device
 Params = Dict
 
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe")
 
 
 def _check_family(cfg: ArchConfig):
-    """The port runs the dense decoder and the vlm decoder (M-RoPE over
-    the same blocks); the reference's other families are not ported."""
+    """The port runs the dense decoder, the vlm decoder (M-RoPE over the
+    same blocks) and the moe decoder (the same attention, routed-expert
+    FFNs); the reference's other families are not ported."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"the port runs the {' and '.join(FAMILIES)}"
                                   f" families, got family={cfg.family!r}")
@@ -74,33 +86,63 @@ def _check_family(cfg: ArchConfig):
 
 # =============================================================== init
 
+def _stack_specs(cfg: ArchConfig, prefix: str, n: int, moe: bool
+                 ) -> Dict[str, tuple]:
+    """The leaves of one layer stack of ``n`` layers under ``prefix``: its
+    FFN (``mlp``, or ``moe`` with the router, the routed experts and the
+    shared ones, at the reference's scales), attention and norms."""
+    d, hd = cfg.d_model, cfg.head_dim
+    w = lambda din, dout: ((n, din, dout), din ** -0.5)
+    spec = {}
+    if moe:
+        e, f = cfg.n_experts, cfg.d_expert or cfg.d_ff
+        m = f"{prefix}/moe/"
+        spec.update({m + "router": ((n, d, e), 0.02),
+                     m + "experts_up": ((n, e, d, f), d ** -0.5),
+                     m + "experts_down": ((n, e, f, d), f ** -0.5)})
+        if cfg.mlp_gated:
+            spec[m + "experts_gate"] = ((n, e, d, f), d ** -0.5)
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            spec.update({m + "shared_up": w(d, fs),
+                         m + "shared_down": w(fs, d)})
+            if cfg.mlp_gated:
+                spec[m + "shared_gate"] = w(d, fs)
+    else:
+        spec.update({f"{prefix}/mlp/wi_up": w(d, cfg.d_ff),
+                     f"{prefix}/mlp/wo": w(cfg.d_ff, d)})
+        if cfg.mlp_gated:
+            spec[f"{prefix}/mlp/wi_gate"] = w(d, cfg.d_ff)
+    a = f"{prefix}/attn/"
+    spec.update({a + "wq": w(d, cfg.q_dim), a + "wk": w(d, cfg.kv_dim),
+                 a + "wv": w(d, cfg.kv_dim), a + "wo_attn": w(cfg.q_dim, d)})
+    if cfg.qkv_bias:
+        spec.update({a + "bq": ((n, cfg.q_dim), 0),
+                     a + "bk": ((n, cfg.kv_dim), 0),
+                     a + "bv": ((n, cfg.kv_dim), 0)})
+    if cfg.qk_norm:
+        spec.update({a + "q_norm": ((n, hd), 0), a + "k_norm": ((n, hd), 0)})
+    spec.update({f"{prefix}/norm1/w": ((n, d), 0),
+                 f"{prefix}/norm2/w": ((n, d), 0)})
+    return spec
+
+
 def param_specs(cfg: ArchConfig) -> Dict[str, tuple]:
     """``{"path/to/leaf": (shape, scale)}`` of every leaf the config's
     params hold (the reference's ``init_params`` tree), in draw order;
     scale 0 means zeros.  The one place that knows the params layout:
     :func:`init_params` builds it and ``convert.params_from_numpy`` checks
-    a tree against it."""
+    a tree against it.  ``layers/`` stacks layers ``first_dense..`` (MoE
+    FFNs when the config has experts), ``dense_layers/`` the first
+    ``first_dense`` (dense FFNs), as in the reference."""
     _check_family(cfg)
-    n, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.head_dim
-    w = lambda din, dout: ((n, din, dout), din ** -0.5)
+    nf, d = cfg.first_dense, cfg.d_model
     spec = {"embed": ((cfg.vocab_size, d), 0.02), "final_norm/w": ((d,), 0)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, cfg.vocab_size), d ** -0.5)
-    spec.update({"layers/mlp/wi_up": w(d, f), "layers/mlp/wo": w(f, d)})
-    if cfg.mlp_gated:
-        spec["layers/mlp/wi_gate"] = w(d, f)
-    spec.update({"layers/attn/wq": w(d, cfg.q_dim),
-                 "layers/attn/wk": w(d, cfg.kv_dim),
-                 "layers/attn/wv": w(d, cfg.kv_dim),
-                 "layers/attn/wo_attn": w(cfg.q_dim, d)})
-    if cfg.qkv_bias:
-        spec.update({"layers/attn/bq": ((n, cfg.q_dim), 0),
-                     "layers/attn/bk": ((n, cfg.kv_dim), 0),
-                     "layers/attn/bv": ((n, cfg.kv_dim), 0)})
-    if cfg.qk_norm:
-        spec.update({"layers/attn/q_norm": ((n, hd), 0),
-                     "layers/attn/k_norm": ((n, hd), 0)})
-    spec.update({"layers/norm1/w": ((n, d), 0), "layers/norm2/w": ((n, d), 0)})
+    spec.update(_stack_specs(cfg, "layers", cfg.n_layers - nf, cfg.is_moe))
+    if nf:
+        spec.update(_stack_specs(cfg, "dense_layers", nf, False))
     return spec
 
 
@@ -114,7 +156,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
     """Random params with the reference's scales (``transformer.py:49-155``),
     drawn from a seeded ``torch.Generator`` on ``device`` (default CUDA;
     raises without a card unless ``device="cpu"``): the leaves of
-    :func:`param_specs`, a ``layers/`` weight drawn layer by layer."""
+    :func:`param_specs`, a stacked weight drawn layer by layer."""
     spec = param_specs(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -122,7 +164,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
     for path, (shape, scale) in spec.items():
         if scale == 0:
             leaf = torch.zeros(shape, dtype=dtype, device=dev)
-        elif path.startswith("layers/"):
+        elif path.startswith(("layers/", "dense_layers/")):
             leaf = torch.empty(shape, dtype=dtype, device=dev)
             for i in range(shape[0]):
                 leaf[i] = (torch.randn(shape[1:], generator=g, device=dev)
@@ -143,6 +185,15 @@ def _layer(tree, i: int):
     if torch.is_tensor(tree):
         return tree[i]
     return {k: _layer(v, i) for k, v in tree.items()}
+
+
+def _layer_params(params: Params, cfg: ArchConfig, i: int):
+    """Views of absolute layer ``i``'s params, from ``dense_layers`` for
+    the first ``first_dense`` layers and from ``layers`` after them."""
+    nf = cfg.first_dense
+    if i < nf:
+        return _layer(params["dense_layers"], i)
+    return _layer(params["layers"], i - nf)
 
 
 def _cast_params(params, dtype):
@@ -325,19 +376,27 @@ def _window(cfg: ArchConfig, i: int) -> int:
     return cfg.local_window if cfg.layer_is_local(i) else 0
 
 
+def _ffn(x, p, cfg: ArchConfig):
+    """The layer's FFN on the normed residual: routed experts where the
+    layer has ``moe`` params, else the dense MLP (the aux loss is for
+    training and is not computed)."""
+    if "moe" in p:
+        return moe_lib.moe_ffn(x, p["moe"], cfg, with_aux=False)[0]
+    return L.mlp(x, p["mlp"], cfg)
+
+
 def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int):
     """Layer ``i`` over the whole sequence in full precision (the fixed
     128-wide key blocks of DESIGN.md §7): returns (x, k, v) with k/v
     (B, S, H_kv, D) post-RoPE and unpermuted, the K/V the cache
     quantizes.  Shared by :func:`prefill_model` and :func:`collect_kv`."""
     b, s, _ = x.shape
-    p = _layer(params["layers"], i)
+    p = _layer_params(params, cfg, i)
     hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
     q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
     attn = prefill_block_attention(q, k, v, cfg, window=_window(cfg, i))
     x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
-    x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p["mlp"],
-                  cfg)
+    x = x + _ffn(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p, cfg)
     return x, k, v
 
 
@@ -529,7 +588,7 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         ws = _band_cache(state["ws"]["scan"], bands, bs)
         for i in range(bs, be):
             j = i - bs
-            p = _layer(params["layers"], i)
+            p = _layer_params(params, cfg, i)
             cache = {k: v[j] for k, v in group.items()}
             hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
             q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
@@ -539,8 +598,8 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                                            cfg, window=_window(cfg, i),
                                            frontier=t0 + n_valid)
             x = x + attn.reshape(b, c, -1) @ p["attn"]["wo_attn"]
-            x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
-                          p["mlp"], cfg)
+            x = x + _ffn(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p,
+                         cfg)
             append(cache, _apply_perm(k, cal["perm_k"][j]).to(x.dtype),
                    _apply_perm(v, cal["perm_v"][j]).to(x.dtype), pol, t0,
                    n_valid, cal["alpha_k"][j], cal["alpha_v"][j])
@@ -642,7 +701,7 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
         hoist = _local_hoist(cfg, group, pol, t, bs, be) if unroll else None
         for i in range(bs, be):
             j = i - bs
-            p = _layer(params["layers"], i)
+            p = _layer_params(params, cfg, i)
             cache = {k: v[j] for k, v in group.items()}
             hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
             q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
@@ -671,8 +730,8 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                     local_slice=cfg.local_window if local else 0, **lever)
             attn = _apply_perm(attn, inv_v[j])
             x = x + attn.reshape(b, 1, -1) @ p["attn"]["wo_attn"]
-            x = x + L.mlp(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps),
-                          p["mlp"], cfg)
+            x = x + _ffn(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p,
+                         cfg)
     x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
     return L.unembed(x, params, cfg), caches
 

@@ -26,7 +26,10 @@ runs on a machine with only torch:
   same bound for gemma3 smoke's unrolled step (hoisted local slices,
   pre-append attends) against its default step.  decode_attn also at the
   new families' head shapes (Gq 7 / D 128, Gq 2 / D 256, softcap 50) and
-  kv_append at Hkv 4 / D 256.
+  kv_append at Hkv 4 / D 256.  The MoE smoke models' step on both
+  backends; their FFN on the card within f32 ``atol=1e-5`` of the CPU's
+  (both dispatches, tokens dropped), and a warmed MoE Engine's streams
+  equal to the unwarmed one's with the launch identities.
 * the serving harness (DESIGN.md §10): a CUDA-graph replay of one decode
   step BYTE-equal to an eager step in every cache leaf and the logits,
   striped and pooled; the launch counters after N replays; every cache
@@ -491,7 +494,8 @@ def test_decode_attn_pooled_rejects_bad_shapes(cuda_device):
                        block_table=tbl)
 
 
-@pytest.mark.parametrize("arch", ["llama3p2_1b", "llama2_7b"])
+@pytest.mark.parametrize("arch", ["llama3p2_1b", "llama2_7b",
+                                  "deepseek_moe_16b", "granite_moe_1b_a400m"])
 def test_decode_step_cuda_backend_matches_reference(arch, cuda_device):
     cfg = configs.get_smoke(arch)
     pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
@@ -574,6 +578,50 @@ def test_pooled_engine_streams_equal_striped_on_the_card(cuda_device):
 
 HARNESS_POL = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
                           n_sink=2)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "granite_moe_1b_a400m"])
+def test_moe_on_the_card(arch, cuda_device):
+    """The MoE FFN on the card: both dispatches within f32 ``atol=1e-5``
+    of the CPU's on tokens that overflow an expert; a warmed Engine (the
+    MoE decode step captured as a CUDA graph) gives the unwarmed
+    Engine's streams, with one kv_append and one decode_attn launch a
+    layer a step and no post-warmup miss."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe as M
+    from repro_torch.serving import Engine, Request
+    cfg = configs.get_smoke(arch)
+    cpu = T.init_params(cfg, seed=0, device="cpu")
+    p = {k: v[0] for k, v in cpu["layers"]["moe"].items()}
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 40, cfg.d_model)).astype(np.float32))
+    for dispatch in ("grouped", "scatter"):
+        c = dataclasses.replace(cfg, moe_dispatch=dispatch)
+        want, _ = M.moe_ffn(x, p, c)
+        got, _ = M.moe_ffn(x.to(cuda_device), {
+            k: v.to(cuda_device) for k, v in p.items()}, c)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
+                      n_sink=2)
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new=m,
+                    seed=i)
+            for i, (n, m) in enumerate(zip((20, 20, 12, 7), (9, 6, 8, 7)))]
+    streams = []
+    for warm in (False, True):
+        eng = Engine(params, cfg, pol, batch_slots=2, max_len=64,
+                     steps_per_sync=4, device=cuda_device)
+        if warm:
+            assert eng.warmup()["n_graphs"] == 1
+        reset_launch_counts()
+        streams.append(_serve(eng, reqs))
+        c, n = launch_counts(), cfg.n_layers * eng.n_decode_steps
+        assert c["kv_quant"]["append"] == n == c["decode_attn"]["kernel"]
+        assert c["decode_attn"]["plain"] == c["kv_quant"]["plain"] == 0
+    assert eng._graphs.replays == eng.n_decode_steps
+    assert eng.warmup_report()["post_warmup_misses"] == 0
+    assert streams[0] == streams[1]
 
 
 def _harness_engine(cuda_device, pool=None, **kw):

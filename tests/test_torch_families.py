@@ -1,6 +1,8 @@
-"""The port's gemma local/global family (``gemma2_27b``, ``gemma3_4b``) and
-qwen2-vl's M-RoPE decoder (``qwen2_vl_7b``) against the JAX reference, on
-the same seeded numpy inputs, at the SMOKE shapes, in f32.
+"""The port's gemma local/global family (``gemma2_27b``, ``gemma3_4b``)
+against the JAX reference, on the same seeded numpy inputs, at the SMOKE
+shapes, in f32.  qwen2-vl's M-RoPE decoder (``qwen2_vl_7b``) has its own
+file, ``tests/test_torch_vlm.py``, which shares this file's helpers and
+tolerances.
 
 The reference's params are drawn by ``jax.random`` and carried over; their
 zero-initialised ``q_norm``/``k_norm`` and qkv biases are replaced by seeded
@@ -29,10 +31,6 @@ Tolerances, and why:
 * single decode attentions with the levers, f32 with identical inputs:
   ``atol = 3e-5, rtol = 1e-4`` (``tests/test_torch_kernels.py``'s
   decode_attn tolerance: the same sums in another order).
-* ``mrope_tables``: each band BITWISE the port's plain ``rope_table`` of
-  its stream; against JAX ``atol = 1e-5`` — cos/sin of f32 angles up to
-  300 rad, where torch's and XLA's range reductions differ by a few ulp
-  of the angle (~2e-6 measured).
 * greedy token streams of the Engines: equal, token for token.
 """
 import numpy as np
@@ -48,7 +46,6 @@ from repro.core.policy import QuantPolicy as JPolicy
 from repro.core.quant import n_meta_groups
 from repro.kernels.ops import pallas_decode_attention
 from repro.models import attention as JA
-from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro import serving as jsv
 
@@ -59,12 +56,11 @@ from repro_torch.convert import (calib_from_numpy, params_from_numpy,
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import ops
 from repro_torch.models import attention as TA
-from repro_torch.models import layers as TL
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from test_torch_util import j2t, t2n
 
-ARCHS = ["gemma2_27b", "gemma3_4b", "qwen2_vl_7b"]
+ARCHS = ["gemma2_27b", "gemma3_4b"]
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)
 PAIRS = [("reference", "reference"), ("cuda", "pallas")]
 LOGIT_TOL = 2e-4
@@ -140,8 +136,7 @@ def _prefilled(arch, tb, jb, rng, kw=KW):
 
 # ------------------------------------------------------------ configs
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_configs_equal_reference_field_by_field(arch):
+def _check_configs(arch):
     for get in ("get", "get_smoke"):
         got = getattr(configs, get)(arch)
         want = getattr(jconfigs, get)(arch)
@@ -152,8 +147,7 @@ def test_configs_equal_reference_field_by_field(arch):
     assert configs.get(alias) == configs.get(arch)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_init_params_leaves_equal_reference(arch):
+def _check_init_leaves(arch):
     """The port's init holds the reference's leaves (q/k norms, biases,
     lm_head as the config asks) at their shapes; the conversion checks
     that tree against the config."""
@@ -167,11 +161,19 @@ def test_init_params_leaves_equal_reference(arch):
     assert flat == T.param_shapes(cfg)
 
 
-# ------------------------------------------------------------ model parity
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_equal_reference_field_by_field(arch):
+    _check_configs(arch)
+
 
 @pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("tb,jb", PAIRS)
-def test_prefill_and_decode_match_reference(arch, tb, jb, rng):
+def test_init_params_leaves_equal_reference(arch):
+    _check_init_leaves(arch)
+
+
+# ------------------------------------------------------------ model parity
+
+def _check_prefill_decode(arch, tb, jb, rng):
     """Prefill 37 tokens, then 6 decode steps (positions 37-42, all past
     the local window of 8)."""
     jcfg, tcfg, jp, tp, jcal, tcal, cj = _prefilled(arch, tb, jb, rng)
@@ -184,6 +186,12 @@ def test_prefill_and_decode_match_reference(arch, tb, jb, rng):
                                QuantPolicy(**KW), calib=tcal, backend=tb)
         _close(lt, lj, f"step {step}")
     _compare_caches(ct, cj)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("tb,jb", PAIRS)
+def test_prefill_and_decode_match_reference(arch, tb, jb, rng):
+    _check_prefill_decode(arch, tb, jb, rng)
 
 
 @pytest.mark.parametrize("tb,jb", PAIRS)
@@ -390,93 +398,9 @@ def test_dense_decode_functions_match_reference(rng):
                                    rtol=RTOL)
 
 
-# ------------------------------------------------------------ M-RoPE
-
-def test_mrope_tables_match_reference(rng):
-    pos = rng.integers(0, 300, (3, 2, 11)).astype(np.int32)   # distinct
-    for sections, hd in (((2, 3, 3), 16), ((16, 24, 24), 128)):
-        want = JL.mrope_tables(jnp.asarray(pos), hd, 1e6, sections)
-        got = TL.mrope_tables(torch.from_numpy(pos), hd, 1e6, sections)
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(t2n(g), np.asarray(w), atol=1e-5,
-                                       rtol=0)
-        edges = np.cumsum((0,) + sections)
-        for s in range(3):               # band s takes stream s's angles
-            plain = TL.rope_table(torch.from_numpy(pos[s]), hd, 1e6)
-            cols = slice(edges[s], edges[s + 1])
-            for g, w in zip(got, plain):
-                assert torch.equal(g[..., cols], w[..., cols]), (s, cols)
-    # text-only streams: M-RoPE equals plain RoPE at the same positions
-    flat = np.broadcast_to(pos[:1], pos.shape)
-    got = TL.mrope_tables(torch.from_numpy(flat.copy()), 16, 1e4, (2, 3, 3))
-    plain = TL.rope_table(torch.from_numpy(pos[0]), 16, 1e4)
-    for g, w in zip(got, plain):
-        assert torch.equal(g, w)
-
-
-@pytest.mark.parametrize("tb,jb", PAIRS)
-def test_embeds_prefill_and_decode_match_reference(tb, jb, rng):
-    """qwen2-vl smoke from patch embeddings with distinct (t, h, w)
-    positions (a 4 x 6 grid after 6 text tokens), then 5 decode steps
-    from embeddings at explicit 3-D positions."""
-    jcfg, tcfg, jp, tp, jcal, tcal = _setup("qwen2_vl_7b", rng)
-    emb = rng.normal(0, 0.5, (2, 30, jcfg.d_model)).astype(np.float32)
-    t = np.concatenate([np.arange(6), np.full(24, 6)])
-    hh = np.concatenate([np.arange(6), 6 + np.repeat(np.arange(4), 6)])
-    ww = np.concatenate([np.arange(6), 6 + np.tile(np.arange(6), 4)])
-    pos = np.broadcast_to(np.stack([t, hh, ww])[:, None], (3, 2, 30)
-                          ).astype(np.int32).copy()
-    lj, cj = JT.prefill_model(jp, jcfg, {"embeds": jnp.asarray(emb),
-                                         "positions": jnp.asarray(pos)},
-                              JPolicy(**KW), calib=jcal, max_len=MAX_LEN,
-                              backend=jb)
-    lt, ct = T.prefill_model(tp, tcfg, None, QuantPolicy(**KW), calib=tcal,
-                             max_len=MAX_LEN, backend=tb,
-                             embeds=torch.from_numpy(emb),
-                             positions=torch.from_numpy(pos))
-    _close(lt, lj, "prefill")
-    _compare_caches(ct, cj)
-    for step in range(5):
-        e = rng.normal(0, 0.5, (2, 1, jcfg.d_model)).astype(np.float32)
-        p3 = np.full((3, 2, 1), 12 + step, np.int32)
-        p3[1] += 1
-        lj, cj = JT.decode_step(jp, jcfg, jnp.asarray(e), cj, JPolicy(**KW),
-                                calib=jcal, positions=jnp.asarray(p3),
-                                backend=jb)
-        lt, ct = T.decode_step(tp, tcfg, None, ct, QuantPolicy(**KW),
-                               calib=tcal, backend=tb,
-                               embeds=torch.from_numpy(e),
-                               positions=torch.from_numpy(p3))
-        _close(lt, lj, f"step {step}")
-    _compare_caches(ct, cj)
-
-
-def test_text_only_mrope_equals_arange_positions(rng):
-    """Tokens with no positions: the 3 streams are ``arange``, so passing
-    them explicitly gives bitwise the same prefill."""
-    cfg = configs.get_smoke("qwen2_vl_7b")
-    tp = T.init_params(cfg, seed=1, device="cpu")
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 21)))
-    a, _ = T.prefill_model(tp, cfg, toks, QuantPolicy(**KW), max_len=40)
-    pos = torch.arange(21, dtype=torch.int32).expand(3, 2, 21)
-    b, _ = T.prefill_model(tp, cfg, toks, QuantPolicy(**KW), max_len=40,
-                           positions=pos)
-    assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="M-RoPE"):
-        T.prefill_model(tp, configs.get_smoke("gemma3_4b"), toks,
-                        QuantPolicy(**KW), positions=pos)
-    with pytest.raises(ValueError, match="embeds"):
-        T.prefill_model(T.init_params(configs.get_smoke("gemma3_4b"),
-                                      device="cpu"),
-                        configs.get_smoke("gemma3_4b"), None,
-                        QuantPolicy(**KW),
-                        embeds=torch.zeros((1, 4, 64)))
-
-
 # ------------------------------------------------------------ conversion
 
-@pytest.mark.parametrize("arch", ["gemma3_4b", "qwen2_vl_7b"])
-def test_convert_carries_norms_biases_and_head(arch, rng):
+def _check_convert(arch, rng):
     jcfg, tcfg = jconfigs.get_smoke(arch), configs.get_smoke(arch)
     tree = _np_params(jcfg, 4, rng)
     tp = params_from_numpy(tree, tcfg, device="cpu")
@@ -499,6 +423,11 @@ def test_convert_carries_norms_biases_and_head(arch, rng):
         **tree["layers"]["attn"], "bias_x": np.zeros(3, np.float32)}}}
     with pytest.raises(ValueError, match="'layers/attn/bias_x'"):
         params_from_numpy(extra, tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["gemma3_4b"])
+def test_convert_carries_norms_biases_and_head(arch, rng):
+    _check_convert(arch, rng)
 
 
 # ------------------------------------------------------------ engines
@@ -528,10 +457,7 @@ def _streams(eng, traffic, request):
     return [list(h.tokens) for h in hs]
 
 
-@pytest.mark.parametrize("arch,mode", [("gemma3_4b", m) for m in
-                                       ENGINE_MODES] + [("qwen2_vl_7b",
-                                                         "striped")])
-def test_engine_streams_equal_reference(arch, mode, rng):
+def _check_engine(arch, mode, rng):
     """Greedy streams of two waves on 2 slots (prompts 12-30, 6-13 new
     tokens: past the local window), the port's cuda backend against the
     reference Engine's reference backend."""
@@ -551,28 +477,15 @@ def test_engine_streams_equal_reference(arch, mode, rng):
     assert got == want
 
 
-@pytest.mark.parametrize("what", ["pool", "chunk"])
-def test_vlm_refusals_equal_reference(what):
-    """Pool and chunk refuse the vlm family at build time, with the
-    reference's messages."""
-    jcfg, tcfg = (jconfigs.get_smoke("qwen2_vl_7b"),
-                  configs.get_smoke("qwen2_vl_7b"))
-    kw = (dict(pool_blocks=40, pool_block_tokens=8) if what == "pool"
-          else dict(prefill_chunk=8))
-    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    with pytest.raises((ValueError, NotImplementedError)) as want:
-        jsv.Engine(jp, jcfg, JPolicy(**KW), batch_slots=2, max_len=52, **kw)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
-    with pytest.raises(want.type) as got:
-        tsv.Engine(tp, tcfg, QuantPolicy(**KW), batch_slots=2, max_len=52,
-                   device="cpu", **kw)
-    assert str(got.value) == str(want.value)
+@pytest.mark.parametrize("arch,mode", [("gemma3_4b", m) for m in
+                                       ENGINE_MODES])
+def test_engine_streams_equal_reference(arch, mode, rng):
+    _check_engine(arch, mode, rng)
 
 
 # ------------------------------------------------------------ CLI
 
-@pytest.mark.parametrize("arch", ["gemma3_4b", "gemma2-27b", "qwen2_vl_7b"])
-def test_cli_serves_the_new_archs_on_the_cpu(arch, capsys):
+def _check_cli(arch, capsys):
     from repro_torch.launch import serve as tserve
     tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch",
                  "2", "--requests", "3", "--prompt-len", "24",
@@ -581,3 +494,8 @@ def test_cli_serves_the_new_archs_on_the_cpu(arch, capsys):
     out = capsys.readouterr().out
     name = configs.get(arch).name
     assert f"arch={name}" in out
+
+
+@pytest.mark.parametrize("arch", ["gemma3_4b", "gemma2-27b"])
+def test_cli_serves_the_new_archs_on_the_cpu(arch, capsys):
+    _check_cli(arch, capsys)
