@@ -217,7 +217,42 @@ not from the 50 MB L2, as each layer of a decode step does.
    router picked (counted in one eager step); the pool and chunked
    prefill refusing the family with the reference's messages; peak
    memory.
-14. a ``timing`` line of seconds per phase, then the kernel summary line
+14. serve_hybrid — hymba-1.5b at full width (random bf16 weights from seed
+   0, PAPER_POLICY, identity calibration, 4 slots; every earlier model
+   freed first), one JSON line a part: (kernels) decode_attn at Hkv 5 /
+   Gq 5 / D 64 (the launch plan takes one kv head a CTA) over 4096 packed
+   tokens (live 500/1500/2900/3900) and over a local layer's 1024-token
+   ``local_slice`` view, each against its plain version (f32 tolerance),
+   pruned == full == a second launch bitwise, L2-cold ms, bound and SDPA;
+   kv_append at Hkv 5 / D 64 over 300 steps (byte-equal, graph replay);
+   the bulk quantizer at one layer's 3000-token prefill (14,335 rows x
+   64, 0 differing bytes); (hymba) mix (a) through an eager striped, then
+   a warmed striped Engine (the Mamba state ``ssm_conv``/``ssm_h`` in the
+   Engine's caches, updated in place inside the captured step): every
+   request finished, replayed streams equal the eager ones, the launch
+   identities, no plain call, no graph miss; cuda-vs-reference logits at
+   4 x 2048 (gated at 0.05); the 3000-token prefill's ms and its profile
+   by kind with the SSM scan's kernels as a kind of their own; the
+   replayed step at 4 x 2048 (CUDA events) with its profile by kind, and
+   an eager step's with the SSM kernels apart; the pool and chunked
+   prefill refusing the family; peak memory.
+15. serve_encdec — seamless-m4t-large-v2 at full width (seed 0,
+   PAPER_POLICY, 4 slots), one JSON line a part: (kernels) decode_attn
+   over the decoder's self cache (Hkv 16 / Gq 1 / D 64, 4096 packed) and
+   over a 4096-frame cross cache quantized whole under
+   ``without_window()`` (window 0, no sinks, every frame packed, no fp
+   segment), each against its plain version and SDPA; kv_append at Hkv 16
+   / D 64; the bulk quantizer at one layer's cross cache for 4 slots
+   (262,144 rows x 64); (seamless) through ``prefill_model`` /
+   ``decode_step`` (the Engine refuses the family): 4 prompts of 1024
+   tokens over 4 x 4096 seeded frames in one batched prefill (4 bulk
+   launches a layer), 32 greedy steps eager (2 decode_attn launches a
+   layer a step, 1 kv_append, no plain call, the cross cache untouched)
+   and the same 32 from the same prefill replaying one captured step
+   (streams equal); cuda-vs-reference logits (gated at 0.05); the
+   encoder's ms at 4 x 4096 frames; the replayed step at 4 x 2048 (CUDA
+   events) with its profile by kind; peak memory.
+16. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
@@ -227,10 +262,12 @@ not from the 50 MB L2, as each layer of a decode step does.
    ``calib_launches``; decode_attn and kv_append the calibrate phase's
    ``calib_us_per_call``; every entry the ``widths`` of serve_schedule
    (a) and (e); decode_attn, kv_append and kv_quant the ``families``
-   rows of serve_families and the ``moe`` rows of serve_moe; launches
+   rows of serve_families, the ``moe`` rows of serve_moe, the ``hybrid``
+   rows of serve_hybrid and the ``encdec`` rows of serve_encdec; launches
    count the serve, serve_pooled (b), serve_chunked (b), calibrate (a),
-   (b), serve_schedule (b), (e), serve_degrade, serve_families and
-   serve_moe serve runs), the card line, and the
+   (b), serve_schedule (b), (e), serve_degrade, serve_families,
+   serve_moe and serve_hybrid serve runs and serve_encdec's prefill and
+   eager steps), the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
@@ -273,7 +310,7 @@ KERNEL_EXTRAS = ("long_ms", "long_bound_ms", "long_library_ms", "prefill_ms",
                  "chunk_ms", "chunk_bound_ms", "chunk_plain_ms", "chunk_rows",
                  "widths", "calib_ms", "calib_bound_ms", "calib_plain_ms",
                  "calib_rows", "calib_launches", "calib_us_per_call",
-                 "families", "moe")
+                 "families", "moe", "hybrid", "encdec")
 
 
 def emit(obj) -> None:
@@ -3724,7 +3761,7 @@ def _routed_experts(params, cfg, eng):
     return seen
 
 
-def _moe_refusals(params, cfg):
+def _refusals(params, cfg):
     """The pool and chunked prefill refuse the family on the card."""
     import torch
     from repro_torch.core.policy import PAPER_POLICY
@@ -3740,7 +3777,7 @@ def _moe_refusals(params, cfg):
         except (ValueError, NotImplementedError) as e:
             out[what] = str(e)
         else:
-            fail(f"{cfg.name}: the {what} accepted the moe family")
+            fail(f"{cfg.name}: the {what} accepted the {cfg.family} family")
     check("dense family only" in out["pool"]
           and "moe expert capacity" in out["chunk"],
           f"{cfg.name}: refusal messages {out}")
@@ -3802,7 +3839,7 @@ def _moe_model(state, arch, seed):
     bounds = {k: {"bytes": b, "ms": b / HBM_BYTES_PER_S * 1e3,
                   "share_of_replayed": b / HBM_BYTES_PER_S * 1e3
                   / replayed["mean"]} for k, b in reads.items()}
-    refusals = _moe_refusals(params, cfg)
+    refusals = _refusals(params, cfg)
     peak = torch.cuda.max_memory_allocated()
     del params
     gc.collect()
@@ -3845,6 +3882,478 @@ def phase_serve_moe(state):
               **_moe_model(state, "granite_moe_1b_a400m", seed=16)))
 
 
+# --------------------------------------------- serve_hybrid (hymba-1.5b)
+
+SSM_FNS = ("_ssm_scan", "ssm_forward", "ssm_decode")
+
+
+def _hybrid_kernels():
+    """Both kernels at hymba's head shapes, each against its plain version,
+    L2-cold, with its bound (and SDPA for decode_attn): decode_attn at Hkv
+    5 / Gq 5 / D 64 over 4096 packed tokens (live 500/1500/2900/3900; the
+    launch plan's one kv head a CTA), a global layer and a local layer's
+    1024-token ``local_slice`` view; kv_append at Hkv 5 / D 64; the bulk
+    quantizer at one layer's 3000-token prefill (2867 x 5 rows x 64, K2
+    and V1.5)."""
+    import torch
+    from repro_torch.kernels import decode_attn as DA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    case = _attn_case(gen, dev, 4, 5, 5, 64, FAMILY_LIVE)
+    attn = {}
+    for name, c in (("hymba global (Hkv 5, Gq 5 on the G 8 template, D 64)",
+                     case),
+                    ("hymba local_slice 1024",
+                     _slice_case(case, FAMILY_LIVE, 1024))):
+        plan = DA.launch_plan(4, 5, 64, c[0], c[4].shape[1], c[6], dev)
+        check(plan[0] == 1, f"{name}: launch plan {plan} does not take one "
+              f"kv head a CTA at Hkv 5")
+        live = [int(x) for x in (c[4] > 0).sum(dim=1).tolist()]
+        r = _attn_row(f"decode_attn {name}", *c, live)
+        r.update(lo=c[5][:, 0].tolist(), plan=list(plan))
+        attn[name] = r
+    del case
+    torch.cuda.empty_cache()
+    append = {"Hkv 5 D 64": _append_case(gen, dev, 5, 64, 128, False)}
+    quant = {f"K{bits}": _kv_quant_prefill(gen, dev, bits, rows=2867 * 5,
+                                           d=64, h=5)
+             for bits in (2.0, 1.5)}
+    return attn, append, quant
+
+
+def _ssm_profile(fn, n: int = 1):
+    """Device ms of ``fn`` (torch.profiler, after one warm call) by kind of
+    kernel, with the kernels launched inside the port's SSM functions
+    (``models/ssm.py``, each wrapped in a profiler range for the run)
+    counted apart: ``ssm: scan`` (the doubling scan) and ``ssm: rest``
+    (the rest of ssm_forward / ssm_decode)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import ssm as S
+    orig = {k: getattr(S, k) for k in SSM_FNS}
+
+    def wrap(k):
+        def ranged(*args, **kw):
+            with record_function(f"ssm:{k}"):
+                return orig[k](*args, **kw)
+        return ranged
+    for k in SSM_FNS:
+        setattr(S, k, wrap(k))
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3 / n
+    finally:
+        for k, f in orig.items():
+            setattr(S, k, f)
+
+    def under(e):                    # kernels launched inside a CPU range
+        out = [(k.name, k.duration) for k in e.kernels]
+        for c in e.cpu_children:
+            out += under(c)
+        return out
+    total = {}
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA or e.key.startswith("ssm:")
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        total[_kind(e.key)] = total.get(_kind(e.key), 0.0) + us
+    inside, scan_us = {}, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in ("ssm:ssm_forward", "ssm:ssm_decode"):
+            for name, us in under(e):
+                inside[_kind(name)] = inside.get(_kind(name), 0.0) + us
+        elif e.name == "ssm:_ssm_scan":
+            scan_us += sum(us for _, us in under(e))
+    by_kind = {k: (v - inside.get(k, 0.0)) / n / 1e3
+               for k, v in total.items()}
+    by_kind["ssm: scan"] = scan_us / n / 1e3
+    by_kind["ssm: rest"] = (sum(inside.values()) - scan_us) / n / 1e3
+    dev_ms = sum(total.values()) / n / 1e3
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "busy_share": dev_ms / wall_ms, "by_kind_ms": by_kind,
+            "ssm_share": (by_kind["ssm: scan"] + by_kind["ssm: rest"])
+            / dev_ms, "scan_share": by_kind["ssm: scan"] / dev_ms}
+
+
+def _hybrid_model(state):
+    """hymba-1.5b at full width: mix (a) eager and warmed striped (streams
+    equal, the launch identities, no plain call, no graph miss), cuda
+    against reference logits, the 3000-token prefill's ms and its profile
+    by kind with the SSM scan apart, the replayed step at 4 x 2048 with its
+    profile by kind (and an eager step's with the SSM kernels apart), the
+    refusals, the decode state's bytes, peak memory."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    cfg = configs.get("hymba_1p5b")
+    params, init = _family_init(cfg)
+    runs = _mix_a(state, cfg, params, cfg.name, chunked=False, pooled=False)
+    backends = _backend_logits(params, cfg, PAPER_POLICY, seed=18)
+    prefill = _prefill_ms(params, cfg)
+    toks = torch.as_tensor(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (1, MOE_PREFILL)), device=torch.device("cuda"))
+    prefill_prof = _ssm_profile(lambda: T.prefill_model(
+        params, cfg, toks, PAPER_POLICY, max_len=MAX_LEN, backend="cuda"))
+    eng, warm = _family_engine(params, cfg, True)
+    replayed, run = _replayed_step_ms(eng, cfg)
+    prof = _profile_decode(run)
+    per_step = {k: prof[k] / SERVE_SPS for k in (
+        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
+    by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
+               for k, e in prof["by_kind"].items()}
+    tok = torch.as_tensor(eng._tok, device=eng.device)
+    cs = iter([_clone(eng._caches) for _ in range(2)])
+    eager_prof = _ssm_profile(lambda: T.decode_step(
+        params, cfg, tok, next(cs), eng.schedule, backend="cuda"))
+    state_bytes = sum(int(np.prod(shape)) * torch.empty((), dtype=dt)
+                      .element_size() for shape, dt in S.state_shapes(
+                          SERVE_SLOTS, cfg, torch.bfloat16).values()
+                      ) * cfg.n_layers
+    del eng, cs
+    gc.collect()
+    refusals = _refusals(params, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(init, arch=cfg.name, runs=runs, cuda_vs_reference=backends,
+                prefill_ms=dict(prefill, tokens=MOE_PREFILL),
+                prefill_profile=prefill_prof, warmup=warm,
+                replayed_step_ms_4x2048=replayed,
+                replay_profile=dict(per_step=per_step, by_kind=by_kind,
+                                    busy_share=prof["device_busy_share"],
+                                    port_kernels=prof["port_kernels"]),
+                eager_step_profile=eager_prof,
+                ssm_state_bytes_4_slots=state_bytes, refusals=refusals,
+                peak_mem_bytes=peak)
+
+
+def phase_serve_hybrid(state):
+    """The hybrid family (hymba-1.5b) at full width, and both kernels at
+    its head shapes."""
+    import gc
+    import torch
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {"peak_bytes_so_far": torch.cuda.max_memory_allocated(),
+              "allocated_after_free": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    head = {"phase": "serve_hybrid", "gpu": state["gpu"]}
+    attn, append, quant = _hybrid_kernels()
+    for name, rows in (("decode_attn", attn), ("kv_append", append),
+                       ("kv_quant", quant)):
+        state.setdefault(name, {})["hybrid"] = {
+            k: _width_row(r) for k, r in rows.items()}
+    emit(dict(head, part="kernels", before=before, decode_attn=attn,
+              kv_append=append, kv_quant=quant, atol=ATOL, rtol=RTOL))
+    emit(dict(head, part="hymba", max_len=MAX_LEN, slots=SERVE_SLOTS,
+              steps_per_sync=SERVE_SPS, **_hybrid_model(state)))
+
+
+# ------------------------------ serve_encdec (seamless-m4t-large-v2)
+
+ENC_FRAMES = 4096                # the config's enc_seq_len: stub frames
+ENCDEC_PROMPT, ENCDEC_STEPS = 1024, 32
+ENCODER_TURNS = 3
+
+
+def _cross_case(gen, dev, b, hkv, d, frames):
+    """A cross-attention cache of ``frames`` frames per slot, quantized
+    whole by the bulk kernel under PAPER_POLICY.without_window() (window
+    0, no sinks: every frame packed, no fp segment), all of it live, and
+    one query row per kv head: the decode_attn case of an enc-dec decoder
+    layer's cross attention."""
+    import torch
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core import segments as seg
+    from repro_torch.kernels import ops
+    pol = _policy(128).without_window()
+    k = torch.randn((b, frames, hkv, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, frames, hkv, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    cache = kvc.prefill(k, v, frames, pol, quant_fn=ops.make_kernel_quant_fn())
+    del k, v
+    check(not any(kk.startswith(("sink_", "win_")) for kk in cache),
+          f"cross cache holds an fp segment: {sorted(cache)}")
+    lens = cache["length"]
+    cap = cache["qk_codes_hi"].shape[1]
+    bs, s_pad = ops._block_pad(cap, 256)
+    ok = ops._packed_ok(ops._padded_j(cap, s_pad, dev), lens, lens - 1,
+                        seg.effective_window(0), pol, b)
+    check(cap == frames and int((ok > 0).sum()) == b * frames,
+          "cross case: every frame packed and live")
+    k_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qk_")}
+    v_qt = {kk[3:]: vv for kk, vv in cache.items() if kk.startswith("qv_")}
+    q = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
+    return (pol, q, k_qt, v_qt, ok.to(torch.float32),
+            seg.packed_block_bounds(ok, bs), bs)
+
+
+def _encdec_kernels():
+    """Both kernels at seamless's head shapes, each against its plain
+    version, L2-cold, with its bound and SDPA: decode_attn over the
+    decoder's self cache (Hkv 16 / Gq 1 / D 64, 4096 packed, live
+    500/1500/2900/3900) and over a 4096-frame cross cache (window 0, no
+    sinks, every frame live); kv_append at Hkv 16 / D 64; the bulk
+    quantizer at one layer's cross cache for 4 slots (4 x 4096 x 16 rows x
+    64, K2 and V1.5)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    attn = {}
+    case = _attn_case(gen, dev, 4, 16, 1, 64, FAMILY_LIVE)
+    attn["seamless self (Hkv 16, Gq 1, D 64)"] = _attn_row(
+        "decode_attn seamless self", *case, FAMILY_LIVE)
+    del case
+    case = _cross_case(gen, dev, 4, 16, 64, ENC_FRAMES)
+    attn["seamless cross (4096 frames, window 0, no sinks)"] = _attn_row(
+        "decode_attn seamless cross", *case, [ENC_FRAMES] * 4)
+    del case
+    torch.cuda.empty_cache()
+    append = {"Hkv 16 D 64": _append_case(gen, dev, 16, 64, 128, False)}
+    quant = {f"K{bits}": _kv_quant_prefill(gen, dev, bits,
+                                           rows=4 * ENC_FRAMES * 16, d=64,
+                                           h=16)
+             for bits in (2.0, 1.5)}
+    return attn, append, quant
+
+
+def _encdec_inputs(cfg, n, length, seed):
+    """``n`` prompts of ``length`` tokens from the CLI's corpus and ``n``
+    x ENC_FRAMES stub frames from a seeded normal generator, on the card
+    (frames in the weights' bf16)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticCorpus
+    dev = torch.device("cuda")
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    toks = np.stack([corpus.sample(length, np.random.default_rng(seed + i))
+                     for i in range(n)])
+    frames = np.random.default_rng(seed).standard_normal(
+        (n, ENC_FRAMES, cfg.d_model), dtype=np.float32)
+    return (torch.as_tensor(toks, device=dev),
+            torch.as_tensor(frames, device=dev).to(torch.bfloat16))
+
+
+def _greedy_graph(params, cfg, base, first, steps):
+    """``steps`` greedy tokens from a copy of ``base``, replaying ONE
+    captured decode step (token in, next token written back to the same
+    static buffer), and what a later replay needs alive: the graph and
+    the buffers it reads and writes (freed ones would be reused)."""
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.models import transformer as T
+    tok = first.clone()
+    caches = _clone(base)
+    scratch = _clone(base)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm outside the capture
+        T.decode_step(params, cfg, tok, scratch, PAPER_POLICY,
+                      backend="cuda")
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    del scratch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, _ = T.decode_step(params, cfg, tok, caches, PAPER_POLICY,
+                                  backend="cuda")
+        tok.copy_(logits[:, -1].float().argmax(-1)[:, None])
+    out = []
+    for _ in range(steps):
+        graph.replay()
+        out.append(tok[:, 0].clone())
+    torch.cuda.synchronize()
+    return torch.stack(out, dim=1).tolist(), {"graph": graph, "tok": tok,
+                                              "caches": caches}
+
+
+def _encdec_model(state):
+    """seamless-m4t-large-v2 at full width through ``prefill_model`` /
+    ``decode_step`` (the Engine refuses the family): 4 prompts of 1024
+    tokens over 4 x 4096 frames in one batched prefill (four bulk
+    launches a layer), 32 greedy steps eager (two decode_attn launches a
+    layer a step, one kv_append, the cross cache untouched) and the same
+    32 from the same prefill through one captured step (streams equal),
+    cuda against reference logits, the encoder's ms at 4 x 4096 frames,
+    the replayed step at 4 x 2048 with its profile by kind, peak memory."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import check_servable
+    cfg = configs.get("seamless_m4t_large_v2")
+    params, init = _family_init(cfg)
+    toks, frames = _encdec_inputs(cfg, SERVE_SLOTS, ENCDEC_PROMPT, 20)
+    torch.cuda.synchronize()
+    reset_launch_counts()                                    # main path
+    t0 = time.monotonic()
+    logits, base = T.prefill_model(params, cfg, toks, PAPER_POLICY,
+                                   max_len=MAX_LEN, backend="cuda",
+                                   enc_embeds=frames)
+    first = logits[:, -1].float().argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    pre = launch_counts()
+    check(pre["kv_quant"]["kernel"] == 4 * cfg.n_layers
+          and pre["kv_quant"]["plain"] == 0,
+          f"seamless prefill: bulk kv_quant launches {pre['kv_quant']} != "
+          f"4 x layers = {4 * cfg.n_layers}")
+    caches = _clone(base)
+    tok, stream = first, []
+    reset_launch_counts()
+    t0 = time.monotonic()
+    for _ in range(ENCDEC_STEPS):
+        lg, caches = T.decode_step(params, cfg, tok, caches, PAPER_POLICY,
+                                   backend="cuda")
+        tok = lg[:, -1].float().argmax(-1)[:, None]
+        stream.append(tok[:, 0])
+    torch.cuda.synchronize()
+    eager_s = time.monotonic() - t0
+    counts = launch_counts()
+    da, kq = counts["decode_attn"], counts["kv_quant"]
+    n = cfg.n_layers * ENCDEC_STEPS
+    check(da["kernel"] == 2 * n and kq["append"] == n and da["plain"] == 0
+          and kq["plain"] == 0 and kq["append_plain"] == 0,
+          f"seamless decode: launches {counts} != 2 decode_attn and 1 "
+          f"kv_append a layer a step ({n} layer-steps), no plain call")
+    for k, v in base["scan"].items():
+        if k.startswith("x_"):
+            check(torch.equal(caches["scan"][k], v),
+                  f"seamless decode wrote the cross cache leaf {k}")
+    for name, c in (("prefill", pre), ("decode", counts)):
+        _add_launches(state, c)
+    eager = torch.stack(stream, dim=1).tolist()
+    reset_launch_counts()
+    graphed, _ = _greedy_graph(params, cfg, base, first, ENCDEC_STEPS)
+    cap = launch_counts()
+    check(graphed == eager, "seamless: replayed greedy streams differ from "
+          "the eager ones")
+    check(all(0 <= t < cfg.vocab_size for row in eager for t in row),
+          "seamless: token id out of range")
+    del caches
+    # cuda against reference, one step from the prefill
+    tok1 = first
+    lc, _ = T.decode_step(params, cfg, tok1, _clone(base), PAPER_POLICY,
+                          backend="cuda")
+    lr, _ = T.decode_step(params, cfg, tok1, _clone(base), PAPER_POLICY,
+                          backend="reference")
+    lc, lr = lc[:, -1].float(), lr[:, -1].float()
+    check(bool(torch.isfinite(lc).all() and torch.isfinite(lr).all()),
+          "seamless decode logits not finite")
+    rel = float((lc - lr).norm() / lr.norm())
+    check(rel <= LOGIT_REL_TOL, f"seamless cuda vs reference logits: "
+          f"relative L2 {rel:.4f} > {LOGIT_REL_TOL}")
+    backends = {"logits_rel_l2": rel, "top1_agreement":
+                float((lc.argmax(-1) == lr.argmax(-1)).float().mean())}
+    cross_bytes = sum(v.numel() * v.element_size()
+                      for k, v in base["scan"].items() if k.startswith("x_"))
+    del base, logits
+    gc.collect()
+    # the encoder alone at 4 x 4096 frames, synced
+    enc = []
+    for i in range(ENCODER_TURNS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T._encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        if i:
+            enc.append((time.perf_counter() - t0) * 1e3)
+    # the replayed step at 4 x 2048
+    toks2, _ = _encdec_inputs(cfg, SERVE_SLOTS, STEP_CONTEXT, 21)
+    lg2, base2 = T.prefill_model(params, cfg, toks2, PAPER_POLICY,
+                                 max_len=MAX_LEN, backend="cuda",
+                                 enc_embeds=frames)
+    _, live = _greedy_graph(params, cfg, base2,
+                            lg2[:, -1].float().argmax(-1)[:, None], 1)
+    del base2, lg2
+
+    def run():
+        for _ in range(SERVE_SPS):
+            live["graph"].replay()
+    run()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    for e in ev[1:]:
+        run()
+        e.record()
+    torch.cuda.synchronize()
+    replayed = _spread([a.elapsed_time(b) / SERVE_SPS
+                        for a, b in zip(ev, ev[1:])])
+    prof = _profile_decode(run)
+    per_step = {k: prof[k] / SERVE_SPS for k in (
+        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
+    by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
+               for k, e in prof["by_kind"].items()}
+    refusal = None
+    try:
+        check_servable(cfg)
+    except NotImplementedError as e:
+        refusal = str(e)
+    check(refusal is not None, "the Engine accepts the encdec family")
+    peak = torch.cuda.max_memory_allocated()
+    del params, live, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(init, arch=cfg.name, prompt=ENCDEC_PROMPT,
+                frames=ENC_FRAMES, steps=ENCDEC_STEPS,
+                prefill_s=prefill_s, prefill_launches=pre,
+                eager_ms_per_step=eager_s * 1e3 / ENCDEC_STEPS,
+                decode_launches=counts, captured_step_launches=cap,
+                streams_equal_replayed=True, cuda_vs_reference=backends,
+                cross_cache_bytes=cross_bytes,
+                encoder_ms_4x4096=_spread(enc),
+                replayed_step_ms_4x2048=replayed,
+                replay_profile=dict(per_step=per_step, by_kind=by_kind,
+                                    busy_share=prof["device_busy_share"],
+                                    port_kernels=prof["port_kernels"]),
+                engine_refusal=refusal, peak_mem_bytes=peak)
+
+
+def phase_serve_encdec(state):
+    """The enc-dec family (seamless-m4t-large-v2) at full width, and both
+    kernels at its head shapes and over its cross cache."""
+    import gc
+    import torch
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {"peak_bytes_so_far": torch.cuda.max_memory_allocated(),
+              "allocated_after_free": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    head = {"phase": "serve_encdec", "gpu": state["gpu"]}
+    attn, append, quant = _encdec_kernels()
+    for name, rows in (("decode_attn", attn), ("kv_append", append),
+                       ("kv_quant", quant)):
+        state.setdefault(name, {})["encdec"] = {
+            k: _width_row(r) for k, r in rows.items()}
+    emit(dict(head, part="kernels", before=before, decode_attn=attn,
+              kv_append=append, kv_quant=quant, atol=ATOL, rtol=RTOL))
+    emit(dict(head, part="seamless", max_len=MAX_LEN, slots=SERVE_SLOTS,
+              **_encdec_model(state)))
+
+
 # kernel-name fragments of each kind, first match wins
 KERNEL_KINDS = (
     ("port: decode_attn + merge", ("decode_attn_split", "merge_splits")),
@@ -3856,6 +4365,12 @@ KERNEL_KINDS = (
     ("reduce", ("reduce_kernel",)),
     ("elementwise", ("elementwise", "vectorized")),
 )
+
+
+def _kind(name: str) -> str:
+    """The KERNEL_KINDS kind of a kernel name."""
+    return next((g for g, tags in KERNEL_KINDS if any(t in name for t in
+                                                        tags)), "other")
 
 
 def _profile_decode(step, n: int = 2):
@@ -3897,10 +4412,8 @@ def _profile_decode(step, n: int = 2):
         e["us_per_call"] = e["ms_per_step"] * 1e3 / e["calls_per_step"]
     groups = {}                  # device ms per step by kind of kernel
     for us, c, k in rows:
-        kind = next((g for g, tags in KERNEL_KINDS if any(
-            t in k for t in tags)), "other")
-        e = groups.setdefault(kind, {"ms_per_step": 0.0,
-                                     "calls_per_step": 0.0})
+        e = groups.setdefault(_kind(k), {"ms_per_step": 0.0,
+                                         "calls_per_step": 0.0})
         e["ms_per_step"] += us / n / 1e3
         e["calls_per_step"] += c / n
     return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
@@ -3929,7 +4442,8 @@ def main(argv=None) -> int:
                   phase_serve_pooled, phase_serve_graph,
                   phase_serve_chunked, phase_calibrate,
                   phase_serve_schedule, phase_serve_degrade,
-                  phase_serve_families, phase_serve_moe):
+                  phase_serve_families, phase_serve_moe,
+                  phase_serve_hybrid, phase_serve_encdec):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

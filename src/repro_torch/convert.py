@@ -9,9 +9,13 @@ wi_up,wo}}``, and per config ``attn/{q_norm,k_norm}`` (``qk_norm``) and
 ``moe/{router,experts_up,experts_gate,experts_down,shared_up,shared_gate,
 shared_down}`` in place of ``mlp`` (experts ``(E, d_in, d_out)``, shared
 ones as the config asks) and its first ``first_dense`` layers sit in a
-``dense_layers`` stack of the same leaves with ``mlp``), the stacked
-leading layer axis of each stack, and ``(d_in, d_out)`` weights — no
-transposes.  bf16 may arrive as a ``uint16`` view (or as
+``dense_layers`` stack of the same leaves with ``mlp``; a hybrid config's
+``layers`` add ``ssm/{in_proj,conv_w,conv_b,x_proj,dt_proj,dt_bias,a_log,
+d_skip,out_proj}`` and ``norm_attn_out``/``norm_ssm_out``; an enc-dec
+config's add ``xattn/{wq,wk,wv,wo_attn}`` and ``norm_x``, beside an
+``enc_layers`` stack and ``enc_norm``, every norm a LayerNorm ``{w, b}``),
+the stacked leading layer axis of each stack, and ``(d_in, d_out)``
+weights — no transposes.  bf16 may arrive as a ``uint16`` view (or as
 numpy's bfloat16 extension type) and is re-viewed as ``torch.bfloat16``;
 FP8 metadata travels as its uint8 bit pattern.
 """

@@ -88,6 +88,14 @@ class QuantPolicy:
         g = min(self.group_size, head_dim)
         return (self.bits_k + self.bits_v) / 2 + 2 * self.meta_dtype_bits / g
 
+    def without_window(self) -> "QuantPolicy":
+        """This policy with the fp window and the sinks removed: the policy
+        of a cross-attention cache, which prefill quantizes whole and
+        decode never appends to (DESIGN.md §8)."""
+        if self.window == 0 and self.n_sink == 0:
+            return self
+        return dataclasses.replace(self, window=0, n_sink=0)  # reprolint: disable=RL003 -- the named constructor RL003 points callers at (DESIGN.md §8)
+
 
 FP16_POLICY = QuantPolicy(bits_k=16.0, bits_v=16.0, clip=False, reorder=False,
                           window=0, n_sink=0)

@@ -58,6 +58,13 @@ failed audit exits non-zero:
         --new-tokens 8 --prefill-chunk 8 --pool-blocks 24 \
         --pool-block-tokens 8 --priority-mix 0,0,1 --host-spill-mb 16 \
         --chaos pool
+
+Every decoder-only family of the port serves here (``--arch hymba_1p5b``
+too, the hybrid one).  An encoder-decoder (``--arch
+seamless_m4t_large_v2``) exits with the Engine's refusal before any
+weight is drawn: its prefill needs encoder frames per request, so it runs
+through ``transformer.prefill_model(..., enc_embeds=)`` and
+``transformer.decode_step``.
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ from ..data import SyntheticCorpus
 from ..device import resolve_device
 from ..kernels import launch_counts
 from ..models import transformer as T
+from ..serving.engine import check_servable
 from ..serving import (ChaosSpec, Engine, FaultInjector, MetricsRecorder,
                        Request, WorkloadSpec, chaos_trace, poisson_trace,
                        run_open_loop)
@@ -281,6 +289,10 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    try:
+        check_servable(cfg)
+    except NotImplementedError as e:
+        ap.error(str(e))
     is_fp16 = args.bits_k >= 16 and args.bits_v >= 16
     policy = QuantPolicy(bits_k=args.bits_k, bits_v=args.bits_v,
                          group_size=min(args.group_size, cfg.head_dim),

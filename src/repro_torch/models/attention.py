@@ -1,6 +1,9 @@
-"""Attention for the port's dense decoder (port of the prefill and
+"""Attention for the port's models (port of the full-sequence, prefill and
 reference-decode paths of ``repro.models.attention``).
 
+* :func:`full_attention` — plain f32 softmax attention over a whole
+  sequence, causal, local-band or bidirectional, query-chunked above
+  ``Q_CHUNK``: the encoder and the cross-attention of the enc-dec family.
 * :func:`prefill_block_attention` — full-precision causal prefill with the
   reference's FIXED 128-wide key-block online-softmax loop (DESIGN.md §7:
   chunked prefill depends on this reduction structure), and
@@ -42,6 +45,45 @@ def _band_mask(pos_q, pos_k, window_eff: int):
     d = pos_q[:, None] - pos_k[None, :]
     w = window_eff if window_eff > 0 else 2 ** 30
     return (d >= 0) & (d < w)
+
+
+Q_CHUNK = 1024  # query-chunked attention above this sequence length
+
+
+def _attn_block(qg, k, v, pos_q, pos_k, window: int, cfg: ArchConfig,
+                bidirectional: bool):
+    """qg (B, Sq, Hkv, G, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hkv, G, D)
+    f32: f32 scores, softcap, mask, softmax, f32 values."""
+    s = torch.einsum("bskgd,btkd->bkgst",
+                     qg.to(torch.float32) * _scale(cfg), k.to(torch.float32))
+    s = softcap(s, cfg.attn_softcap)
+    if not bidirectional:
+        s = s.masked_fill(~_band_mask(pos_q, pos_k, window), _NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+
+
+def full_attention(q, k, v, cfg: ArchConfig, *,
+                   window: Optional[int] = None, bidirectional: bool = False,
+                   q_chunk: int = Q_CHUNK):
+    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) at positions ``arange`` ->
+    (B, Sq, Hq, D) in q's dtype (reference ``attention.full_attention``).
+    ``window`` 0 or None is full attention, > 0 a causal local band;
+    ``bidirectional`` masks nothing.  Above ``q_chunk`` queries, the
+    queries run in chunks of ``q_chunk`` (the last may be shorter), so the
+    (Sq, Sk) score tensor is never whole; each query row's softmax is its
+    own, so chunking changes no row's math."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    pos_q = torch.arange(sq, dtype=torch.int32, device=q.device)
+    pos_k = torch.arange(sk, dtype=torch.int32, device=q.device)
+    w = 0 if window is None else int(window)
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    step = q_chunk if q_chunk and sq > q_chunk else sq
+    o = torch.cat([_attn_block(qg[:, i:i + step], k, v, pos_q[i:i + step],
+                               pos_k, w, cfg, bidirectional)
+                   for i in range(0, sq, step)], dim=1)
+    return o.reshape(b, sq, hq, d).to(q.dtype)
 
 
 def prefill_block_attention(q, k, v, cfg: ArchConfig, *, pos_q=None,

@@ -1,12 +1,19 @@
 """ArchConfig — declarative model description (port of
-``repro.models.config``, the fields the dense, vlm and moe families read).
+``repro.models.config``, the fields the ported families read).
 
-The port's transformer runs ``family="dense"`` (llama, granite and the
-gemma local/global stacks), ``family="vlm"`` (qwen2-vl: a dense decoder
-with M-RoPE and an embedding input, the vision frontend stubbed as in the
-reference) and ``family="moe"`` (deepseek-moe, granite-moe: dense
-attention with a routed-expert FFN after ``first_dense`` dense layers);
-the reference's hybrid, ssm and encdec are not ported yet.
+The port's transformer runs these families:
+
+  dense   — pre-norm decoder (llama, granite, the gemma local/global stacks)
+  vlm     — dense decoder with M-RoPE and an embedding input (qwen2-vl; the
+            vision frontend stubbed as in the reference)
+  moe     — dense attention + routed-expert FFN after ``first_dense`` dense
+            layers (deepseek-moe, granite-moe)
+  hybrid  — parallel attention + Mamba heads per block (hymba)
+  encdec  — encoder-decoder with a cross-attention cache (seamless-m4t
+            backbone; the speech frontend stubbed: the encoder reads frame
+            embeddings)
+
+The reference's ``ssm`` family (RWKV6) is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # "dense", "vlm" or "moe" run in the port
+    family: str                    # dense | vlm | moe | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,6 +48,7 @@ class ArchConfig:
     mlp_gated: bool = True
     tie_embeddings: bool = True
     embed_scale: bool = False
+    norm: str = "rms"                  # rms | layer
     norm_eps: float = 1e-6
     # --- moe ---
     n_experts: int = 0
@@ -50,6 +58,13 @@ class ArchConfig:
     first_dense: int = 0               # leading dense layers (deepseek: 1)
     capacity_factor: float = 1.25
     moe_dispatch: str = "grouped"      # grouped (GShard-style) | scatter
+    # --- ssm / hybrid ---
+    ssm_state: int = 0                 # Mamba state size (hymba)
+    ssm_conv: int = 4                  # depthwise causal conv width
+    ssm_expand: int = 1                # inner expansion of the mamba path
+    # --- enc-dec ---
+    n_enc_layers: int = 0
+    enc_seq_len: int = 4096            # stub frontend frames for decode cells
     # --- io stubs ---
     input_embeds: bool = False         # vlm: inputs may be embeddings
 

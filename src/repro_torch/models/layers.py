@@ -20,6 +20,25 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
             ).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6):
+    """LayerNorm with f32 statistics (mean, biased variance) and the
+    reference's eps, not torch's default."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+
+
+def norm(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
+    """The config's block norm over a ``{"w"[, "b"]}`` param dict: LayerNorm
+    for ``norm="layer"``, else the ``(1 + w)`` RMS norm."""
+    if cfg.norm == "layer":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+    return rms_norm(x, p["w"], cfg.norm_eps)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap > 0:
         return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)

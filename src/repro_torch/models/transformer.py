@@ -34,10 +34,19 @@ with softcaps, ``qk_norm`` and a local RoPE base), ``vlm`` (qwen2-vl:
 qkv bias, M-RoPE, untied head; its vision frontend is stubbed, so the
 entry points take ``embeds=`` (B, S, d) in place of tokens and
 ``positions=`` (3, B, S); text-only M-RoPE broadcasts ``arange`` to the 3
-streams) and ``moe`` (deepseek-moe, granite-moe: the dense attention with
+streams), ``moe`` (deepseek-moe, granite-moe: the dense attention with
 a routed-expert FFN, ``models/moe.py``; the first ``first_dense`` layers
 keep a dense MLP and their params sit in a ``dense_layers`` stack, as in
-the reference, read through :func:`_layer_params`).  The caches stay ONE
+the reference, read through :func:`_layer_params`), ``hybrid`` (hymba:
+each block adds a Mamba head, ``models/ssm.py``, on the same normed input
+and averages the two RMS-normed outputs; the cache dict of a layer
+carries the head's decode state as ``ssm_conv``/``ssm_h`` beside the
+SKVQ leaves) and ``encdec`` (seamless-m4t: LayerNorm blocks, a
+bidirectional encoder over stub frame embeddings, ``enc_embeds=`` (B,
+S_enc, d), and in each decoder layer a cross-attention whose K/V the
+prefill quantizes once, whole, under ``policy.without_window()``, kept
+under ``x_``-prefixed keys of the layer's cache dict and never appended
+to).  The caches stay ONE
 ``"scan"`` group over all ``n_layers``, whatever ``first_dense`` is: MoE
 changes no attention shape, and every serving module keys on ``"scan"``.
 The reference splits its caches at ``first_dense`` into ``{"dense",
@@ -52,6 +61,7 @@ local window and lets local layers attend before their append.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -60,8 +70,10 @@ from .config import ArchConfig
 from . import layers as L
 from . import backends as bk
 from . import moe as moe_lib
-from .attention import (packed_planes, prefill_block_attention,
-                        prefill_chunk_attention, slice_indices, take_tokens)
+from . import ssm as ssm_lib
+from .attention import (full_attention, packed_planes,
+                        prefill_block_attention, prefill_chunk_attention,
+                        slice_indices, take_tokens)
 from ..core.policy import (PolicySchedule, QuantPolicy, as_layer_policy,
                            as_schedule)
 from ..core import kv_cache as kvc
@@ -72,13 +84,18 @@ from ..device import resolve_device
 Params = Dict
 
 
-FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "hybrid", "encdec")
+# cache-dict leaves beside the SKVQ cache: a hybrid layer's SSM state and
+# an enc-dec layer's cross-attention cache
+_EXTRA = ("ssm_", "x_")
 
 
 def _check_family(cfg: ArchConfig):
     """The port runs the dense decoder, the vlm decoder (M-RoPE over the
-    same blocks) and the moe decoder (the same attention, routed-expert
-    FFNs); the reference's other families are not ported."""
+    same blocks), the moe decoder (the same attention, routed-expert
+    FFNs), the hybrid decoder (attention + Mamba heads) and the
+    encoder-decoder; the reference's ``ssm`` family (RWKV6) is not
+    ported."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"the port runs the {' and '.join(FAMILIES)}"
                                   f" families, got family={cfg.family!r}")
@@ -86,12 +103,71 @@ def _check_family(cfg: ArchConfig):
 
 # =============================================================== init
 
-def _stack_specs(cfg: ArchConfig, prefix: str, n: int, moe: bool
-                 ) -> Dict[str, tuple]:
+@dataclasses.dataclass(frozen=True)
+class Fill:
+    """A constant leaf of :func:`param_specs`: every element ``value``."""
+    value: float
+
+
+ONES = Fill(1.0)
+# log(arange(1, N + 1)) along the last axis: the SSM's A (reference
+# ``init_ssm_params``), computed in f32 and cast
+A_LOG = "a_log"
+_STACKS = ("layers/", "dense_layers/", "enc_layers/")
+
+
+def _norm_specs(cfg: ArchConfig, path: str, lead: tuple) -> Dict[str, tuple]:
+    """A block norm's leaves: the RMS norm's ``w`` (zeros: the ``(1 + w)``
+    gain), or LayerNorm's ``w`` (ones) and ``b`` (zeros)."""
+    shape = lead + (cfg.d_model,)
+    if cfg.norm == "layer":
+        return {f"{path}/w": (shape, ONES), f"{path}/b": (shape, 0)}
+    return {f"{path}/w": (shape, 0)}
+
+
+def _attn_specs(cfg: ArchConfig, a: str, n: int) -> Dict[str, tuple]:
+    """An attention's projections under ``a`` (``.../attn/`` or
+    ``.../xattn/``), with the config's biases and q/k norms."""
+    d, hd = cfg.d_model, cfg.head_dim
+    w = lambda din, dout: ((n, din, dout), din ** -0.5)
+    spec = {a + "wq": w(d, cfg.q_dim), a + "wk": w(d, cfg.kv_dim),
+            a + "wv": w(d, cfg.kv_dim), a + "wo_attn": w(cfg.q_dim, d)}
+    if cfg.qkv_bias:
+        spec.update({a + "bq": ((n, cfg.q_dim), 0),
+                     a + "bk": ((n, cfg.kv_dim), 0),
+                     a + "bv": ((n, cfg.kv_dim), 0)})
+    if cfg.qk_norm:
+        spec.update({a + "q_norm": ((n, hd), 0), a + "k_norm": ((n, hd), 0)})
+    return spec
+
+
+def _ssm_specs(cfg: ArchConfig, prefix: str, n: int) -> Dict[str, tuple]:
+    """A hybrid layer's Mamba head (reference ``init_ssm_params``) and the
+    RMS norms of the two outputs it averages."""
+    d, nst = cfg.d_model, cfg.ssm_state
+    di, r = ssm_lib.inner_dim(cfg), ssm_lib.dt_rank(cfg)
+    m = f"{prefix}/ssm/"
+    return {m + "in_proj": ((n, d, 2 * di), d ** -0.5),
+            m + "conv_w": ((n, cfg.ssm_conv, di), 0.1),
+            m + "conv_b": ((n, di), 0),
+            m + "x_proj": ((n, di, 2 * nst + r), di ** -0.5),
+            m + "dt_proj": ((n, r, di), r ** -0.5),
+            m + "dt_bias": ((n, di), Fill(-2.0)),   # softplus(-2): small dt
+            m + "a_log": ((n, di, nst), A_LOG),
+            m + "d_skip": ((n, di), ONES),
+            m + "out_proj": ((n, di, d), di ** -0.5),
+            f"{prefix}/norm_attn_out/w": ((n, d), 0),
+            f"{prefix}/norm_ssm_out/w": ((n, d), 0)}
+
+
+def _stack_specs(cfg: ArchConfig, prefix: str, n: int, moe: bool,
+                 cross: bool = False) -> Dict[str, tuple]:
     """The leaves of one layer stack of ``n`` layers under ``prefix``: its
     FFN (``mlp``, or ``moe`` with the router, the routed experts and the
-    shared ones, at the reference's scales), attention and norms."""
-    d, hd = cfg.d_model, cfg.head_dim
+    shared ones, at the reference's scales), attention and norms, a
+    hybrid config's Mamba head, and with ``cross`` the cross-attention
+    (``xattn``, ``norm_x``) of an enc-dec decoder layer."""
+    d = cfg.d_model
     w = lambda din, dout: ((n, din, dout), din ** -0.5)
     spec = {}
     if moe:
@@ -113,36 +189,43 @@ def _stack_specs(cfg: ArchConfig, prefix: str, n: int, moe: bool
                      f"{prefix}/mlp/wo": w(cfg.d_ff, d)})
         if cfg.mlp_gated:
             spec[f"{prefix}/mlp/wi_gate"] = w(d, cfg.d_ff)
-    a = f"{prefix}/attn/"
-    spec.update({a + "wq": w(d, cfg.q_dim), a + "wk": w(d, cfg.kv_dim),
-                 a + "wv": w(d, cfg.kv_dim), a + "wo_attn": w(cfg.q_dim, d)})
-    if cfg.qkv_bias:
-        spec.update({a + "bq": ((n, cfg.q_dim), 0),
-                     a + "bk": ((n, cfg.kv_dim), 0),
-                     a + "bv": ((n, cfg.kv_dim), 0)})
-    if cfg.qk_norm:
-        spec.update({a + "q_norm": ((n, hd), 0), a + "k_norm": ((n, hd), 0)})
-    spec.update({f"{prefix}/norm1/w": ((n, d), 0),
-                 f"{prefix}/norm2/w": ((n, d), 0)})
+    spec.update(_attn_specs(cfg, f"{prefix}/attn/", n))
+    spec.update(_norm_specs(cfg, f"{prefix}/norm1", (n,)))
+    spec.update(_norm_specs(cfg, f"{prefix}/norm2", (n,)))
+    if cfg.family == "hybrid":
+        spec.update(_ssm_specs(cfg, prefix, n))
+    if cross:
+        spec.update(_attn_specs(cfg, f"{prefix}/xattn/", n))
+        spec.update(_norm_specs(cfg, f"{prefix}/norm_x", (n,)))
     return spec
 
 
 def param_specs(cfg: ArchConfig) -> Dict[str, tuple]:
-    """``{"path/to/leaf": (shape, scale)}`` of every leaf the config's
-    params hold (the reference's ``init_params`` tree), in draw order;
-    scale 0 means zeros.  The one place that knows the params layout:
-    :func:`init_params` builds it and ``convert.params_from_numpy`` checks
-    a tree against it.  ``layers/`` stacks layers ``first_dense..`` (MoE
-    FFNs when the config has experts), ``dense_layers/`` the first
-    ``first_dense`` (dense FFNs), as in the reference."""
+    """``{"path/to/leaf": (shape, init)}`` of every leaf the config's
+    params hold (the reference's ``init_params`` tree), in draw order:
+    ``init`` is the scale of a normal draw (0 means zeros), a :class:`Fill`
+    constant or :data:`A_LOG`.  The one place that knows the params
+    layout: :func:`init_params` builds it and
+    ``convert.params_from_numpy`` checks a tree against it.  ``layers/``
+    stacks layers ``first_dense..`` (MoE FFNs when the config has experts;
+    the cross-attention of an enc-dec decoder), ``dense_layers/`` the
+    first ``first_dense`` (dense FFNs), ``enc_layers/`` an enc-dec
+    config's encoder (dense blocks with the config's norm) beside
+    ``enc_norm``, as in the reference."""
     _check_family(cfg)
     nf, d = cfg.first_dense, cfg.d_model
-    spec = {"embed": ((cfg.vocab_size, d), 0.02), "final_norm/w": ((d,), 0)}
+    spec = {"embed": ((cfg.vocab_size, d), 0.02)}
+    spec.update(_norm_specs(cfg, "final_norm", ()))
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, cfg.vocab_size), d ** -0.5)
-    spec.update(_stack_specs(cfg, "layers", cfg.n_layers - nf, cfg.is_moe))
+    spec.update(_stack_specs(cfg, "layers", cfg.n_layers - nf, cfg.is_moe,
+                             cross=cfg.family == "encdec"))
     if nf:
         spec.update(_stack_specs(cfg, "dense_layers", nf, False))
+    if cfg.family == "encdec":
+        spec.update(_stack_specs(dataclasses.replace(cfg, family="dense"),
+                                 "enc_layers", cfg.n_enc_layers, False))
+        spec.update(_norm_specs(cfg, "enc_norm", ()))
     return spec
 
 
@@ -151,27 +234,41 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     return {k: shape for k, (shape, _) in param_specs(cfg).items()}
 
 
+def _const_leaf(shape, init, dtype, dev) -> Optional[torch.Tensor]:
+    """The leaf of a constant ``init`` (zeros, a :class:`Fill`,
+    :data:`A_LOG`), or None for a drawn one."""
+    if isinstance(init, Fill):
+        return torch.full(shape, init.value, dtype=dtype, device=dev)
+    if init == A_LOG:
+        a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                   device=dev))
+        return a.expand(shape).to(dtype).contiguous()
+    if init == 0:
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    return None
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> Params:
-    """Random params with the reference's scales (``transformer.py:49-155``),
-    drawn from a seeded ``torch.Generator`` on ``device`` (default CUDA;
-    raises without a card unless ``device="cpu"``): the leaves of
-    :func:`param_specs`, a stacked weight drawn layer by layer."""
+    """Random params with the reference's scales and constants
+    (``transformer.py:49-155``, ``ssm.py:88-105``), drawn from a seeded
+    ``torch.Generator`` on ``device`` (default CUDA; raises without a card
+    unless ``device="cpu"``): the leaves of :func:`param_specs`, a stacked
+    weight drawn layer by layer."""
     spec = param_specs(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     params: Params = {}
-    for path, (shape, scale) in spec.items():
-        if scale == 0:
-            leaf = torch.zeros(shape, dtype=dtype, device=dev)
-        elif path.startswith(("layers/", "dense_layers/")):
+    for path, (shape, init) in spec.items():
+        leaf = _const_leaf(shape, init, dtype, dev)
+        if leaf is None and path.startswith(_STACKS):
             leaf = torch.empty(shape, dtype=dtype, device=dev)
             for i in range(shape[0]):
                 leaf[i] = (torch.randn(shape[1:], generator=g, device=dev)
-                           * scale).to(dtype)
-        else:
+                           * init).to(dtype)
+        elif leaf is None:
             leaf = (torch.randn(shape, generator=g, device=dev)
-                    * scale).to(dtype)
+                    * init).to(dtype)
         *parents, name = path.split("/")
         node = params
         for k in parents:
@@ -385,19 +482,98 @@ def _ffn(x, p, cfg: ArchConfig):
     return L.mlp(x, p["mlp"], cfg)
 
 
-def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int):
+def _mix_ssm(attn, sout, p, cfg: ArchConfig):
+    """A hybrid block's mixer output: the mean of the RMS-normed attention
+    and Mamba outputs (reference ``transformer.py:308-311``)."""
+    return 0.5 * (L.rms_norm(attn, p["norm_attn_out"]["w"], cfg.norm_eps)
+                  + L.rms_norm(sout, p["norm_ssm_out"]["w"], cfg.norm_eps))
+
+
+def _cross_qkv(x_dec, enc_out, p, cfg: ArchConfig):
+    """Cross-attention q from the decoder rows, k/v from the encoder
+    output, (B, S, H, hd) each, no RoPE (reference ``_cross_qkv``)."""
+    b, s, _ = x_dec.shape
+    se = enc_out.shape[1]
+    q = _proj(x_dec, p, "wq", "bq").reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = _proj(enc_out, p, "wk", "bk").reshape(b, se, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    v = _proj(enc_out, p, "wv", "bv").reshape(b, se, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    return q, k, v
+
+
+def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int,
+                enc_out=None):
     """Layer ``i`` over the whole sequence in full precision (the fixed
-    128-wide key blocks of DESIGN.md §7): returns (x, k, v) with k/v
-    (B, S, H_kv, D) post-RoPE and unpermuted, the K/V the cache
-    quantizes.  Shared by :func:`prefill_model` and :func:`collect_kv`."""
+    128-wide key blocks of DESIGN.md §7): returns (x, k, v, extra) with
+    k/v (B, S, H_kv, D) post-RoPE and unpermuted, the K/V the cache
+    quantizes.  ``extra`` holds a hybrid layer's Mamba decode state
+    (``ssm_conv``, ``ssm_h``, the cache leaves) or an enc-dec decoder
+    layer's cross K/V over ``enc_out`` (``kx``, ``vx``: unpermuted, no
+    RoPE); it is empty for the other families.  Shared by
+    :func:`prefill_model` and :func:`collect_kv`."""
     b, s, _ = x.shape
     p = _layer_params(params, cfg, i)
-    hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
+    hn = L.norm(x, p["norm1"], cfg)
     q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
     attn = prefill_block_attention(q, k, v, cfg, window=_window(cfg, i))
-    x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
-    x = x + _ffn(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p, cfg)
-    return x, k, v
+    attn = attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
+    extra = {}
+    if "ssm" in p:
+        sout, st = ssm_lib.ssm_forward(hn, p["ssm"], cfg, return_state=True)
+        attn = _mix_ssm(attn, sout, p, cfg)
+        extra = {"ssm_conv": st["conv"], "ssm_h": st["h"]}
+    x = x + attn
+    if "xattn" in p:
+        qx, kx, vx = _cross_qkv(L.norm(x, p["norm_x"], cfg), enc_out,
+                                p["xattn"], cfg)
+        xo = full_attention(qx, kx, vx, cfg, bidirectional=True)
+        x = x + xo.reshape(b, s, -1) @ p["xattn"]["wo_attn"]
+        extra = {"kx": kx, "vx": vx}
+    x = x + _ffn(L.norm(x, p["norm2"], cfg), p, cfg)
+    return x, k, v, extra
+
+
+def _encode(params: Params, cfg: ArchConfig, enc_embeds):
+    """The enc-dec encoder over the stub frontend's frame embeddings
+    ``enc_embeds`` (B, S_enc, d), cast to the params' dtype: RoPE at
+    ``arange(S_enc)``, bidirectional full-attention blocks with the
+    config's norm and MLP, then ``enc_norm`` (reference
+    ``transformer.py:425-439``)."""
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                         f"enc_embeds (B, S_enc, d_model)")
+    x = enc_embeds.to(params["embed"].dtype)
+    b, s, _ = x.shape
+    rope = L.rope_table(torch.arange(s, dtype=torch.int32, device=x.device),
+                        cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_enc_layers):
+        p = _layer(params["enc_layers"], i)
+        q, k, v = _qkv(L.norm(x, p["norm1"], cfg), p["attn"], cfg, rope)
+        attn = full_attention(q, k, v, cfg, bidirectional=True)
+        x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
+        x = x + L.mlp(L.norm(x, p["norm2"], cfg), p["mlp"], cfg)
+    return L.norm(x, params["enc_norm"], cfg)
+
+
+def _enc_out(params: Params, cfg: ArchConfig, enc_embeds):
+    """The encoder output an enc-dec config's layers attend to, else None
+    (``enc_embeds`` refused)."""
+    if cfg.family == "encdec":
+        return _encode(params, cfg, enc_embeds)
+    if enc_embeds is not None:
+        raise ValueError(f"{cfg.name} has no encoder: enc_embeds is for "
+                         f"encoder-decoder configs")
+    return None
+
+
+def _quantize_kv(k, v, cal, cap: int, pol, quant_fn, dtype):
+    """One layer's cache of capacity ``cap`` from its K/V: channels
+    permuted by the layer's calibration ``cal`` (``perm_k``/``perm_v``
+    (H, D), ``alpha_k``/``alpha_v``), then ``kv_cache.prefill``."""
+    return kvc.prefill(_apply_perm(k, cal["perm_k"]).to(dtype),
+                       _apply_perm(v, cal["perm_v"]).to(dtype), cap, pol,
+                       cal["alpha_k"], cal["alpha_v"], quant_fn=quant_fn)
 
 
 def _stack_caches(per_layer):
@@ -417,14 +593,20 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens, policy,
                   calib: Optional[Dict] = None,
                   max_len: Optional[int] = None, dtype=None, backend=None,
                   *, embeds: Optional[torch.Tensor] = None,
-                  positions: Optional[torch.Tensor] = None):
+                  positions: Optional[torch.Tensor] = None,
+                  enc_embeds: Optional[torch.Tensor] = None):
     """Paper Sec. 3.2 prefill of ``tokens`` (B, S) (or, for a config with
     ``input_embeds``, of ``embeds`` (B, S, d) with ``tokens`` None):
     full-precision attention (fixed 128-wide key blocks, DESIGN.md §7),
     then quantize all but the sinks and the window through the backend's
     quantizer, band by band with each band's policy (DESIGN.md §8).
     ``positions`` (3, B, S) are the M-RoPE streams (default: ``arange``
-    on each).
+    on each).  An enc-dec config takes ``enc_embeds`` (B, S_enc, d), the
+    stub frontend's frames: the encoder runs first, and each decoder
+    layer quantizes its cross K/V whole (S_enc tokens, capacity S_enc)
+    under ``policy.without_window()`` with the layer's calibration and the
+    band's quantizer, kept under ``x_`` keys; a hybrid layer keeps its
+    Mamba state as ``ssm_conv``/``ssm_h``.
 
     Returns (last-token logits (B, 1, V), {"scan": caches}): layer-stacked,
     band-keyed when the schedule has more than one band."""
@@ -439,20 +621,25 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens, policy,
     s = x.shape[1]
     ml = max_len or (s + 64)
     ropes = _rope_tables(cfg, _positions(cfg, s, positions, dev))
+    enc_out = _enc_out(params, cfg, enc_embeds)
     outs = {}
     for bs, be, pol in bands:
         quant_fn = backend.quant_fn(pol)
         cal = _band_calib(calib, cfg, pol, bs, be, dev)
         caches = []
         for i in range(bs, be):
-            x, k, v = _block_full(x, params, cfg, ropes, i)
-            j = i - bs
-            caches.append(kvc.prefill(
-                _apply_perm(k, cal["perm_k"][j]).to(x.dtype),
-                _apply_perm(v, cal["perm_v"][j]).to(x.dtype), ml, pol,
-                cal["alpha_k"][j], cal["alpha_v"][j], quant_fn=quant_fn))
+            x, k, v, extra = _block_full(x, params, cfg, ropes, i, enc_out)
+            lc = {n: t[i - bs] for n, t in cal.items()}
+            cache = _quantize_kv(k, v, lc, ml, pol, quant_fn, x.dtype)
+            if "kx" in extra:
+                xc = _quantize_kv(extra.pop("kx"), extra.pop("vx"), lc,
+                                  enc_out.shape[1], pol.without_window(),
+                                  quant_fn, x.dtype)
+                cache.update({f"x_{kk}": vv for kk, vv in xc.items()})
+            cache.update(extra)
+            caches.append(cache)
         outs[_band_key(bs)] = _stack_caches(caches)
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    x = L.norm(x, params["final_norm"], cfg)
     return (L.unembed(x[:, -1:], params, cfg),
             {"scan": _band_out(outs, bands, 0)})
 
@@ -462,20 +649,24 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens, policy,
 def collect_kv(params: Params, cfg: ArchConfig, tokens,
                max_samples: int = 4096, *,
                embeds: Optional[torch.Tensor] = None,
-               positions: Optional[torch.Tensor] = None):
+               positions: Optional[torch.Tensor] = None,
+               enc_embeds: Optional[torch.Tensor] = None):
     """Post-RoPE K/V of every layer for calibration: (L, N, H_kv, D) each,
     N = B x S tokens cut to ``max_samples``, in the params' dtype on the
     tokens' device.  The layer loop is :func:`prefill_model`'s
     (:func:`_block_full`), so calibration sees exactly the K/V that the
-    cache quantizes (before the channel permutation); ``embeds`` and
-    ``positions`` as in :func:`prefill_model`."""
+    cache quantizes (before the channel permutation); ``embeds``,
+    ``positions`` and ``enc_embeds`` as in :func:`prefill_model`.  A
+    hybrid config gives its attention K/V; an enc-dec config runs the
+    encoder first and gives the decoder's self-attention K/V."""
     _check_family(cfg)
     x = _embed_in(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     ropes = _rope_tables(cfg, _positions(cfg, s, positions, x.device))
+    enc_out = _enc_out(params, cfg, enc_embeds)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = _block_full(x, params, cfg, ropes, i)
+        x, k, v, _ = _block_full(x, params, cfg, ropes, i, enc_out)
         ks.append(k.reshape(b * s, cfg.n_kv_heads, cfg.head_dim)[:max_samples])
         vs.append(v.reshape(b * s, cfg.n_kv_heads, cfg.head_dim)[:max_samples])
     return torch.stack(ks), torch.stack(vs)
@@ -590,7 +781,7 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             j = i - bs
             p = _layer_params(params, cfg, i)
             cache = {k: v[j] for k, v in group.items()}
-            hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
+            hn = L.norm(x, p["norm1"], cfg)
             q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
             _ws_write(ws["k"][j], k, t0, n_valid)
             _ws_write(ws["v"][j], v, t0, n_valid)
@@ -598,12 +789,11 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                                            cfg, window=_window(cfg, i),
                                            frontier=t0 + n_valid)
             x = x + attn.reshape(b, c, -1) @ p["attn"]["wo_attn"]
-            x = x + _ffn(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p,
-                         cfg)
+            x = x + _ffn(L.norm(x, p["norm2"], cfg), p, cfg)
             append(cache, _apply_perm(k, cal["perm_k"][j]).to(x.dtype),
                    _apply_perm(v, cal["perm_v"][j]).to(x.dtype), pol, t0,
                    n_valid, cal["alpha_k"][j], cal["alpha_v"][j])
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    x = L.norm(x, params["final_norm"], cfg)
     last = x[:, max(0, min(n_valid, c) - 1)][:, None]
     return L.unembed(last, params, cfg), state
 
@@ -661,7 +851,11 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
     §4): each band's route and kernel launch plan are fixed by its policy,
     so a captured step stays static.  ``caches`` (as
     :func:`prefill_model` builds them) are updated **in place** and
-    returned with the logits (B, 1, V).
+    returned with the logits (B, 1, V).  A hybrid layer also steps its
+    Mamba head from the ``ssm_`` leaves (written back in place); an
+    enc-dec decoder layer attends over its ``x_`` cross cache with
+    ``policy.without_window()``, the packed frames alone, and never
+    appends to it (reference ``transformer.py:862-913``).
 
     ``chunk`` tiles the reference backend's packed walk (the kernel
     ignores it); ``prune_blocks`` toggles dead-block skipping.
@@ -702,8 +896,10 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
         for i in range(bs, be):
             j = i - bs
             p = _layer_params(params, cfg, i)
-            cache = {k: v[j] for k, v in group.items()}
-            hn = L.rms_norm(x, p["norm1"]["w"], cfg.norm_eps)
+            layer = {k: v[j] for k, v in group.items()}
+            cache = {k: v for k, v in layer.items()
+                     if not k.startswith(_EXTRA)}
+            hn = L.norm(x, p["norm1"], cfg)
             q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
             qp = _apply_perm(q, perm_q[j])
             kp = _apply_perm(k, cal["perm_k"][j])
@@ -728,12 +924,41 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                     qp, cache, cfg, pol, window=_window(cfg, i),
                     dtype=x.dtype,
                     local_slice=cfg.local_window if local else 0, **lever)
-            attn = _apply_perm(attn, inv_v[j])
-            x = x + attn.reshape(b, 1, -1) @ p["attn"]["wo_attn"]
-            x = x + _ffn(L.rms_norm(x, p["norm2"]["w"], cfg.norm_eps), p,
-                         cfg)
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+            attn = _apply_perm(attn, inv_v[j]).reshape(b, 1, -1)
+            attn = attn @ p["attn"]["wo_attn"]
+            if "ssm" in p:
+                sout, _ = ssm_lib.ssm_decode(
+                    hn, {"conv": layer["ssm_conv"], "h": layer["ssm_h"]},
+                    p["ssm"], cfg)
+                attn = _mix_ssm(attn, sout, p, cfg)
+            x = x + attn
+            if "xattn" in p:
+                # the cross cache: the packed frames alone, no fp segment
+                xcache = {k[2:]: v for k, v in layer.items()
+                          if k.startswith("x_")}
+                qx = (L.norm(x, p["norm_x"], cfg) @ p["xattn"]["wq"]
+                      ).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+                xo = backend.attend(_apply_perm(qx, perm_q[j]), xcache, cfg,
+                                    pol.without_window(), dtype=x.dtype)
+                xo = _apply_perm(xo, inv_v[j]).reshape(b, 1, -1)
+                x = x + xo @ p["xattn"]["wo_attn"]
+            x = x + _ffn(L.norm(x, p["norm2"], cfg), p, cfg)
+    x = L.norm(x, params["final_norm"], cfg)
     return L.unembed(x, params, cfg), caches
+
+
+def layer_cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                       policy: QuantPolicy, dtype=torch.bfloat16):
+    """``{name: (shape, dtype)}`` of one layer's striped cache dict as
+    :func:`prefill_model` builds it: ``kv_cache.cache_shapes``, plus a
+    hybrid layer's Mamba state (``ssm_conv`` in ``dtype``, ``ssm_h`` f32,
+    ``ssm.state_shapes``).  An enc-dec layer's cross cache has the shape
+    of the frames the prefill got, so it is not listed."""
+    shapes = kvc.cache_shapes(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                              policy, dtype)
+    if cfg.family == "hybrid":
+        shapes.update(ssm_lib.state_shapes(batch, cfg, dtype))
+    return shapes
 
 
 def cache_bytes(caches) -> int:

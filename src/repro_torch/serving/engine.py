@@ -94,6 +94,23 @@ from .warmup import GraphCache
 
 # ------------------------------------------------------------------ sampling
 
+def check_servable(cfg: ArchConfig) -> None:
+    """Refuse a config the Engine cannot serve: an encoder-decoder, whose
+    prefill needs each request's encoder frames (``enc_embeds``) where a
+    :class:`Request` carries only a prompt.  The reference Engine prefills
+    prompts alone and would fail inside its encoder at the first
+    admission; an enc-dec model runs through
+    ``transformer.prefill_model(..., enc_embeds=)`` and
+    ``transformer.decode_step`` (DESIGN.md §6)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"the Engine serves decoder-only families; {cfg.name} "
+            f"(family='encdec') needs encoder frames per request, which a "
+            f"Request does not carry: run it through "
+            f"transformer.prefill_model(..., enc_embeds=) and "
+            f"transformer.decode_step")
+
+
 def sample_per_slot(logits: torch.Tensor, temps: torch.Tensor,
                     uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-slot sampling (DESIGN.md §6): logits (B, V), temps (B,),
@@ -525,6 +542,9 @@ class Engine:
                 "host_spill_bytes requires the paged block pool "
                 "(set pool_blocks or pool_memory_bytes): only pooled "
                 "packed blocks spill to host RAM — DESIGN.md §11")
+        # after the option checks, so that a pooled or chunked encdec
+        # engine meets the reference's refusal of its option first
+        check_servable(cfg)
 
     # ------------------------------------------------------ pool set-up (§9)
 
@@ -1456,8 +1476,11 @@ class Engine:
         """Zeroed engine caches of every band, built from shapes (DESIGN.md
         §10 warmup; first admission when not warmed): a pooled band's
         planes ``(L_band, NP+1, BT, H, W)`` beside ``block_tbl`` ``(L_band,
-        B, NB)``, every other band striped ``(L_band, B, ...)``; flat for
-        one band, band-keyed for several (DESIGN.md §8)."""
+        B, NB)``, every other band striped ``(L_band, B, ...)`` with a
+        hybrid config's ``ssm_conv``/``ssm_h`` state beside its planes
+        (``insert_slot`` copies the leaves of these caches, so every leaf
+        a prefill builds has to be here); flat for one band, band-keyed
+        for several (DESIGN.md §8)."""
         cfg, dtype = self.cfg, self.params["embed"].dtype
         bands = self.schedule.bands()
         outs = {}
@@ -1469,9 +1492,8 @@ class Engine:
                     cfg.head_dim, pol, self.pool_blocks,
                     self.pool_block_tokens, dtype)
             else:
-                shapes = kvc.cache_shapes(self.batch_slots, self.max_len,
-                                          cfg.n_kv_heads, cfg.head_dim, pol,
-                                          dtype)
+                shapes = T.layer_cache_shapes(cfg, self.batch_slots,
+                                              self.max_len, pol, dtype)
             outs[bkey] = {k: torch.zeros((be - bs,) + s, dtype=d,
                                          device=self.device)
                           for k, (s, d) in shapes.items()}

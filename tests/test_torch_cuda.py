@@ -26,10 +26,19 @@ runs on a machine with only torch:
   same bound for gemma3 smoke's unrolled step (hoisted local slices,
   pre-append attends) against its default step.  decode_attn also at the
   new families' head shapes (Gq 7 / D 128, Gq 2 / D 256, softcap 50) and
-  kv_append at Hkv 4 / D 256.  The MoE smoke models' step on both
+  kv_append at Hkv 4 / D 256; the hybrid and enc-dec families' (below).
+  The MoE smoke models' step on both
   backends; their FFN on the card within f32 ``atol=1e-5`` of the CPU's
   (both dispatches, tokens dropped), and a warmed MoE Engine's streams
   equal to the unwarmed one's with the launch identities.
+* the hybrid and enc-dec families: decode_attn at hymba's Hkv 5 / Gq 5 /
+  D 64 (the launch plan's one kv head a CTA) and over a window-0, sink-0
+  cross cache (every frame packed, no fp segment), each to the f32
+  tolerance of its plain version, and kv_append at Hkv 5 / D 64; a
+  warmed hymba smoke Engine (the SSM state updated in place inside the
+  graph) with the unwarmed Engine's streams and the launch identities; a
+  seamless smoke step with two decode_attn launches a layer, the cross
+  cache untouched, and a captured step BYTE-equal to eager steps.
 * the serving harness (DESIGN.md §10): a CUDA-graph replay of one decode
   step BYTE-equal to an eager step in every cache leaf and the logits,
   striped and pooled; the launch counters after N replays; every cache
@@ -242,7 +251,8 @@ def _caches_equal(a, c, pooled, what):
 
 
 @pytest.mark.parametrize("d,hkv,gs", [(128, 32, 128), (64, 8, 64),
-                                      (256, 4, 128)])
+                                      (256, 4, 128),
+                                      (64, 5, 64)])     # hymba: odd Hkv
 @pytest.mark.parametrize("pooled", [False, True])
 @pytest.mark.parametrize("window", [32, 0])
 def test_kv_append_kernel_matches_plain_300_steps(d, hkv, gs, pooled,
@@ -324,7 +334,8 @@ def _ragged(rng, dev, hkv, gq, d, s_mask=1024, bs=256):
     (1, 32, 128, 0.0), (1, 32, 128, 30.0), (4, 8, 64, 0.0), (4, 8, 64, 30.0),
     (7, 4, 128, 0.0),          # qwen2-vl: Gq 7 on the G = 8 template
     (2, 4, 256, 0.0),          # gemma3
-    (2, 16, 128, 50.0)])       # gemma2's softcap; slots 2, 3 have lo > 0
+    (2, 16, 128, 50.0),        # gemma2's softcap; slots 2, 3 have lo > 0
+    (5, 5, 64, 0.0)])          # hymba: Hkv 5 (one head a CTA), Gq 5
 def test_decode_attn_kernel_matches_plain(gq, hkv, d, cap, cuda_device):
     rng = np.random.default_rng(1)
     pol, q, k_qt, v_qt, mask, bounds, bs = _ragged(rng, cuda_device, hkv, gq,
@@ -338,6 +349,52 @@ def test_decode_attn_kernel_matches_plain(gq, hkv, d, cap, cuda_device):
     full = DA.decode_attn(*args, block_s=bs, softcap=cap)
     for a, b in zip(got, full):
         assert torch.equal(a, b)
+
+
+def test_decode_attn_odd_kv_heads_take_one_head_a_cta(cuda_device):
+    """Hkv 5 (hymba): the launch plan falls to one kv head a CTA (the
+    kernel's ``hkv % hg`` guard), and the kernel at the serve-size mask
+    (4096 packed, hymba's Gq 5 on the G 8 template) matches its plain
+    version, pruned == full bitwise."""
+    assert DA.launch_plan(4, 5, 64, QuantPolicy(bits_k=2.0, bits_v=1.5,
+                                                group_size=128), 4096, 256,
+                          cuda_device)[0] == 1
+    rng = np.random.default_rng(5)
+    pol, q, k_qt, v_qt, mask, bounds, bs = _ragged(rng, cuda_device, 5, 5,
+                                                   64, s_mask=4096)
+    args = (q, k_qt, v_qt, mask, pol, 64, 0.125)
+    got = DA.decode_attn(*args, block_s=bs, block_bounds=bounds)
+    want = DA.decode_attn_plain(*args, block_s=bs, block_bounds=bounds)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    for a, b in zip(got, DA.decode_attn(*args, block_s=bs)):
+        assert torch.equal(a, b)
+
+
+def test_decode_attn_over_a_cross_cache(cuda_device):
+    """The enc-dec cross cache: frames quantized whole under
+    ``without_window()`` (window 0, no sinks: every frame packed, no fp
+    segment), attended by the decode wrapper, one decode_attn launch,
+    against the same call on the CPU (the plain version) at the f32
+    tolerance."""
+    from repro_torch.kernels import ops
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=128, window=128,
+                      n_sink=5).without_window()
+    rng = np.random.default_rng(6)
+    kv = [torch.from_numpy(rng.normal(size=(4, 1024, 16, 64)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2)]
+    cache = kvc.prefill(kv[0].to(cuda_device), kv[1].to(cuda_device), 1024,
+                        pol, quant_fn=ops.make_kernel_quant_fn())
+    assert not any(k.startswith(("sink_", "win_")) for k in cache)
+    q = torch.from_numpy(rng.normal(size=(4, 1, 16, 64)).astype(np.float32))
+    before = DA.LAUNCHES["kernel"]
+    got = ops.cuda_decode_attention(q.to(cuda_device), cache, pol,
+                                    scale=0.125, dtype=torch.float32)
+    assert DA.LAUNCHES["kernel"] == before + 1
+    want = ops.cuda_decode_attention(q, {k: v.cpu() for k, v in
+                                         cache.items()}, pol, scale=0.125,
+                                     dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
 
 
 def test_decode_attn_many_splits_with_dead_ones(cuda_device):
@@ -622,6 +679,102 @@ def test_moe_on_the_card(arch, cuda_device):
     assert eng._graphs.replays == eng.n_decode_steps
     assert eng.warmup_report()["post_warmup_misses"] == 0
     assert streams[0] == streams[1]
+
+
+def test_hybrid_engine_on_the_card(cuda_device):
+    """hymba smoke: a warmed Engine (the step with its in-place SSM state
+    updates captured as a CUDA graph) gives the unwarmed Engine's
+    streams, with one kv_append and one decode_attn launch a layer a step
+    and no post-warmup miss; one step's cuda logits within f32
+    ``atol=rtol=1e-4`` of the reference backend's."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, Request
+    cfg = configs.get_smoke("hymba_1p5b")
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
+                      n_sink=2)
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new=m,
+                    seed=i)
+            for i, (n, m) in enumerate(zip((20, 20, 12, 7), (9, 6, 8, 7)))]
+    streams = []
+    for warm in (False, True):
+        eng = Engine(params, cfg, pol, batch_slots=2, max_len=64,
+                     steps_per_sync=4, device=cuda_device)
+        if warm:
+            assert eng.warmup()["n_graphs"] == 1
+        reset_launch_counts()
+        streams.append(_serve(eng, reqs))
+        c, n = launch_counts(), cfg.n_layers * eng.n_decode_steps
+        assert c["kv_quant"]["append"] == n == c["decode_attn"]["kernel"]
+        assert c["decode_attn"]["plain"] == c["kv_quant"]["plain"] == 0
+    assert eng.warmup_report()["post_warmup_misses"] == 0
+    assert streams[0] == streams[1]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 30)),
+                           device=cuda_device)
+    _, base = T.prefill_model(params, cfg, toks, pol, max_len=64)
+    tok = toks[:, -1:]
+    out = {}
+    for name in ("cuda", "reference"):
+        c = {"scan": {k: v.clone() for k, v in base["scan"].items()}}
+        out[name] = T.decode_step(params, cfg, tok, c, pol,
+                                  backend=name)[0]
+    torch.testing.assert_close(out["cuda"], out["reference"], atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_encdec_step_on_the_card(cuda_device):
+    """seamless smoke: prefill from frames, then decode steps with two
+    decode_attn launches a layer a step (self and cross) and one
+    kv_append, the cross cache never written; a captured step replayed
+    BYTE-equal to eager steps; cuda logits within f32 ``atol=rtol=1e-4``
+    of the reference backend's."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cfg = configs.get_smoke("seamless_m4t_large_v2")
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
+                      n_sink=2)
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    frames = torch.randn((2, cfg.enc_seq_len, cfg.d_model), generator=gen,
+                         device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 30), generator=gen,
+                         device=cuda_device)
+    reset_launch_counts()
+    _, base = T.prefill_model(params, cfg, toks, pol, max_len=64,
+                              enc_embeds=frames)
+    assert launch_counts()["kv_quant"]["kernel"] == 4 * cfg.n_layers
+    clone = lambda: {"scan": {k: v.clone() for k, v in base["scan"].items()}}
+    tok = toks[:, -1:].contiguous()
+    ref = T.decode_step(params, cfg, tok, clone(), pol,
+                        backend="reference")[0]
+    eager, graphed = clone(), clone()
+    reset_launch_counts()
+    logits = [T.decode_step(params, cfg, tok, eager, pol)[0]
+              for _ in range(3)]
+    c = launch_counts()
+    assert c["decode_attn"]["kernel"] == 2 * 3 * cfg.n_layers
+    assert c["kv_quant"]["append"] == 3 * cfg.n_layers
+    torch.testing.assert_close(logits[0], ref, atol=1e-4, rtol=1e-4)
+    for k, v in eager["scan"].items():
+        if k.startswith("x_"):
+            assert torch.equal(v, base["scan"][k]), k
+    warm = clone()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        T.decode_step(params, cfg, tok, warm, pol)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = T.decode_step(params, cfg, tok, graphed, pol)
+    for k, v in clone()["scan"].items():   # the capture ran no step
+        graphed["scan"][k].copy_(v)
+    for step in range(3):
+        graph.replay()
+        assert torch.equal(out, logits[step]), step
+    torch.cuda.synchronize()
+    for k in eager["scan"]:
+        assert torch.equal(graphed["scan"][k], eager["scan"][k]), k
 
 
 def _harness_engine(cuda_device, pool=None, **kw):
