@@ -252,7 +252,36 @@ not from the 50 MB L2, as each layer of a decode step does.
    (streams equal); cuda-vs-reference logits (gated at 0.05); the
    encoder's ms at 4 x 4096 frames; the replayed step at 4 x 2048 (CUDA
    events) with its profile by kind; peak memory.
-16. a ``timing`` line of seconds per phase, then the kernel summary line
+16. serve_rwkv — rwkv6-3b (RWKV6, attention-free: no KV cache, so neither
+   kernel may run anywhere in the phase; its launch counters are gated
+   to zero deltas) at full width (32 layers, d 2560, 40 heads of 64,
+   random bf16 weights from seed 0), one JSON line a part: (wkv)
+   ``wkv_chunked`` against the step recurrence ``wkv_naive`` at one
+   layer's 3000-token prefill (B 1, S 3008, H 40, hd 64, f32) within
+   atol 2e-4 / rtol 1e-3 (the reference test's), ms of each; (rwkv) mix
+   (a) through an eager, then a warmed Engine (the state ``wkv``,
+   ``x_prev``, ``x_prev_ffn`` updated in place inside the captured step):
+   every request finished, replayed streams equal the eager ones, no
+   graph miss, replays == decode steps; the replayed step at 4 x 2048
+   (CUDA events) with its profile by kind and kernel count; the state
+   bytes a slot (the Engine's caches = 4 x that, and the same shapes at
+   max_len 131205); the 3000-token prefill's ms and its device profile
+   by kind; the pool and chunked prefill refusing the family; peak
+   memory; seconds by part.
+17. train — the single-device training path (``training.make_train_step``
+   on ``forward_train``, f32 params, grads and AdamW moments, f32
+   matmuls with TF32 off) at llama3.2-1b's full width (16 layers, d
+   2048, vocab 128,256: 1.24 B params): 8 steps at batch 8 x seq 128 and
+   4 at 8 x 512 on ``DataLoader`` batches (loss and grad norm finite at
+   every step; step ms, tokens/s, 6 x params x tokens over the f32 peak,
+   peak memory), 4 steps on one repeated batch (its loss must fall),
+   loss and gradients with remat off against ``nothing`` and ``dots``
+   (loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+   largest magnitude), and a checkpoint round trip at full width and 2
+   layers (2 steps, save, one more step; restored into a fresh state,
+   the same step bitwise: params, moments, steps, metrics; save and
+   restore ms and bytes); both kernels' launch counters at zero deltas.
+18. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
@@ -4354,6 +4383,425 @@ def phase_serve_encdec(state):
               **_encdec_model(state)))
 
 
+# ------------------------------------------------- serve_rwkv (rwkv6-3b)
+
+WKV_SHAPE = (1, 3008, 40, 64)     # one layer's 3000-token prefill, padded
+WKV_ATOL, WKV_RTOL = 2e-4, 1e-3   # tests/test_models.py, chunked vs naive
+
+
+def _no_kernel_launch(before, what):
+    """Neither kernel (decode_attn, kv_quant, kv_append, their plain
+    versions, the fp16 route) was called since ``before``."""
+    from repro_torch.kernels import launch_count_delta, launch_counts
+    delta = launch_count_delta(before, launch_counts())
+    moved = {k: {c: n for c, n in d.items() if n} for k, d in delta.items()}
+    check(not any(moved.values()),
+          f"{what}: a kernel counter moved on a path without a KV cache: "
+          f"{moved}")
+    return delta
+
+
+def _wkv_gate():
+    """``wkv_chunked`` against the step recurrence ``wkv_naive`` on the
+    card at one layer's full-width shapes (B 1, S 3000 padded to 3008, H
+    40, hd 64, f32; the reference test's input law: normal r/k/v/u,
+    log-decay -exp(N(0,1) - 1) clamped to [-5, -1e-4], zero state), within
+    the reference test's tolerance; synchronised ms of each."""
+    import torch
+    from repro_torch.models import rwkv6 as R
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b, s, h, d = WKV_SHAPE
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    r, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
+    logw = torch.clamp(-torch.exp(rnd(b, s, h, d) - 1), -5.0, -1e-4)
+    u = rnd(h, d)
+    s0 = torch.zeros((b, h, d, d), device=dev)
+    out, ms = {}, {}
+    for name, fn in (("chunked", R.wkv_chunked), ("naive", R.wkv_naive)):
+        fn(r, k, v, logw, u, s0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(r, k, v, logw, u, s0)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    res = {}
+    for i, what in enumerate(("y", "state")):
+        got, want = out["chunked"][i], out["naive"][i]
+        err = (got - want).abs()
+        ratio = float((err / (WKV_ATOL + WKV_RTOL * want.abs())).max())
+        res[what] = {"max_abs_err": float(err.max()),
+                     "max_abs": float(want.abs().max()),
+                     "worst_share_of_tol": ratio}
+        check(bool(torch.isfinite(got).all()) and ratio <= 1.0,
+              f"wkv_chunked vs wkv_naive ({what}) at {WKV_SHAPE}: "
+              f"{res[what]} exceeds atol {WKV_ATOL} / rtol {WKV_RTOL}")
+    return dict(res, shape=list(WKV_SHAPE), atol=WKV_ATOL, rtol=WKV_RTOL,
+                ms=ms)
+
+
+def _rwkv_serve(eng, reqs, what):
+    """``reqs`` through ``eng``: every request finished at its budget; the
+    streams, wall time, tokens/s and the Engine's ms per step."""
+    import torch
+    chunks = _timed_chunks(eng)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    eng.run(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check(all(h.finished and h.finish_reason == "length"
+              and len(h.tokens) == r.max_new for h, r in zip(handles, reqs)),
+          f"{what}: not every request finished: "
+          f"{[(h.finish_reason, len(h.tokens)) for h in handles]}")
+    tokens = sum(len(h.tokens) for h in handles)
+    return [list(h.tokens) for h in handles], {
+        "decode_steps": eng.n_decode_steps, "wall_s": wall,
+        "tokens": tokens, "tokens_per_s": tokens / wall,
+        "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]
+                                      or [ms for ms, _ in chunks])}
+
+
+def _rwkv_model(state):
+    """rwkv6-3b at full width (random bf16 weights from seed 0): mix (a)
+    eager and warmed (streams equal, no graph miss, replays == steps), the
+    3000-token prefill's ms and its profile by kind, the replayed step at
+    4 x 2048 with its kernel count, the state bytes a slot (equal at any
+    max_len), the refusals, peak memory."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.models import transformer as T
+    cfg = configs.get("rwkv6_3b")
+    marks = [("start", time.monotonic())]
+    mark = lambda name: marks.append((name, time.monotonic()))
+    params, init = _family_init(cfg)
+    reqs = _serve_requests(cfg)[1]
+    eng, _ = _family_engine(params, cfg, False)
+    eager, eager_rep = _rwkv_serve(eng, reqs, "rwkv eager")
+    del eng
+    mark("eager")
+    eng, warm = _family_engine(params, cfg, True)
+    got, rep = _rwkv_serve(eng, _serve_requests(cfg)[1], "rwkv graph")
+    mark("graph")
+    wr = eng.warmup_report()
+    same = [a == b for a, b in zip(got, eager)]
+    check(all(same) and wr["post_warmup_misses"] == 0
+          and wr["replays"] == eng.n_decode_steps,
+          f"rwkv: replayed streams equal eager {same}, warmup {wr}, "
+          f"decode steps {eng.n_decode_steps}")
+    rep.update(streams_equal_eager=same, replays=wr["replays"])
+    replayed, run = _replayed_step_ms(eng, cfg)
+    mark("replayed")
+    prof = _profile_decode(run)
+    mark("replay_profile")
+    per_step = {k: prof[k] / SERVE_SPS for k in (
+        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
+    by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
+               for k, e in prof["by_kind"].items()}
+    cache_bytes = T.cache_bytes(eng._caches)
+    del eng
+    gc.collect()
+    per_slot = sum(int(np.prod(shape)) * torch.empty((), dtype=dt)
+                   .element_size() for shape, dt in T.layer_cache_shapes(
+                       cfg, 1, MAX_LEN, PAPER_POLICY).values()) * cfg.n_layers
+    longer = T.layer_cache_shapes(cfg, 1, LONG_MAX_LEN, PAPER_POLICY)
+    check(cache_bytes == per_slot * SERVE_SLOTS and longer ==
+          T.layer_cache_shapes(cfg, 1, MAX_LEN, PAPER_POLICY),
+          f"rwkv: state bytes {cache_bytes} != {SERVE_SLOTS} x {per_slot} "
+          f"or the state grows with max_len")
+    prefill = _prefill_ms(params, cfg)
+    mark("prefill")
+    toks = torch.as_tensor(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (1, MOE_PREFILL)), device=torch.device("cuda"))
+    pre_prof = _profile_decode(lambda: T.prefill_model(
+        params, cfg, toks, PAPER_POLICY, max_len=MAX_LEN), n=1, cpu=False)
+    mark("prefill_profile")
+    refusals = _refusals(params, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(init, arch=cfg.name, runs={"eager_striped": eager_rep,
+                                           "graph_striped": rep},
+                warmup=warm, prefill_ms=dict(prefill, tokens=MOE_PREFILL),
+                prefill_profile={k: pre_prof[k] for k in (
+                    "device_ms_per_step", "device_busy_share",
+                    "kernels_per_step", "by_kind", "top")},
+                replayed_step_ms_4x2048=replayed,
+                replay_profile=dict(per_step=per_step, by_kind=by_kind,
+                                    busy_share=prof["device_busy_share"]),
+                state_bytes_per_slot=per_slot,
+                engine_state_bytes=cache_bytes, refusals=refusals,
+                peak_mem_bytes=peak,
+                part_s={b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])})
+
+
+def phase_serve_rwkv(state):
+    """The attention-free family (rwkv6-3b) at full width: no KV cache, so
+    neither kernel may run anywhere in the phase."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {"peak_bytes_so_far": torch.cuda.max_memory_allocated(),
+              "allocated_after_free": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    counts = launch_counts()
+    head = {"phase": "serve_rwkv", "gpu": state["gpu"]}
+    emit(dict(head, part="wkv", before=before, **_wkv_gate()))
+    model = _rwkv_model(state)
+    delta = _no_kernel_launch(counts, "serve_rwkv")
+    emit(dict(head, part="rwkv", max_len=MAX_LEN, slots=SERVE_SLOTS,
+              steps_per_sync=SERVE_SPS, launch_delta=delta, **model))
+
+
+# ---------------------------------------------- train (llama3.2-1b, f32)
+
+TRAIN_BATCH, TRAIN_SEQS, TRAIN_STEPS = 8, (128, 512), (8, 4)
+TRAIN_LR = 3e-3                  # the reference trainer CLI's default
+REPEAT_STEPS = 4
+REMAT_RTOL = 1e-5                # remat on vs off: loss, and grads (below)
+REMAT_GRAD_TOL = 1e-4            # max |dg| over max |g|, leaf by leaf
+CKPT_LAYERS, CKPT_STEP = 2, 2    # the round trip: full width, 2 layers
+
+
+def _train_cfg(**kw):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("llama3p2_1b"), **kw)
+
+
+def _lr_fn():
+    import functools
+    from repro_torch.training import warmup_cosine
+    total = sum(TRAIN_STEPS) + REPEAT_STEPS
+    return functools.partial(warmup_cosine, peak_lr=TRAIN_LR,
+                             warmup=max(total // 10, 1), total=total)
+
+
+def _timed_steps(step_fn, st, batches, what):
+    """One synchronised train step on each of ``batches``: loss and grad
+    norm finite at every step.  Returns (state, per-step metrics and
+    ms)."""
+    import math
+    import torch
+    rows = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step_fn(st, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(row[k]) for k in ("loss", "nll",
+                                                  "grad_norm")),
+              f"train {what} step {i}: non-finite metrics {row}")
+        rows.append(dict(row, ms=ms))
+    return st, rows
+
+
+def _loss(params, cfg, batch) -> float:
+    """The train step's loss on ``batch``, forward only."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import loss_fn
+    with torch.no_grad():
+        logits, aux = T.forward_train(params, cfg, batch)
+        return float(loss_fn(logits, batch["labels"], aux)[0])
+
+
+def _loss_grads(params, cfg, batch):
+    """The train step's loss and gradients, without the update."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import loss_fn
+    from repro_torch.tree import leaves, unflatten
+    flat = [x.detach().requires_grad_() for x in leaves(params)]
+    logits, aux = T.forward_train(unflatten(params, flat), cfg, batch)
+    loss, _ = loss_fn(logits, batch["labels"], aux)
+    del logits
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def _remat_check(params, batch):
+    """Loss and gradients with per-block remat (``nothing`` and ``dots``)
+    against remat off, on one batch: equal within the stated tolerances;
+    the peak memory each run adds to what is held when it starts (the
+    state, and under remat the kept gradients of the run without)."""
+    import torch
+    out = {}
+    base_loss, base = None, None
+    for policy in (None, "nothing", "dots"):
+        cfg = _train_cfg() if policy is None else _train_cfg(
+            remat=True, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads = _loss_grads(params, cfg, batch)
+        torch.cuda.synchronize()
+        row = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3,
+               "peak_above_start_bytes":
+                   torch.cuda.max_memory_allocated() - held}
+        if policy is None:
+            base_loss, base = loss, grads
+        else:
+            rel = [float((g - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for g, b in zip(grads, base)]
+            row.update(loss_rel=float((loss - base_loss).abs()
+                                      / base_loss.abs()),
+                       grad_rel_max=max(rel),
+                       grads_bitwise=all(bool(torch.equal(g, b))
+                                         for g, b in zip(grads, base)))
+            check(row["loss_rel"] <= REMAT_RTOL
+                  and row["grad_rel_max"] <= REMAT_GRAD_TOL,
+                  f"train: remat {policy} against off: {row}")
+        del grads
+        out[policy or "off"] = row
+    del base
+    return out
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+    from repro_torch.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _ckpt_round_trip():
+    """Full width, CKPT_LAYERS layers: CKPT_STEP steps, save, one more step
+    (the uninterrupted run); restore the saved step into a fresh state and
+    take the same step: params, moments, steps and metrics bitwise equal.
+    Save and restore ms and bytes."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.checkpoint import load_latest, save_checkpoint
+    from repro_torch.data import DataLoader, SyntheticCorpus
+    from repro_torch.training import init_train_state, make_train_step
+    cfg = _train_cfg(n_layers=CKPT_LAYERS)
+    dev = torch.device("cuda")
+    st = init_train_state(cfg, seed=0, device=dev)
+    dl = DataLoader(SyntheticCorpus(cfg.vocab_size, seed=1), TRAIN_BATCH,
+                    TRAIN_SEQS[0], device=dev)
+    step_fn = make_train_step(cfg, lr_fn=_lr_fn())
+    for i in range(CKPT_STEP):
+        st, _ = step_fn(st, dl.batch_at(i))
+    d = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(d), CKPT_STEP, st)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    batch = dl.batch_at(CKPT_STEP)
+    a, ma = step_fn(st, batch)
+    del st
+    gc.collect()
+    t0 = time.perf_counter()
+    got = load_latest(str(d), a, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(got is not None and got["step"] == CKPT_STEP,
+          f"train: the checkpoint did not load: {got and got['step']}")
+    b, mb = step_fn(got["state"], batch)
+    same = _tree_equal(a, b)
+    same_m = all(bool(torch.equal(ma[k], mb[k])) for k in ma)
+    check(same and same_m, f"train: the restored run is not bitwise the "
+          f"uninterrupted one (state {same}, metrics {same_m})")
+    del a, b, got
+    shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": CKPT_LAYERS, "step": CKPT_STEP, "bytes": nbytes,
+            "save_ms": save_ms, "restore_ms": load_ms, "bitwise": True}
+
+
+def _train_model():
+    """llama3.2-1b at full width in f32: TRAIN_STEPS steps at each of
+    TRAIN_SEQS (batch 8), REPEAT_STEPS on one repeated batch (its loss
+    must fall), remat on against off, peak memory."""
+    import gc
+    import torch
+    from repro_torch.data import DataLoader, SyntheticCorpus
+    from repro_torch.models import transformer as T
+    from repro_torch.training import init_train_state, make_train_step
+    cfg = _train_cfg()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    st = init_train_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n = T.count_params(st["params"])
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=1)
+    step_fn = make_train_step(cfg, lr_fn=_lr_fn())
+    runs, start = {}, 0
+    for seq, steps in zip(TRAIN_SEQS, TRAIN_STEPS):
+        dl = DataLoader(corpus, TRAIN_BATCH, seq, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        st, rows = _timed_steps(step_fn, st, [
+            dl.batch_at(start + i) for i in range(steps)], f"seq {seq}")
+        start += steps
+        tokens = TRAIN_BATCH * seq
+        ms = _spread([r["ms"] for r in rows[1:]])
+        runs[f"{TRAIN_BATCH}x{seq}"] = {
+            "steps": rows, "step_ms": ms, "tokens_per_step": tokens,
+            "tokens_per_s": tokens / ms["mean"] * 1e3,
+            "model_flops_per_step": 6 * n * tokens,
+            "f32_peak_share": 6 * n * tokens / (ms["mean"] / 1e3)
+            / F32_FLOP_PER_S,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    batch = DataLoader(corpus, TRAIN_BATCH, TRAIN_SEQS[0],
+                       device=dev).batch_at(10_000)
+    before = _loss(st["params"], cfg, batch)
+    st, rows = _timed_steps(step_fn, st, [batch] * REPEAT_STEPS,
+                            "repeated batch")
+    after = _loss(st["params"], cfg, batch)
+    check(after < before, f"train: the repeated batch's loss did not fall:"
+          f" {before} -> {after}")
+    remat = _remat_check(st["params"], batch)
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "params": n, "init_s": init_s,
+            "precision": "f32 params, grads and moments; f32 matmuls at "
+                         "torch's default precision (TF32 off)",
+            "model_flops": "6 x params x tokens a step",
+            "runs": runs, "repeated_batch": {"loss_before": before,
+                                             "loss_after": after,
+                                             "steps": rows},
+            "remat": remat}
+
+
+def phase_train(state):
+    """The single-device training path at llama3.2-1b's full width: no KV
+    cache on it, so neither kernel may run anywhere in the phase."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {"peak_bytes_so_far": torch.cuda.max_memory_allocated(),
+              "allocated_after_free": torch.cuda.memory_allocated()}
+    counts = launch_counts()
+    head = {"phase": "train", "gpu": state["gpu"]}
+    model = _train_model()
+    ckpt = _ckpt_round_trip()
+    delta = _no_kernel_launch(counts, "train")
+    emit(dict(head, before=before, batch=TRAIN_BATCH, launch_delta=delta,
+              checkpoint=ckpt, **model))
+
+
 # kernel-name fragments of each kind, first match wins
 KERNEL_KINDS = (
     ("port: decode_attn + merge", ("decode_attn_split", "merge_splits")),
@@ -4373,15 +4821,17 @@ def _kind(name: str) -> str:
                                                         tags)), "other")
 
 
-def _profile_decode(step, n: int = 2):
+def _profile_decode(step, n: int = 2, cpu: bool = True):
     """Device time by kernel over ``n`` decode steps (torch.profiler):
-    busy share of the wall time, launches per step, top kernels."""
+    busy share of the wall time, launches per step, top kernels.  ``cpu``
+    False records the device's kernels alone (no host op events: cheaper
+    to collect over tens of thousands of launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.monotonic()
         for _ in range(n):
             step()
@@ -4443,7 +4893,8 @@ def main(argv=None) -> int:
                   phase_serve_chunked, phase_calibrate,
                   phase_serve_schedule, phase_serve_degrade,
                   phase_serve_families, phase_serve_moe,
-                  phase_serve_hybrid, phase_serve_encdec):
+                  phase_serve_hybrid, phase_serve_encdec,
+                  phase_serve_rwkv, phase_train):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

@@ -13,7 +13,12 @@ ones as the config asks) and its first ``first_dense`` layers sit in a
 ``layers`` add ``ssm/{in_proj,conv_w,conv_b,x_proj,dt_proj,dt_bias,a_log,
 d_skip,out_proj}`` and ``norm_attn_out``/``norm_ssm_out``; an enc-dec
 config's add ``xattn/{wq,wk,wv,wo_attn}`` and ``norm_x``, beside an
-``enc_layers`` stack and ``enc_norm``, every norm a LayerNorm ``{w, b}``),
+``enc_layers`` stack and ``enc_norm``, every norm a LayerNorm ``{w, b}``;
+an ``ssm`` (RWKV6) config's ``layers`` hold ``norm1``/``norm2`` and the
+time-mix and channel-mix leaves ``w_r, w_k, w_v, w_g, w_out, u, w0,
+lora_decay_a, lora_decay_b, gn_w, gn_b, ffn_k, ffn_v, ffn_r, mu_ffn_k,
+mu_ffn_r`` and ``mu_X, lora_X_a, lora_X_b`` for X in r, k, v, g, w, at
+the top of the layer dict),
 the stacked leading layer axis of each stack, and ``(d_in, d_out)``
 weights — no transposes.  bf16 may arrive as a ``uint16`` view (or as
 numpy's bfloat16 extension type) and is re-viewed as ``torch.bfloat16``;
@@ -80,6 +85,34 @@ def params_from_numpy(tree: Dict[str, Any], cfg=None, device=None,
                 raise ValueError(f"params leaf {k!r} has shape {got[k]}, "
                                  f"config {cfg.name} wants {want[k]}")
     return params
+
+
+def train_state_from_numpy(tree: Dict[str, Any], cfg=None, device=None
+                           ) -> Dict[str, Any]:
+    """A reference train state (numpy leaves: ``{"params", "opt": {"m",
+    "v", "step"}, "step"}`` and, with gradient compression, ``"ef"``) ->
+    the port's: the params through :func:`params_from_numpy` (checked
+    against ``cfg`` when given), the moments and residuals as f32 trees
+    of the params' structure, the two steps as int32 0-dim tensors."""
+    dev = resolve_device(device)
+    params = params_from_numpy(tree["params"], cfg, dev)
+    want = {k: tuple(v.shape) for k, v in _leaves(params)}
+
+    def moments(t, what):
+        out = tree_from_numpy(t, dev, torch.float32)
+        got = {k: tuple(v.shape) for k, v in _leaves(out)}
+        if got != want:
+            raise ValueError(f"{what} does not mirror the params tree")
+        return out
+    step = lambda a: torch.as_tensor(np.array(a, np.int32), device=dev)
+    state = {"params": params,
+             "opt": {"m": moments(tree["opt"]["m"], "opt/m"),
+                     "v": moments(tree["opt"]["v"], "opt/v"),
+                     "step": step(tree["opt"]["step"])},
+             "step": step(tree["step"])}
+    if "ef" in tree:
+        state["ef"] = moments(tree["ef"], "ef")
+    return state
 
 
 def calib_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:

@@ -60,7 +60,9 @@ failed audit exits non-zero:
         --chaos pool
 
 Every decoder-only family of the port serves here (``--arch hymba_1p5b``
-too, the hybrid one).  An encoder-decoder (``--arch
+too, the hybrid one, and ``--arch rwkv6_3b``, the attention-free one,
+whose caches are its recurrent state: the schedule table and the KV
+bytes line still print the SKVQ accounting, as the reference CLI's do).  An encoder-decoder (``--arch
 seamless_m4t_large_v2``) exits with the Engine's refusal before any
 weight is drawn: its prefill needs encoder frames per request, so it runs
 through ``transformer.prefill_model(..., enc_embeds=)`` and

@@ -9,11 +9,11 @@ The port's transformer runs these families:
   moe     — dense attention + routed-expert FFN after ``first_dense`` dense
             layers (deepseek-moe, granite-moe)
   hybrid  — parallel attention + Mamba heads per block (hymba)
+  ssm     — attention-free RWKV6 (Finch): no KV cache, an O(1) recurrent
+            state a layer
   encdec  — encoder-decoder with a cross-attention cache (seamless-m4t
             backbone; the speech frontend stubbed: the encoder reads frame
             embeddings)
-
-The reference's ``ssm`` family (RWKV6) is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # dense | vlm | moe | hybrid | encdec
+    family: str                    # dense | vlm | moe | hybrid | ssm | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,11 +62,16 @@ class ArchConfig:
     ssm_state: int = 0                 # Mamba state size (hymba)
     ssm_conv: int = 4                  # depthwise causal conv width
     ssm_expand: int = 1                # inner expansion of the mamba path
+    rwkv_head_dim: int = 64
+    rwkv_lora_rank: int = 32
     # --- enc-dec ---
     n_enc_layers: int = 0
     enc_seq_len: int = 4096            # stub frontend frames for decode cells
     # --- io stubs ---
     input_embeds: bool = False         # vlm: inputs may be embeddings
+    # --- training ---
+    remat: bool = False                # activation-checkpoint each block
+    remat_policy: str = "nothing"      # nothing (full remat) | dots | none
 
     @property
     def q_dim(self) -> int:
@@ -79,6 +84,10 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
 
     def layer_is_local(self, i: int) -> bool:
         if not self.local_pattern:

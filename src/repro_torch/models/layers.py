@@ -111,7 +111,10 @@ def mlp(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
 
 
 def embed(tokens: torch.Tensor, emb: torch.Tensor, scale: bool):
-    x = emb[tokens.long()]
+    """The rows of ``emb`` at ``tokens`` (``F.embedding``: its backward
+    sums repeated tokens in a fixed order, where indexing's accumulating
+    backward does not on the CPU, so a train step repeats bitwise)."""
+    x = F.embedding(tokens.long(), emb)
     if scale:
         x = x * torch.tensor(math.sqrt(emb.shape[1]), dtype=x.dtype)
     return x

@@ -56,15 +56,26 @@ def _ssm_scan(dtA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
     with the one ``k`` earlier (``(a, b)_t <- (a_t a_{t-k}, a_t b_{t-k} +
     b_t)``), k = 1, 2, 4, ...  Both inputs (B, S, ...) f32 are overwritten
     (the caller's transients); one temporary of their size is live at a
-    time.  Returns h, the same tensor as ``dBx``."""
+    time.  Returns h, the same tensor as ``dBx``.  Under autograd
+    (training) each pass builds new tensors instead, with the same
+    arithmetic, since the backward pass needs every pass's inputs."""
     a, b = dtA, dBx
     s = a.shape[1]
+    in_place = not (torch.is_grad_enabled()
+                    and (a.requires_grad or b.requires_grad))
     k = 1
     while k < s:
+        last = 2 * k >= s               # the last pass needs no new a
         # the right sides read the pre-pass values before the write
-        b[:, k:] = torch.addcmul(b[:, k:], a[:, k:], b[:, :-k])
-        if 2 * k < s:               # the last pass needs no new a
-            a[:, k:] = a[:, k:] * a[:, :-k]
+        if in_place:
+            b[:, k:] = torch.addcmul(b[:, k:], a[:, k:], b[:, :-k])
+            if not last:
+                a[:, k:] = a[:, k:] * a[:, :-k]
+        else:
+            b = torch.cat([b[:, :k], torch.addcmul(b[:, k:], a[:, k:],
+                                                   b[:, :-k])], dim=1)
+            if not last:
+                a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
         k *= 2
     return b
 

@@ -41,12 +41,15 @@ the reference, read through :func:`_layer_params`), ``hybrid`` (hymba:
 each block adds a Mamba head, ``models/ssm.py``, on the same normed input
 and averages the two RMS-normed outputs; the cache dict of a layer
 carries the head's decode state as ``ssm_conv``/``ssm_h`` beside the
-SKVQ leaves) and ``encdec`` (seamless-m4t: LayerNorm blocks, a
-bidirectional encoder over stub frame embeddings, ``enc_embeds=`` (B,
-S_enc, d), and in each decoder layer a cross-attention whose K/V the
-prefill quantizes once, whole, under ``policy.without_window()``, kept
-under ``x_``-prefixed keys of the layer's cache dict and never appended
-to).  The caches stay ONE
+SKVQ leaves), ``ssm`` (RWKV6, ``models/rwkv6.py``: attention-free, so
+no SKVQ cache; its caches are the recurrent state ``{"scan": {"wkv",
+"x_prev", "x_prev_ffn"}}``, layer-stacked, whatever the policy, which
+it accepts and does not use) and ``encdec`` (seamless-m4t: LayerNorm
+blocks, a bidirectional encoder over stub frame embeddings,
+``enc_embeds=`` (B, S_enc, d), and in each decoder layer a
+cross-attention whose K/V the prefill quantizes once, whole, under
+``policy.without_window()``, kept under ``x_``-prefixed keys of the
+layer's cache dict and never appended to).  The caches stay ONE
 ``"scan"`` group over all ``n_layers``, whatever ``first_dense`` is: MoE
 changes no attention shape, and every serving module keys on ``"scan"``.
 The reference splits its caches at ``first_dense`` into ``{"dense",
@@ -58,18 +61,26 @@ is a Python fact, where the reference scans flag arrays.
 :func:`decode_step` takes the reference's ``chunk`` and ``unroll``
 levers; ``unroll=True`` slices each band's packed planes once to the
 local window and lets local layers attend before their append.
+
+Training: :func:`forward_train` is the full causal forward of every
+family (full-precision ``full_attention``, the MoE aux loss summed over
+layers, ``torch.utils.checkpoint`` per block under ``cfg.remat``), which
+``training/train_step.py`` differentiates with autograd.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from .config import ArchConfig
 from . import layers as L
 from . import backends as bk
 from . import moe as moe_lib
+from . import rwkv6 as rwkv_lib
 from . import ssm as ssm_lib
 from .attention import (full_attention, packed_planes,
                         prefill_block_attention, prefill_chunk_attention,
@@ -84,18 +95,18 @@ from ..device import resolve_device
 Params = Dict
 
 
-FAMILIES = ("dense", "vlm", "moe", "hybrid", "encdec")
+FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
 # cache-dict leaves beside the SKVQ cache: a hybrid layer's SSM state and
 # an enc-dec layer's cross-attention cache
 _EXTRA = ("ssm_", "x_")
 
 
 def _check_family(cfg: ArchConfig):
-    """The port runs the dense decoder, the vlm decoder (M-RoPE over the
-    same blocks), the moe decoder (the same attention, routed-expert
-    FFNs), the hybrid decoder (attention + Mamba heads) and the
-    encoder-decoder; the reference's ``ssm`` family (RWKV6) is not
-    ported."""
+    """The port runs every family of the reference: the dense decoder, the
+    vlm decoder (M-RoPE over the same blocks), the moe decoder (the same
+    attention, routed-expert FFNs), the hybrid decoder (attention + Mamba
+    heads), the attention-free ``ssm`` decoder (RWKV6) and the
+    encoder-decoder."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"the port runs the {' and '.join(FAMILIES)}"
                                   f" families, got family={cfg.family!r}")
@@ -113,6 +124,9 @@ ONES = Fill(1.0)
 # log(arange(1, N + 1)) along the last axis: the SSM's A (reference
 # ``init_ssm_params``), computed in f32 and cast
 A_LOG = "a_log"
+# a uniform draw in [0, 1): RWKV6's token-shift mixes (reference
+# ``init_rwkv_params``)
+UNIFORM = "uniform"
 _STACKS = ("layers/", "dense_layers/", "enc_layers/")
 
 
@@ -160,6 +174,28 @@ def _ssm_specs(cfg: ArchConfig, prefix: str, n: int) -> Dict[str, tuple]:
             f"{prefix}/norm_ssm_out/w": ((n, d), 0)}
 
 
+def _rwkv_specs(cfg: ArchConfig, prefix: str, n: int) -> Dict[str, tuple]:
+    """An RWKV6 layer's time-mix and channel-mix leaves, at the top of the
+    layer's dict beside its norms (reference ``init_rwkv_params``)."""
+    d, f, rank = cfg.d_model, cfg.d_ff, cfg.rwkv_lora_rank
+    w = lambda din, dout, sc=None: ((n, din, dout), sc or din ** -0.5)
+    m = f"{prefix}/"
+    spec = {m + "w_r": w(d, d), m + "w_k": w(d, d), m + "w_v": w(d, d),
+            m + "w_g": w(d, d), m + "w_out": w(d, d),
+            m + "u": ((n, d), 0.1), m + "w0": ((n, d), Fill(-1.0)),
+            m + "lora_decay_a": w(d, rank * 2),
+            m + "lora_decay_b": w(rank * 2, d, 0.01),
+            m + "gn_w": ((n, d), ONES), m + "gn_b": ((n, d), 0),
+            m + "ffn_k": w(d, f), m + "ffn_v": w(f, d), m + "ffn_r": w(d, d),
+            m + "mu_ffn_k": ((n, d), UNIFORM),
+            m + "mu_ffn_r": ((n, d), UNIFORM)}
+    for nm in ("r", "k", "v", "g", "w"):
+        spec.update({m + f"mu_{nm}": ((n, 2, d), UNIFORM),
+                     m + f"lora_{nm}_a": w(d, rank),
+                     m + f"lora_{nm}_b": w(rank, d, 0.01)})
+    return spec
+
+
 def _stack_specs(cfg: ArchConfig, prefix: str, n: int, moe: bool,
                  cross: bool = False) -> Dict[str, tuple]:
     """The leaves of one layer stack of ``n`` layers under ``prefix``: its
@@ -169,6 +205,10 @@ def _stack_specs(cfg: ArchConfig, prefix: str, n: int, moe: bool,
     (``xattn``, ``norm_x``) of an enc-dec decoder layer."""
     d = cfg.d_model
     w = lambda din, dout: ((n, din, dout), din ** -0.5)
+    if cfg.attn_free:
+        return {**_norm_specs(cfg, f"{prefix}/norm1", (n,)),
+                **_norm_specs(cfg, f"{prefix}/norm2", (n,)),
+                **_rwkv_specs(cfg, prefix, n)}
     spec = {}
     if moe:
         e, f = cfg.n_experts, cfg.d_expert or cfg.d_ff
@@ -204,14 +244,15 @@ def param_specs(cfg: ArchConfig) -> Dict[str, tuple]:
     """``{"path/to/leaf": (shape, init)}`` of every leaf the config's
     params hold (the reference's ``init_params`` tree), in draw order:
     ``init`` is the scale of a normal draw (0 means zeros), a :class:`Fill`
-    constant or :data:`A_LOG`.  The one place that knows the params
-    layout: :func:`init_params` builds it and
+    constant, :data:`A_LOG` or :data:`UNIFORM`.  The one place that
+    knows the params layout: :func:`init_params` builds it and
     ``convert.params_from_numpy`` checks a tree against it.  ``layers/``
     stacks layers ``first_dense..`` (MoE FFNs when the config has experts;
     the cross-attention of an enc-dec decoder), ``dense_layers/`` the
     first ``first_dense`` (dense FFNs), ``enc_layers/`` an enc-dec
     config's encoder (dense blocks with the config's norm) beside
-    ``enc_norm``, as in the reference."""
+    ``enc_norm``, as in the reference; an ``ssm`` layer holds its norms
+    and the RWKV6 leaves (:func:`_rwkv_specs`)."""
     _check_family(cfg)
     nf, d = cfg.first_dense, cfg.d_model
     spec = {"embed": ((cfg.vocab_size, d), 0.02)}
@@ -236,7 +277,7 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
 
 def _const_leaf(shape, init, dtype, dev) -> Optional[torch.Tensor]:
     """The leaf of a constant ``init`` (zeros, a :class:`Fill`,
-    :data:`A_LOG`), or None for a drawn one."""
+    :data:`A_LOG`), or None for a drawn one (normal or uniform)."""
     if isinstance(init, Fill):
         return torch.full(shape, init.value, dtype=dtype, device=dev)
     if init == A_LOG:
@@ -248,10 +289,19 @@ def _const_leaf(shape, init, dtype, dev) -> Optional[torch.Tensor]:
     return None
 
 
+def _draw(shape, init, g, dev) -> torch.Tensor:
+    """A drawn leaf in f32: uniform in [0, 1) for :data:`UNIFORM`, else a
+    normal draw times the scale ``init``."""
+    if init == UNIFORM:
+        return torch.rand(shape, generator=g, device=dev)
+    return torch.randn(shape, generator=g, device=dev) * init
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> Params:
     """Random params with the reference's scales and constants
-    (``transformer.py:49-155``, ``ssm.py:88-105``), drawn from a seeded
+    (``transformer.py:49-155``, ``ssm.py:88-105``, ``rwkv6.py:182-206``),
+    drawn from a seeded
     ``torch.Generator`` on ``device`` (default CUDA; raises without a card
     unless ``device="cpu"``): the leaves of :func:`param_specs`, a stacked
     weight drawn layer by layer."""
@@ -264,11 +314,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
         if leaf is None and path.startswith(_STACKS):
             leaf = torch.empty(shape, dtype=dtype, device=dev)
             for i in range(shape[0]):
-                leaf[i] = (torch.randn(shape[1:], generator=g, device=dev)
-                           * init).to(dtype)
+                leaf[i] = _draw(shape[1:], init, g, dev).to(dtype)
         elif leaf is None:
-            leaf = (torch.randn(shape, generator=g, device=dev)
-                    * init).to(dtype)
+            leaf = _draw(shape, init, g, dev).to(dtype)
         *parents, name = path.split("/")
         node = params
         for k in parents:
@@ -356,9 +404,15 @@ def _band_key(start: int) -> str:
     return f"L{start:03d}"
 
 
+def band_keyed(group) -> bool:
+    """Whether a cache group is band-keyed (a dict of stacks) rather than
+    one flat stack of tensors (an RWKV6 state stack has no ``length``)."""
+    return not torch.is_tensor(next(iter(group.values())))
+
+
 def _first_stack(group):
     """The first band's stacked caches of a group (flat or band-keyed)."""
-    return group if "length" in group else group[min(group)]
+    return group[min(group)] if band_keyed(group) else group
 
 
 def _band_cache(group, bands, start):
@@ -482,6 +536,15 @@ def _ffn(x, p, cfg: ArchConfig):
     return L.mlp(x, p["mlp"], cfg)
 
 
+def _ffn_aux(x, p, cfg: ArchConfig):
+    """:func:`_ffn` for training: (out, the layer's MoE aux loss, or f32 0
+    for a dense MLP)."""
+    if "moe" in p:
+        return moe_lib.moe_ffn(x, p["moe"], cfg)
+    return L.mlp(x, p["mlp"], cfg), torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)
+
+
 def _mix_ssm(attn, sout, p, cfg: ArchConfig):
     """A hybrid block's mixer output: the mean of the RMS-normed attention
     and Mamba outputs (reference ``transformer.py:308-311``)."""
@@ -503,7 +566,7 @@ def _cross_qkv(x_dec, enc_out, p, cfg: ArchConfig):
 
 
 def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int,
-                enc_out=None):
+                enc_out=None, train: bool = False):
     """Layer ``i`` over the whole sequence in full precision (the fixed
     128-wide key blocks of DESIGN.md §7): returns (x, k, v, extra) with
     k/v (B, S, H_kv, D) post-RoPE and unpermuted, the K/V the cache
@@ -511,15 +574,21 @@ def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int,
     (``ssm_conv``, ``ssm_h``, the cache leaves) or an enc-dec decoder
     layer's cross K/V over ``enc_out`` (``kx``, ``vx``: unpermuted, no
     RoPE); it is empty for the other families.  Shared by
-    :func:`prefill_model` and :func:`collect_kv`."""
+    :func:`prefill_model` and :func:`collect_kv`.  ``train``
+    (:func:`forward_train`) attends through ``full_attention``, as the
+    reference's training forward does, keeps no decode state, and gives
+    the layer's MoE aux loss (f32 0 without experts) as ``extra["aux"]``."""
     b, s, _ = x.shape
     p = _layer_params(params, cfg, i)
     hn = L.norm(x, p["norm1"], cfg)
     q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
-    attn = prefill_block_attention(q, k, v, cfg, window=_window(cfg, i))
+    attend = full_attention if train else prefill_block_attention
+    attn = attend(q, k, v, cfg, window=_window(cfg, i))
     attn = attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
     extra = {}
-    if "ssm" in p:
+    if "ssm" in p and train:
+        attn = _mix_ssm(attn, ssm_lib.ssm_forward(hn, p["ssm"], cfg), p, cfg)
+    elif "ssm" in p:
         sout, st = ssm_lib.ssm_forward(hn, p["ssm"], cfg, return_state=True)
         attn = _mix_ssm(attn, sout, p, cfg)
         extra = {"ssm_conv": st["conv"], "ssm_h": st["h"]}
@@ -529,9 +598,94 @@ def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int,
                                 p["xattn"], cfg)
         xo = full_attention(qx, kx, vx, cfg, bidirectional=True)
         x = x + xo.reshape(b, s, -1) @ p["xattn"]["wo_attn"]
-        extra = {"kx": kx, "vx": vx}
+        extra = {} if train else {"kx": kx, "vx": vx}
+    if train:
+        f, aux = _ffn_aux(L.norm(x, p["norm2"], cfg), p, cfg)
+        return x + f, k, v, {"aux": aux}
     x = x + _ffn(L.norm(x, p["norm2"], cfg), p, cfg)
     return x, k, v, extra
+
+
+def _block_rwkv(x, p, cfg: ArchConfig):
+    """One RWKV6 layer over the whole sequence (training): time-mix, then
+    channel-mix, each on its normed residual.  Returns (x, f32 0), the
+    aux loss of a layer without experts."""
+    y, _ = rwkv_lib.time_mix(L.norm(x, p["norm1"], cfg), p, cfg)
+    x = x + y
+    x = x + rwkv_lib.channel_mix(L.norm(x, p["norm2"], cfg), p)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ============================================================ train forward
+
+# the matmuls ``remat_policy="dots"`` saves: products without batch dims,
+# as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, fn):
+    """``fn`` (one block) under the config's activation checkpointing:
+    none (``remat`` off or ``remat_policy="none"``), full per-block
+    recompute (``"nothing"``: only the block's input survives to the
+    backward pass) or selective (``"dots"``: the matmul outputs are saved,
+    the rest recomputed)."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy must be nothing, dots or none, got "
+                         f"{cfg.remat_policy!r}")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return lambda x: ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
+
+
+def forward_train(params: Params, cfg: ArchConfig, batch: Dict
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full causal forward of every family (reference
+    ``transformer.forward_train``) in the params' own dtype: ``batch``
+    holds ``tokens`` (B, S) (or ``embeds`` (B, S, d) and M-RoPE
+    ``positions`` (3, B, S) for a config with ``input_embeds``;
+    ``enc_embeds`` for an enc-dec config; other keys, such as ``labels``,
+    are ignored).  Attention is ``full_attention`` in full precision; the
+    blocks run under :func:`_remat`.  Returns (logits (B, S, V), the MoE
+    aux loss summed over the layers, an f32 scalar)."""
+    _check_family(cfg)
+    x = _embed_in(params, cfg, batch.get("tokens"), batch.get("embeds"))
+    s = x.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.attn_free:
+        blocks = [functools.partial(_block_rwkv,
+                                    p=_layer_params(params, cfg, i), cfg=cfg)
+                  for i in range(cfg.n_layers)]
+    else:
+        ropes = _rope_tables(cfg, _positions(cfg, s, batch.get("positions"),
+                                             x.device))
+        enc_out = _enc_out(params, cfg, batch.get("enc_embeds"))
+
+        def block(h, i):
+            h, _, _, extra = _block_full(h, params, cfg, ropes, i, enc_out,
+                                         train=True)
+            return h, extra["aux"]
+        blocks = [functools.partial(block, i=i) for i in range(cfg.n_layers)]
+    for fn in blocks:
+        x, a = _remat(cfg, fn)(x)
+        aux = aux + a
+    x = L.norm(x, params["final_norm"], cfg)
+    return L.unembed(x, params, cfg), aux
+
+
+def count_params(params) -> int:
+    """Elements over every leaf of a params tree."""
+    if torch.is_tensor(params):
+        return params.numel()
+    return sum(count_params(v) for v in params.values())
 
 
 def _encode(params: Params, cfg: ArchConfig, enc_embeds):
@@ -609,7 +763,9 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens, policy,
     Mamba state as ``ssm_conv``/``ssm_h``.
 
     Returns (last-token logits (B, 1, V), {"scan": caches}): layer-stacked,
-    band-keyed when the schedule has more than one band."""
+    band-keyed when the schedule has more than one band.  An ``ssm``
+    config (RWKV6) has no KV cache: its caches are the recurrent state
+    (:func:`_prefill_rwkv`), and the policy is accepted and unused."""
     _check_family(cfg)
     bands = _bands(cfg, policy, calib)
     params = _cast_params(params, dtype)
@@ -618,6 +774,8 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens, policy,
     backend = bk.resolve_backend(backend, dev)
     if dtype is not None:
         x = x.to(dtype)
+    if cfg.attn_free:
+        return _prefill_rwkv(params, cfg, x)
     s = x.shape[1]
     ml = max_len or (s + 64)
     ropes = _rope_tables(cfg, _positions(cfg, s, positions, dev))
@@ -644,6 +802,26 @@ def prefill_model(params: Params, cfg: ArchConfig, tokens, policy,
             {"scan": _band_out(outs, bands, 0)})
 
 
+def _prefill_rwkv(params: Params, cfg: ArchConfig, x):
+    """The RWKV6 prefill (reference ``transformer.py:528-539``): each layer
+    over the whole prompt, keeping its decode state ``{"wkv": (B, H, hd,
+    hd) f32, "x_prev": the last normed time-mix input row, "x_prev_ffn":
+    the last normed channel-mix input row}``.  Returns (last-token logits
+    (B, 1, V), {"scan": the states stacked over the layers})."""
+    caches = []
+    for i in range(cfg.n_layers):
+        p = _layer_params(params, cfg, i)
+        hn = L.norm(x, p["norm1"], cfg)
+        y, s_fin = rwkv_lib.time_mix(hn, p, cfg)
+        x = x + y
+        h2 = L.norm(x, p["norm2"], cfg)
+        x = x + rwkv_lib.channel_mix(h2, p)
+        caches.append({"wkv": s_fin, "x_prev": hn[:, -1:].clone(),
+                       "x_prev_ffn": h2[:, -1:].clone()})
+    x = L.norm(x, params["final_norm"], cfg)
+    return L.unembed(x[:, -1:], params, cfg), {"scan": _stack_caches(caches)}
+
+
 # ============================================================= collect_kv
 
 def collect_kv(params: Params, cfg: ArchConfig, tokens,
@@ -658,8 +836,11 @@ def collect_kv(params: Params, cfg: ArchConfig, tokens,
     cache quantizes (before the channel permutation); ``embeds``,
     ``positions`` and ``enc_embeds`` as in :func:`prefill_model`.  A
     hybrid config gives its attention K/V; an enc-dec config runs the
-    encoder first and gives the decoder's self-attention K/V."""
+    encoder first and gives the decoder's self-attention K/V.  An ``ssm``
+    config has no KV cache to calibrate: ``ValueError``, the reference's."""
     _check_family(cfg)
+    if cfg.attn_free:
+        raise ValueError("rwkv6 has no KV cache (SKVQ inapplicable)")
     x = _embed_in(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     ropes = _rope_tables(cfg, _positions(cfg, s, positions, x.device))
@@ -859,6 +1040,10 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
 
     ``chunk`` tiles the reference backend's packed walk (the kernel
     ignores it); ``prune_blocks`` toggles dead-block skipping.
+    An ``ssm`` config steps its recurrent state instead
+    (:func:`_decode_rwkv`): no length is read, the policy and the levers
+    are accepted and unused.
+
     ``unroll=True`` is the reference's long-context lever for
     local-attention layers (off by default, as there): per band,
     :func:`_local_hoist` slices the packed planes once, and each local
@@ -878,6 +1063,8 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
     backend = bk.resolve_backend(backend, dev)
     if dtype is not None:
         x = x.to(dtype)
+    if cfg.attn_free:
+        return _decode_rwkv(params, cfg, x, caches)
     b = x.shape[0]
     t = _first_stack(caches["scan"])["length"][0]    # (B,) per-slot position
     if unroll:
@@ -947,13 +1134,36 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
     return L.unembed(x, params, cfg), caches
 
 
+def _decode_rwkv(params: Params, cfg: ArchConfig, x, caches):
+    """One RWKV6 step of every layer from the state stack ``caches["scan"]``
+    (reference ``transformer.py:835-848``): the time-mix writes ``wkv`` and
+    ``x_prev`` in place, the channel-mix reads ``x_prev_ffn`` before its
+    new row is written over it.  Returns (logits (B, 1, V), caches)."""
+    group = caches["scan"]
+    for i in range(cfg.n_layers):
+        p = _layer_params(params, cfg, i)
+        hn = L.norm(x, p["norm1"], cfg)
+        y, _ = rwkv_lib.time_mix_decode(
+            hn, p, cfg, {"wkv": group["wkv"][i], "x_prev": group["x_prev"][i]})
+        x = x + y
+        h2 = L.norm(x, p["norm2"], cfg)
+        x = x + rwkv_lib.channel_mix(h2, p, x_prev=group["x_prev_ffn"][i])
+        group["x_prev_ffn"][i].copy_(h2)
+    x = L.norm(x, params["final_norm"], cfg)
+    return L.unembed(x, params, cfg), caches
+
+
 def layer_cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
                        policy: QuantPolicy, dtype=torch.bfloat16):
     """``{name: (shape, dtype)}`` of one layer's striped cache dict as
     :func:`prefill_model` builds it: ``kv_cache.cache_shapes``, plus a
     hybrid layer's Mamba state (``ssm_conv`` in ``dtype``, ``ssm_h`` f32,
     ``ssm.state_shapes``).  An enc-dec layer's cross cache has the shape
-    of the frames the prefill got, so it is not listed."""
+    of the frames the prefill got, so it is not listed.  An ``ssm`` layer
+    holds its RWKV6 state alone (``rwkv6.state_shapes``), the same at any
+    ``max_len`` and policy."""
+    if cfg.attn_free:
+        return rwkv_lib.state_shapes(batch, cfg, dtype)
     shapes = kvc.cache_shapes(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
                               policy, dtype)
     if cfg.family == "hybrid":

@@ -1480,9 +1480,12 @@ class Engine:
         hybrid config's ``ssm_conv``/``ssm_h`` state beside its planes
         (``insert_slot`` copies the leaves of these caches, so every leaf
         a prefill builds has to be here); flat for one band, band-keyed
-        for several (DESIGN.md §8)."""
+        for several (DESIGN.md §8).  An ``ssm`` config's caches are its
+        RWKV6 state, one flat stack over every layer whatever the
+        schedule, as its prefill builds them."""
         cfg, dtype = self.cfg, self.params["embed"].dtype
-        bands = self.schedule.bands()
+        bands = ([(0, cfg.n_layers, self.schedule[0])] if cfg.attn_free
+                 else self.schedule.bands())
         outs = {}
         for bs, be, pol in bands:
             bkey = T._band_key(bs)
@@ -1855,7 +1858,7 @@ def _band(caches, group: str, bkey: str):
     """The stacked caches of band ``bkey`` of a cache group (flat for one
     band, band-keyed for several; DESIGN.md §8)."""
     g = caches[group]
-    return g if "length" in g else g[bkey]
+    return g[bkey] if T.band_keyed(g) else g
 
 
 def _zero(tree) -> None:

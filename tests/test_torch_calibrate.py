@@ -343,8 +343,8 @@ def test_collect_kv_equals_jax(arch, rng):
 def test_collect_kv_refuses_a_non_dense_config():
     cfg = configs.get_smoke("llama3p2_1b")
     p = T.init_params(cfg, seed=0, device="cpu")
-    for fam in ("ssm",):             # the one family not ported yet
-        with pytest.raises(NotImplementedError):
+    for fam in ("ssm",):             # attention-free: no KV cache at all
+        with pytest.raises(ValueError, match="rwkv6 has no KV cache"):
             T.collect_kv(p, cfg.scaled(family=fam),
                          torch.zeros((1, 8), dtype=torch.long))
 

@@ -70,6 +70,16 @@ runs on a machine with only torch:
   other rows BITWISE unchanged; a preempted request, its blocks spilled
   to the host tier and restored, resumes to the uninterrupted stream on a
   warmed pooled async engine.
+* the RWKV6 family (no KV cache): ``wkv_chunked`` against the step
+  recurrence on the card (the reference test's ``atol 2e-4, rtol 1e-3``);
+  a captured rwkv smoke decode step BYTE-equal to eager steps in every
+  state leaf and the logits, and a warmed Engine's streams equal to the
+  unwarmed one's with no kernel launched.
+* training: a smoke train step on the card against the same step on the
+  CPU (f32; loss, nll and grad norm within ``rtol=1e-5``, each param leaf
+  within ``atol=1e-5`` after the step, TF32 off); a checkpoint saved on
+  the card, restored into a fresh state, and the next step BITWISE equal
+  to the uninterrupted run's.
 """
 import dataclasses
 
@@ -1457,3 +1467,135 @@ def test_preempted_stream_resumes_bit_identically_on_the_card(cuda_device):
     assert c["spilled_blocks"] >= 1 and c0["preemptions"] == 0
     assert reasons == ["length", "length"]
     assert got == want
+
+
+# ------------------------------------------------------------ rwkv6 (ssm)
+
+def test_wkv_chunked_matches_naive_on_the_card(cuda_device):
+    """The chunk-parallel WKV against the step recurrence on the card, at
+    a padded length, with a random initial state (the reference test's
+    tolerance)."""
+    from repro_torch.models import rwkv6 as R
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    b, s, h, d = 2, 304, 4, 64
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=cuda_device)
+    r, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
+    logw = torch.clamp(-torch.exp(rnd(b, s, h, d) - 1), -5.0, -1e-4)
+    u, s0 = rnd(h, d), rnd(b, h, d, d)
+    y1, f1 = R.wkv_chunked(r, k, v, logw, u, s0)
+    y2, f2 = R.wkv_naive(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y1, y2, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(f1, f2, atol=2e-4, rtol=1e-3)
+
+
+def test_rwkv_captured_step_bytewise_equals_eager(cuda_device):
+    """rwkv6 smoke: a captured decode step replayed from a prefill state
+    BYTE-equal to eager steps (state written in place), and a warmed
+    Engine's streams equal to the unwarmed one's, with no kernel
+    launched."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, GraphCache, Request
+    cfg = configs.get_smoke("rwkv6_3b")
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    pol = QuantPolicy(bits_k=2.0, bits_v=1.5, group_size=16, window=8,
+                      n_sink=2)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 21)), device=cuda_device)
+    _, caches = T.prefill_model(params, cfg, toks, pol)
+    cg = {"scan": {k: v.clone() for k, v in caches["scan"].items()}}
+    ce = {"scan": {k: v.clone() for k, v in caches["scan"].items()}}
+    step = lambda c: lambda token: T.decode_step(params, cfg, token, c,
+                                                 pol)[0]
+    gc = GraphCache(cuda_device)
+    tok = toks[:, -1:].clone()
+    gc.warm("step", step(cg), (tok.clone(),))
+    for k, v in cg["scan"].items():               # undo the warmup runs
+        v.copy_(caches["scan"][k])
+    tg = te = tok
+    for i in range(6):
+        got, want = gc.call("step", step(cg), tg), step(ce)(te)
+        torch.cuda.synchronize()
+        assert torch.equal(_leaf_bytes(got), _leaf_bytes(want)), i
+        for k in ce["scan"]:
+            assert torch.equal(_leaf_bytes(cg["scan"][k]),
+                               _leaf_bytes(ce["scan"][k])), (i, k)
+        tg = got[:, -1].argmax(-1, keepdim=True)
+        te = want[:, -1].argmax(-1, keepdim=True)
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new=m,
+                    seed=i)
+            for i, (n, m) in enumerate(zip((20, 20, 12, 7), (9, 6, 8, 7)))]
+    streams = []
+    for warm in (False, True):
+        eng = Engine(params, cfg, pol, batch_slots=2, max_len=64,
+                     steps_per_sync=4, device=cuda_device)
+        if warm:
+            assert eng.warmup()["n_graphs"] == 1
+        reset_launch_counts()
+        streams.append(_serve(eng, reqs))
+        assert not any(n for d in launch_counts().values()
+                       for n in d.values())
+    assert eng._graphs.replays == eng.n_decode_steps
+    assert eng.warmup_report()["post_warmup_misses"] == 0
+    assert streams[0] == streams[1]
+
+
+# ------------------------------------------------------------ training
+
+def _train_setup(dev):
+    import functools
+    from repro_torch.data import DataLoader, SyntheticCorpus
+    from repro_torch.training import make_train_step, warmup_cosine
+    cfg = configs.get_smoke("llama3p2_1b")
+    dl = DataLoader(SyntheticCorpus(cfg.vocab_size, seed=1), batch=8, seq=64,
+                    device=dev)
+    lr = functools.partial(warmup_cosine, peak_lr=5e-3, warmup=1, total=20)
+    return cfg, dl, make_train_step(cfg, lr_fn=lr)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Three smoke train steps from the same f32 params on the card and on
+    the CPU (TF32 off): metrics within ``rtol=1e-5``, params within
+    ``atol=1e-5``."""
+    from repro_torch.training import init_train_state
+    from repro_torch.tree import leaves, tree_map
+    states = {}
+    for dev in ("cpu", cuda_device):
+        cfg, dl, step = _train_setup(dev)
+        st = tree_map(lambda x: x.to(dev),
+                      init_train_state(cfg, seed=0, device="cpu"))
+        metrics = []
+        for i in range(3):
+            st, m = step(st, dl.batch_at(i))
+            metrics.append({k: float(v) for k, v in m.items()})
+        states[str(dev)] = (st, metrics)
+    (sc, mc), (sg, mg) = states["cpu"], states[str(cuda_device)]
+    for a, b in zip(mc, mg):
+        for k in ("loss", "nll", "grad_norm", "lr"):
+            assert b[k] == pytest.approx(a[k], rel=1e-5), k
+    for a, b in zip(leaves(sc["params"]), leaves(sg["params"])):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=0)
+    assert int(sg["step"]) == 3
+
+
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """Two steps on the card, save, a third; restore into a fresh state on
+    the card and take the third again: BITWISE the uninterrupted run
+    (params, moments, steps and metrics)."""
+    from repro_torch.checkpoint import load_latest, save_checkpoint
+    from repro_torch.training import init_train_state
+    from repro_torch.tree import leaves
+    cfg, dl, step = _train_setup(cuda_device)
+    st = init_train_state(cfg, seed=0, device=cuda_device)
+    for i in range(2):
+        st, _ = step(st, dl.batch_at(i))
+    save_checkpoint(str(tmp_path), 2, st)
+    a, ma = step(st, dl.batch_at(2))
+    fresh = init_train_state(cfg, seed=5, device=cuda_device)
+    got = load_latest(str(tmp_path), fresh, device=cuda_device)
+    assert got["step"] == 2
+    assert all(x.device.type == "cuda" for x in leaves(got["state"]))
+    b, mb = step(got["state"], dl.batch_at(2))
+    for x, y in zip(leaves(a), leaves(b)):
+        assert torch.equal(x, y)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)

@@ -33,6 +33,8 @@ Tolerances, and why:
   decode_attn tolerance: the same sums in another order).
 * greedy token streams of the Engines: equal, token for token.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -99,6 +101,23 @@ def _setup(arch, rng):
             params_from_numpy(tree, tcfg, device="cpu"),
             {k: jnp.asarray(v) for k, v in cal.items()},
             calib_from_numpy(cal, device="cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _jstep(jcfg, kw: tuple, jb: str, unroll: bool = False):
+    """The reference's decode step for one (config, policy, backend,
+    unroll), jitted once and shared by every step and case of the process
+    (ROADMAP's CPU-budget lever 1): run eagerly, every step lowered its
+    Pallas kernels anew.  ``kw`` is the policy's sorted items."""
+    return jax.jit(functools.partial(JT.decode_step, cfg=jcfg,
+                                     policy=JPolicy(**dict(kw)), backend=jb,
+                                     unroll=unroll))
+
+
+def _jdecode(jp, jcfg, tok, caches, kw, jcal, jb, unroll=False):
+    """One reference decode step through :func:`_jstep`."""
+    return _jstep(jcfg, tuple(sorted(kw.items())), jb, unroll)(
+        jp, token=jnp.asarray(tok), caches=caches, calib=jcal)
 
 
 def _close(got, want, what=""):
@@ -180,8 +199,7 @@ def _check_prefill_decode(arch, tb, jb, rng):
     ct = j2t(cj)
     for step in range(6):
         tok = rng.integers(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
-        lj, cj = JT.decode_step(jp, jcfg, jnp.asarray(tok), cj,
-                                JPolicy(**KW), calib=jcal, backend=jb)
+        lj, cj = _jdecode(jp, jcfg, tok, cj, KW, jcal, jb)
         lt, ct = T.decode_step(tp, tcfg, torch.from_numpy(tok), ct,
                                QuantPolicy(**KW), calib=tcal, backend=tb)
         _close(lt, lj, f"step {step}")
@@ -207,9 +225,7 @@ def test_unrolled_step_matches_reference_and_default(tb, jb, rng):
     ct, cd = j2t(cj), j2t(cj)
     for step in range(4):
         tok = rng.integers(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
-        lj, cj = JT.decode_step(jp, jcfg, jnp.asarray(tok), cj,
-                                JPolicy(**KW), calib=jcal, backend=jb,
-                                unroll=True)
+        lj, cj = _jdecode(jp, jcfg, tok, cj, KW, jcal, jb, unroll=True)
         lt, ct = T.decode_step(tp, tcfg, torch.from_numpy(tok), ct,
                                QuantPolicy(**KW), calib=tcal, backend=tb,
                                unroll=True)
@@ -280,9 +296,7 @@ def test_unrolled_pooled_step_matches_reference_below_local_window(tb, jb,
     gap = 0.0
     for step in range(3):
         tok = rng.integers(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
-        lj, pj = JT.decode_step(jp, jcfg, jnp.asarray(tok), pj,
-                                JPolicy(**kw), calib=jcal, backend=jb,
-                                unroll=True)
+        lj, pj = _jdecode(jp, jcfg, tok, pj, kw, jcal, jb, unroll=True)
         lp, pooled = T.decode_step(tp, tcfg, torch.from_numpy(tok), pooled,
                                    QuantPolicy(**kw), calib=tcal,
                                    backend=tb, unroll=True)

@@ -86,6 +86,37 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.main(["--arch", "llama2_7b", "--smoke"])
 
 
+def test_training_and_rwkv_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    """The trainer's entry points (state, loader, checkpoint load, CLI)
+    and the RWKV6 family's (its zero state, the Engine, the serving CLI)
+    run on the GPU by default and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.checkpoint import load_latest, save_checkpoint
+    from repro_torch.data import DataLoader, SyntheticCorpus
+    from repro_torch.launch import serve, train
+    from repro_torch.models import rwkv6
+    from repro_torch.training import init_train_state
+    cfg = configs.get_smoke("llama3p2_1b")
+    state = init_train_state(cfg, seed=0, device="cpu")
+    save_checkpoint(str(tmp_path), 1, state)
+    rwkv = configs.get_smoke("rwkv6_3b")
+    p = T.init_params(rwkv, seed=0, device="cpu")
+    for call in (lambda: init_train_state(cfg, seed=0),
+                 lambda: DataLoader(SyntheticCorpus(cfg.vocab_size), 2,
+                                    8).batch_at(0),
+                 lambda: load_latest(str(tmp_path), state),
+                 lambda: train.main(["--smoke", "--steps", "1"]),
+                 lambda: rwkv6.init_rwkv_state(1, rwkv),
+                 lambda: Engine(p, rwkv, PAPER_POLICY, batch_slots=1,
+                                max_len=64),
+                 lambda: serve.main(["--arch", "rwkv6_3b", "--smoke"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert load_latest(str(tmp_path), state, device="cpu")["step"] == 1
+
+
 def test_pooled_entry_points_raise_without_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
