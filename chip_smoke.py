@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py        # needs one CUDA card
+    python3 chip_smoke.py --gloo-probe   # only gloo's refusals on CUDA
 
 Builds both hand-written kernels from ``src/repro_torch/csrc`` and runs
 these phases, each printing one JSON line:
@@ -281,7 +282,23 @@ not from the 50 MB L2, as each layer of a decode step does.
    layers (2 steps, save, one more step; restored into a fresh state,
    the same step bitwise: params, moments, steps, metrics; save and
    restore ms and bytes); both kernels' launch counters at zero deltas.
-18. a ``timing`` line of seconds per phase, then the kernel summary line
+18. distributed — the distributed substrate (``torch.distributed``,
+   DTensor; no kernel may launch): (a) world 1 on NCCL (a TCP store on
+   localhost), mesh (1, 1, 1) ``("pod", "data", "model")``, llama3.2-1b
+   at full width in f32, 8 x 128 tokens, remat on: 2 steps of
+   ``make_train_step(mesh=)`` from ``place_state`` against 2 plain steps
+   from the same seed's state (loss, nll, grad norm and every param
+   within 1e-5 relative; expected equal), then 4 steps of each in turns
+   timed with CUDA events and the peak memory a step adds;
+   ``int8_allreduce_pod`` on a pod of one returns x and one-stage
+   ``pipeline_forward`` equals the microbatches run through the layers,
+   bitwise; (b) 4 ranks spawned on the one card over gloo with CUDA
+   tensors, mesh (2, 1, 2): ``int8_allreduce_pod`` of distinct inputs a
+   rank equal to the numpy formula over each pod group, exactly.  The
+   sharded step and the pipeline need collectives gloo refuses on CUDA
+   tensors (``--gloo-probe``), and NCCL refuses two ranks on one card,
+   so (b) leaves them out and names them.
+19. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
@@ -4802,6 +4819,322 @@ def phase_train(state):
               checkpoint=ckpt, **model))
 
 
+# ----------------------------------- distributed (llama3.2-1b, f32, mesh)
+
+DIST_STEPS, DIST_TIMED = 2, 4    # gated steps; timed steps after them
+DIST_RTOL = 1e-5                 # the training tests' STEP_RTOL
+DIST_RANKS, DIST_MESH = 4, (2, 1, 2)
+DIST_AXES = ("pod", "data", "model")
+DIST_DEADLINE_S = 90             # a spawned world's time limit
+PIPE_L, PIPE_B, PIPE_D, PIPE_MB = 8, 8, 16, 4    # the reference test's case
+# gloo on CUDA tensors, the collectives the multi-rank cases would need
+# that gloo refuses (``--gloo-probe`` shows each failing): DTensor's
+# functional all-gather (the sharded train step) and send/recv (the
+# pipeline's ring permute); those cases are left out of (b)
+GLOO_LEFT_OUT = {
+    "train_step": "DTensor redistribution's functional all_gather "
+                  "(_c10d_functional.all_gather_into_tensor) on CUDA tensors",
+    "pipeline_forward": "send/recv (dist.batch_isend_irecv) of CUDA tensors"}
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _pipe_inputs(dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(PIPE_L, PIPE_D, PIPE_D)) * 0.3
+    b = rng.normal(size=(PIPE_L, PIPE_D)) * 0.1
+    x = rng.normal(size=(PIPE_B, PIPE_D))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    return {"w": t(w), "b": t(b)}, t(x)
+
+
+def _pipe_block(h, p):
+    import torch
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def _dist_params_diff(sharded, plain):
+    """Every param leaf's max |sharded - plain| and that over max |plain|."""
+    from repro_torch.tree import leaves
+    out = []
+    for a, b in zip(leaves(sharded), leaves(plain)):
+        d = float((a.full_tensor() - b).abs().max())
+        out.append((d, d / max(float(b.abs().max()), 1e-30)))
+    return out
+
+
+def _dist_timed(fn, st, batch, n):
+    """``n`` steps of ``fn``, each timed with CUDA events: (state, ms list,
+    the largest peak above the memory held when a step started)."""
+    import torch
+    ms, peak = [], 0
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        a.record()
+        st, _ = fn(st, batch)
+        z.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(z))
+        peak = max(peak, torch.cuda.max_memory_allocated() - held)
+    return st, ms, peak
+
+
+def _dist_world1():
+    """(a) world 1 on NCCL (a TCP store on localhost), mesh (1, 1, 1):
+    llama3.2-1b at full width in f32, 8 x 128 tokens, remat on; DIST_STEPS
+    sharded steps (the state laid out by ``place_state``, the step under
+    TRAIN_RULES) against as many plain steps from the same seed's state:
+    loss, nll, grad norm and every param within DIST_RTOL (expected
+    equal); after each run's gated steps, DIST_TIMED more (CUDA events)
+    and the peak memory a step adds; ``int8_allreduce_pod`` (a pod of one
+    returns x) and ``pipeline_forward`` (one stage: every microbatch
+    through the layers in order) equal to x and the sequential run,
+    bitwise.  One state (~14.8 GB with its moments) lives at a time: two
+    and a step's transients do not fit in 80 GB."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import DataLoader, SyntheticCorpus
+    from repro_torch.distributed.compression import int8_allreduce_pod
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.training import (init_train_state, make_train_step,
+                                      place_state)
+    dev = init_world(init_method=f"tcp://localhost:{_free_port()}",
+                     world_size=1, rank=0)
+    mesh = make_mesh((1, 1, 1), DIST_AXES)
+    cfg = _train_cfg(remat=True)
+    dl = DataLoader(SyntheticCorpus(cfg.vocab_size, seed=1), TRAIN_BATCH,
+                    TRAIN_SEQS[0], device=dev)
+    plain = make_train_step(cfg, lr_fn=_lr_fn())
+    sharded = make_train_step(cfg, lr_fn=_lr_fn(), mesh=mesh)
+    out = {"mesh": [1, 1, 1], "backend": "nccl", "remat": cfg.remat_policy,
+           "steps": []}
+    fresh = lambda: init_train_state(cfg, seed=0, device=dev)
+
+    def run(fn, st):
+        """DIST_STEPS gated steps, then DIST_TIMED timed ones: (the params
+        after the gated steps, their metrics, ms, peak)."""
+        rows = []
+        for i in range(DIST_STEPS):
+            st, m = fn(st, dl.batch_at(i))
+            rows.append({k: float(v) for k, v in m.items()})
+        params = st["params"]      # the steps build new tensors
+        st, ms, peak = _dist_timed(fn, st, dl.batch_at(DIST_STEPS),
+                                   DIST_TIMED)
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+        return params, rows, ms, peak
+
+    pp, plain_rows, plain_ms, plain_peak = run(plain, fresh())
+    sp, sharded_rows, sharded_ms, sharded_peak = run(
+        sharded, place_state(fresh(), mesh))
+    diffs = _dist_params_diff(sp, pp)
+    del pp, sp
+    for i in range(DIST_STEPS):
+        a, b = sharded_rows[i], plain_rows[i]
+        rel = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+               for k in ("loss", "nll", "grad_norm")}
+        out["steps"].append({"sharded": a, "plain": b, "rel": rel})
+        check(max(rel.values()) <= DIST_RTOL,
+              f"distributed: world-1 sharded step {i} against plain: {rel}")
+    check(max(r for _, r in diffs) <= DIST_RTOL,
+          f"distributed: world-1 params differ: {max(diffs)}")
+    out["param_max_abs_diff"] = max(d for d, _ in diffs)
+    out["params_bitwise"] = out["param_max_abs_diff"] == 0.0
+    out["step_ms"] = {"sharded": _spread(sharded_ms),
+                      "plain": _spread(plain_ms)}
+    out["sharded_over_plain"] = (out["step_ms"]["sharded"]["mean"]
+                                 / out["step_ms"]["plain"]["mean"])
+    out["peak_bytes_above_state"] = {"sharded": sharded_peak,
+                                     "plain": plain_peak}
+    gc.collect()
+    torch.cuda.empty_cache()
+    x = torch.randn(4096, 33, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    y = int8_allreduce_pod(x, mesh)
+    check(torch.equal(y, x), "distributed: a pod of one changed x")
+    params, xp = _pipe_inputs(dev)
+    got = pipeline_forward(_pipe_block, params, xp, mesh=mesh,
+                           microbatches=PIPE_MB)
+    want = []
+    for mb in xp.reshape(PIPE_MB, -1, PIPE_D):
+        for i in range(PIPE_L):
+            mb = _pipe_block(mb, {"w": params["w"][i], "b": params["b"][i]})
+        want.append(mb)
+    want = torch.stack(want).reshape(PIPE_B, PIPE_D)
+    check(torch.equal(got, want), "distributed: the one-stage pipeline is "
+          "not the sequential run")
+    whole = xp
+    for i in range(PIPE_L):
+        whole = _pipe_block(whole, {"w": params["w"][i], "b": params["b"][i]})
+    out.update(int8_pod_of_one_is_x=True, pipeline_bitwise=True,
+               pipeline_vs_whole_batch_max_abs=float(
+                   (got - whole).abs().max()))
+    dist.destroy_process_group()
+    return out
+
+
+def _dist_rank(rank, world, port, out):
+    """(b) one rank of the gloo world on the card: ``int8_allreduce_pod``
+    of its own seeded input over the pod group of a (2, 1, 2) mesh; each
+    rank writes its input and result."""
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.distributed.compression import int8_allreduce_pod
+    from repro_torch.launch.mesh import init_world, make_mesh
+    init_world(init_method=f"tcp://localhost:{port}", world_size=world,
+               rank=rank, backend="gloo")
+    mesh = make_mesh(DIST_MESH, DIST_AXES)
+    x = torch.randn(4096, 33, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(100 + rank)) * (1 + rank)
+    y = int8_allreduce_pod(x, mesh)
+    torch.cuda.synchronize()
+    np.savez(Path(out) / f"rank_{rank}.npz", x=x.cpu().numpy(),
+             y=y.cpu().numpy(), coords=np.asarray(mesh.get_coordinate()),
+             device=np.asarray(str(y.device)))
+    torch.distributed.destroy_process_group()
+
+
+def _spawn_world(fn, world, *args):
+    """``world`` ranks of ``fn`` (spawned), killed at DIST_DEADLINE_S:
+    (ok, what went wrong)."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world, _free_port(), *args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                return False, f"deadline {DIST_DEADLINE_S} s"
+    except Exception as e:              # a rank raised or died
+        return False, str(e)[-400:]
+    return True, ""
+
+
+def _numpy_int8_mean(xs):
+    """The int8 wire's arithmetic in numpy (f32): per-tensor scale max|x|
+    / 127, codes round-half-even clipped to +-127, dequantized, summed in
+    gather order, divided by the count."""
+    import numpy as np
+    acc = None
+    for x in xs:
+        scale = np.maximum(np.abs(x).max() / np.float32(127.0),
+                           np.float32(1e-20)).astype(np.float32)
+        q = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+        d = q.astype(np.float32) * scale
+        acc = d if acc is None else (acc + d).astype(np.float32)
+    return (acc / np.float32(len(xs))).astype(np.float32)
+
+
+def _dist_gloo():
+    """(b) DIST_RANKS ranks spawned on the one card over gloo with CUDA
+    tensors, mesh DIST_MESH: pod 2 carries the int8 wire, model 2 would
+    carry TP.  ``int8_allreduce_pod`` on distinct inputs a rank equals the
+    numpy formula over its pod group, exactly; the cases whose collectives
+    gloo refuses on CUDA tensors are left out and named."""
+    import shutil
+    import numpy as np
+    d = ROOT / "build" / "dist_gloo"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    t0 = time.monotonic()
+    ok, why = _spawn_world(_dist_rank, DIST_RANKS, str(d))
+    check(ok, f"distributed: the gloo world failed: {why}")
+    got = [dict(np.load(d / f"rank_{r}.npz")) for r in range(DIST_RANKS)]
+    pods = {}
+    for r, g in enumerate(got):
+        pods.setdefault(tuple(g["coords"][1:]), []).append(
+            (int(g["coords"][0]), r))
+    err = 0.0
+    for r, g in enumerate(got):
+        members = [m for _, m in sorted(pods[tuple(g["coords"][1:])])]
+        want = _numpy_int8_mean([got[m]["x"] for m in members])
+        check(np.array_equal(g["y"], want),
+              f"distributed: rank {r}'s int8 mean is not the numpy formula")
+        check(str(g["device"]).startswith("cuda"),
+              f"distributed: rank {r} computed on {g['device']}")
+        err = max(err, float(np.abs(g["y"] - np.mean(
+            [got[m]["x"] for m in members], axis=0)).max()))
+    shutil.rmtree(d, ignore_errors=True)
+    return {"ranks": DIST_RANKS, "mesh": list(DIST_MESH), "backend": "gloo",
+            "tensors": "cuda", "int8_equals_numpy": True,
+            "int8_max_abs_vs_f32_mean": err,
+            "world_s": time.monotonic() - t0, "left_out": GLOO_LEFT_OUT}
+
+
+def phase_distributed(state):
+    """The distributed substrate on the card: (a) world 1 on NCCL at full
+    width, (b) 4 ranks on the one card over gloo; neither kernel may
+    launch."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    t0 = time.monotonic()
+    world1 = _dist_world1()
+    world1["seconds"] = time.monotonic() - t0
+    t1 = time.monotonic()
+    gloo = _dist_gloo()
+    gloo["seconds"] = time.monotonic() - t1
+    delta = _no_kernel_launch(counts, "distributed")
+    emit({"phase": "distributed", "gpu": state["gpu"],
+          "arch": _train_cfg().name, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQS[0], "world1": world1, "gloo": gloo,
+          "launch_delta": delta, "seconds": time.monotonic() - t0})
+
+
+def _gloo_probe_rank(rank, world, port, what):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world, make_mesh
+    init_world(init_method=f"tcp://localhost:{port}", world_size=world,
+               rank=rank, backend="gloo")
+    x = torch.ones(64, device="cuda") * (rank + 1)
+    if what == "dtensor_all_gather":
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+        mesh = make_mesh((world,), ("data",))
+        t = distribute_tensor(x, mesh, [Shard(0)], src_data_rank=None)
+        t.redistribute(mesh, [Replicate()]).to_local()
+    else:
+        ops = [dist.P2POp(dist.isend, x, (rank + 1) % world),
+               dist.P2POp(dist.irecv, torch.empty_like(x),
+                          (rank - 1) % world)]
+        for r in dist.batch_isend_irecv(ops):
+            r.wait()
+    torch.cuda.synchronize()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def gloo_probe() -> int:
+    """``--gloo-probe``: each collective of GLOO_LEFT_OUT in a 2-rank gloo
+    world of CUDA tensors on the one card, alone; prints what happened."""
+    for what in ("dtensor_all_gather", "send_recv"):
+        ok, why = _spawn_world(_gloo_probe_rank, 2, what)
+        emit({"gloo_probe": what, "ok": ok, "error": why})
+    return 0
+
+
 # kernel-name fragments of each kind, first match wins
 KERNEL_KINDS = (
     ("port: decode_attn + merge", ("decode_attn_split", "merge_splits")),
@@ -4876,13 +5209,18 @@ def _profile_decode(step, n: int = 2, cpu: bool = True):
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]
-                            ).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gloo-probe", action="store_true",
+                    help="only run each collective gloo refuses on CUDA "
+                         "tensors in a 2-rank world and print the outcome")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if args.gloo_probe:
+        return gloo_probe()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     state = {}
@@ -4894,7 +5232,7 @@ def main(argv=None) -> int:
                   phase_serve_schedule, phase_serve_degrade,
                   phase_serve_families, phase_serve_moe,
                   phase_serve_hybrid, phase_serve_encdec,
-                  phase_serve_rwkv, phase_train):
+                  phase_serve_rwkv, phase_train, phase_distributed):
         t0 = time.monotonic()
         phase(state)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)

@@ -14,9 +14,14 @@ the newest complete checkpoint (atomic rename); a leaf whose crc32 does
 not match makes the load fall back to the previous checkpoint; the data
 cursor (``step``) is part of the state, so the input stream resumes
 exactly; :meth:`CheckpointManager.register_preemption_hook` saves on
-SIGTERM.  Where the reference reshards on load (``device_put`` with the
-new mesh's shardings), the port loads host-side and moves the leaves to
-one device.
+SIGTERM.
+
+A sharded state (DTensor leaves) is saved whole: every rank gathers each
+leaf's full tensor, rank 0 alone writes, so the files are byte-equal to a
+one-device save of the same values.  On load the leaves are read on the
+host and, where ``shardings`` (a tree of ``NamedSharding``) is given,
+laid out on its mesh, as the reference reshards on load (``device_put``
+with the new mesh's shardings); without it they move to one device.
 
 bf16 leaves are written as the reference writes them (numpy holds no
 bf16: 2-byte void records, manifest dtype ``"bfloat16"``) and loaded as
@@ -35,8 +40,11 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ..device import resolve_device
-from ..tree import leaves, structure, unflatten
+from ..distributed.sharding import is_dtensor
+from ..tree import leaves, structure, tree_map, unflatten
 
 _BF16 = "bfloat16"
 
@@ -71,7 +79,18 @@ def _crc(arr: np.ndarray) -> int:
 def save_checkpoint(directory: str, step: int, state) -> str:
     """Write ``state`` (a nested dict of tensors) as ``step_XXXXXXXX``
     under ``directory``, atomically, and point ``LATEST`` at it.  Returns
-    the checkpoint's path."""
+    the checkpoint's path.  A state with DTensor leaves is gathered on
+    every rank (a collective: each rank calls this) and written by rank 0
+    alone; the others wait for it to finish."""
+    flat = leaves(state)
+    if any(is_dtensor(x) for x in flat):
+        state = unflatten(state, [x.full_tensor() if is_dtensor(x) else x
+                                  for x in flat])
+        path = os.path.join(directory, f"step_{step:08d}")
+        if dist.get_rank() == 0:
+            path = save_checkpoint(directory, step, state)
+        dist.barrier()
+        return path
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + f".tmp-{os.getpid()}"
@@ -121,12 +140,16 @@ def _tensor(arr: np.ndarray, like: torch.Tensor, dev) -> torch.Tensor:
 
 
 def load_latest(directory: str, like, device=None,
-                verify: bool = True) -> Optional[Dict[str, Any]]:
+                verify: bool = True, shardings=None
+                ) -> Optional[Dict[str, Any]]:
     """Walk the checkpoints newest first; return ``{"step", "state"}`` of
     the first complete one whose crc32s match and whose leaf count is
     ``like``'s, or None.  ``like`` gives the structure and each leaf's
     dtype; the leaves are read on the host and moved to ``device`` (CUDA
-    by default; raises without a card unless ``"cpu"``)."""
+    by default; raises without a card unless ``"cpu"``), then, with
+    ``shardings`` (``like``'s structure, a ``distributed.sharding.
+    NamedSharding`` a leaf), laid out on its mesh: each rank keeps its
+    shards (reshard on load)."""
     if not os.path.isdir(directory):
         return None
     dev = resolve_device(device)
@@ -144,6 +167,8 @@ def load_latest(directory: str, like, device=None,
             continue
         state = unflatten(like, [_tensor(a, w, dev)
                                  for a, w in zip(arrs, want)])
+        if shardings is not None:
+            state = tree_map(lambda x, sh: sh.place(x), state, shardings)
         return {"step": manifest["step"], "state": state}
     return None
 
@@ -160,7 +185,8 @@ class CheckpointManager:
         if step % self.save_every != 0:
             return None
         path = save_checkpoint(self.directory, step, state)
-        self._gc()
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self._gc()
         return path
 
     def _gc(self):
@@ -169,8 +195,9 @@ class CheckpointManager:
         for d in cands[:-self.keep]:
             shutil.rmtree(os.path.join(self.directory, d), ignore_errors=True)
 
-    def restore_or_none(self, like, device=None):
-        return load_latest(self.directory, like, device)
+    def restore_or_none(self, like, device=None, shardings=None):
+        return load_latest(self.directory, like, device,
+                           shardings=shardings)
 
     def register_preemption_hook(self, get_state: Callable[[], tuple]):
         """SIGTERM -> save ``get_state()`` = (step, state) at once

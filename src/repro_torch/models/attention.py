@@ -31,6 +31,8 @@ from ..core.policy import QuantPolicy
 from ..core import kv_cache as kvc
 from ..core import segments as seg
 from ..core.quant import dequantize_groups
+from ..distributed.sharding import (P, axis_size, current_mesh, is_sharded,
+                                    logical, run_local, spec_for)
 
 _NEG = -1e30
 PREFILL_BLOCK = 128  # key-block width of the prefill reduction
@@ -72,7 +74,16 @@ def full_attention(q, k, v, cfg: ArchConfig, *,
     ``bidirectional`` masks nothing.  Above ``q_chunk`` queries, the
     queries run in chunks of ``q_chunk`` (the last may be shorter), so the
     (Sq, Sk) score tensor is never whole; each query row's softmax is its
-    own, so chunking changes no row's math."""
+    own, so chunking changes no row's math.
+
+    On DTensors (a sharding context) each rank attends over its own
+    batch rows and heads, whole sequences: q/k/v laid out by
+    :func:`_head_spec`, the plain math on the local shards."""
+    if is_sharded(q):
+        spec = _head_spec(q, k)
+        return run_local(lambda *t: full_attention(
+            *t, cfg, window=window, bidirectional=bidirectional,
+            q_chunk=q_chunk), (q, k, v), (spec, spec, spec), spec)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     pos_q = torch.arange(sq, dtype=torch.int32, device=q.device)
@@ -84,6 +95,21 @@ def full_attention(q, k, v, cfg: ArchConfig, *,
                                pos_k, w, cfg, bidirectional)
                    for i in range(0, sq, step)], dim=1)
     return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _head_spec(q, k) -> P:
+    """The layout attention runs in on a mesh: batch rows by the rules'
+    ``batch`` axes and heads by their ``heads`` axes, each where it
+    divides (the heads only where both q's and k's counts divide, so a
+    rank's query heads find their kv heads), whole sequences."""
+    mesh = current_mesh()
+    b_ax, _, h_ax, _ = spec_for("batch", None, "heads", None)
+    if b_ax is not None and q.shape[0] % axis_size(mesh, b_ax):
+        b_ax = None
+    if h_ax is not None and (q.shape[2] % axis_size(mesh, h_ax)
+                             or k.shape[2] % axis_size(mesh, h_ax)):
+        h_ax = None
+    return P(b_ax, None, h_ax, None)
 
 
 def prefill_block_attention(q, k, v, cfg: ArchConfig, *, pos_q=None,
@@ -180,9 +206,10 @@ def decode_attention_fp(q, cache, cfg: ArchConfig,
     lens = kvc.slot_lengths(cache, q.shape[0])
     pos = torch.arange(cache["k"].shape[1], dtype=torch.int32,
                        device=q.device)
-    return decode_attention(q, cache["k"], cache["v"], pos,
-                            pos[None, :] < lens[:, None], lens - 1, cfg,
-                            window)
+    k = logical(cache["k"], "batch", "kv_seq", "kv_heads", None)
+    v = logical(cache["v"], "batch", "kv_seq", "kv_heads", None)
+    return decode_attention(q, k, v, pos, pos[None, :] < lens[:, None],
+                            lens - 1, cfg, window)
 
 
 def take_tokens(a: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
@@ -266,9 +293,10 @@ def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
         qg = q.reshape(b, hkv, hq // hkv, d)
         pos = torch.arange(cache["k"].shape[1], device=q.device)
         ok = seg.attend_ok(pos, pos[None, :] < lens[:, None], t_now, weff)
-        num, m, l = seg.partial_attend(qg, cache["k"].to(dtype),
-                                       cache["v"].to(dtype), ok, scale,
-                                       cfg.attn_softcap)
+        kf = logical(cache["k"], "batch", "kv_seq", "kv_heads", None)
+        vf = logical(cache["v"], "batch", "kv_seq", "kv_heads", None)
+        num, m, l = seg.partial_attend(qg, kf.to(dtype), vf.to(dtype), ok,
+                                       scale, cfg.attn_softcap)
         out = num / l.clamp_min(1e-30)[..., None]
         return out.reshape(b, 1, hq, d).to(q.dtype)
 
@@ -309,9 +337,12 @@ def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
                     cfg.attn_softcap))
             parts.append(part)
         else:
-            parts.append(seg.partial_attend(
-                qg, dq(k_qt, policy.bits_k), dq(v_qt, policy.bits_v), ok_q,
-                scale, cfg.attn_softcap))
+            keys = logical(dq(k_qt, policy.bits_k),
+                           "batch", "kv_seq", "kv_heads", None)
+            values = logical(dq(v_qt, policy.bits_v),
+                             "batch", "kv_seq", "kv_heads", None)
+            parts.append(seg.partial_attend(qg, keys, values, ok_q, scale,
+                                            cfg.attn_softcap))
     parts.extend(fp_segment_partial(qg, cache, policy, lens, t_now, weff,
                                     scale, cfg.attn_softcap, dtype,
                                     extra_kv))

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
+from ..distributed.sharding import logical
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -104,17 +105,22 @@ def mlp(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
     """Gated (or plain) MLP: act(x @ wi_gate) * (x @ wi_up) @ wo."""
     a = act_fn(cfg.mlp_act)
     if cfg.mlp_gated:
-        h = a(x @ p["wi_gate"]) * (x @ p["wi_up"])
+        g = logical(x @ p["wi_gate"], "batch", "seq", "ff")
+        u = logical(x @ p["wi_up"], "batch", "seq", "ff")
+        h = a(g) * u
     else:
-        h = a(x @ p["wi_up"])
-    return h @ p["wo"]
+        h = a(logical(x @ p["wi_up"], "batch", "seq", "ff"))
+    return logical(h @ p["wo"], "batch", "seq", None)
 
 
 def embed(tokens: torch.Tensor, emb: torch.Tensor, scale: bool):
     """The rows of ``emb`` at ``tokens`` (``F.embedding``: its backward
     sums repeated tokens in a fixed order, where indexing's accumulating
     backward does not on the CPU, so a train step repeats bitwise)."""
-    x = F.embedding(tokens.long(), emb)
+    # on a mesh the lookup reads whole rows: the table is gathered over
+    # its vocab shards (DTensor cannot carry a vocab-sharded lookup's
+    # masked partial sums back through the backward pass)
+    x = F.embedding(tokens.long(), logical(emb, None, None))
     if scale:
         x = x * torch.tensor(math.sqrt(emb.shape[1]), dtype=x.dtype)
     return x
@@ -122,4 +128,5 @@ def embed(tokens: torch.Tensor, emb: torch.Tensor, scale: bool):
 
 def unembed(x: torch.Tensor, params, cfg: ArchConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap(x @ w.to(x.dtype), cfg.logit_softcap)
+    logits = logical(x @ w.to(x.dtype), "batch", "seq", "vocab")
+    return softcap(logits, cfg.logit_softcap)

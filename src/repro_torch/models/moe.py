@@ -8,7 +8,8 @@ expert.  :func:`moe_ffn_grouped` (the default, GShard/T5X-style) builds
 the dispatch and combine tensors from one-hots inside groups of up to
 ``GROUP_TOKENS`` tokens; :func:`moe_ffn_scatter` scatters the tokens into
 one ``(E, C, D)`` buffer.  Both drop the same tokens.  The reference's
-sharding annotations are single-device no-ops here and are left out.
+sharding annotations are :func:`logical` calls at the same tensors: the
+identity outside a sharding context.
 
 Nothing reads the device from the host (no ``.item()``, boolean-mask
 indexing, ``nonzero`` or ``bincount``; one-hots are comparisons with an
@@ -24,6 +25,7 @@ import torch
 
 from .config import ArchConfig
 from .layers import act_fn
+from ..distributed.sharding import logical
 
 
 def _capacity(n_tokens: int, cfg: ArchConfig) -> int:
@@ -50,10 +52,10 @@ def route(x: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig, *,
     if not with_aux:
         return weights, ids, None
     e = cfg.n_experts
-    flat = ids.reshape(-1)
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
-        0, flat, torch.ones(flat.shape, dtype=torch.float32,
-                            device=x.device)) / ids.numel()
+    # the share of (token, k) picks each expert got: whole counts, summed
+    # exactly in f32 (a one-hot sum, which a token-sharded DTensor can
+    # reduce across ranks)
+    ce = _one_hot(ids.reshape(-1), e, torch.float32).sum(dim=0) / ids.numel()
     aux = e * torch.sum(probs.mean(dim=0) * ce)
     return weights, ids, aux
 
@@ -114,7 +116,9 @@ def moe_ffn_scatter(x: torch.Tensor, p, cfg: ArchConfig, *,
     tok_idx = torch.arange(n, device=x.device).repeat_interleave(k)
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[slot] = xf[tok_idx]
-    out_e = _experts(buf[:-1].reshape(e, cap, d), p, cfg).reshape(e * cap, d)
+    buf = logical(buf[:-1].reshape(e, cap, d), "experts", "cap", None)
+    out_e = logical(_experts(buf, p, cfg), "experts", "cap", None
+                    ).reshape(e * cap, d)
     out_e = torch.cat([out_e, out_e.new_zeros((1, d))])
 
     y_slots = out_e[slot] * (weights.reshape(-1)[:, None]
@@ -146,7 +150,7 @@ def moe_ffn_grouped(x: torch.Tensor, p, cfg: ArchConfig, *,
     g = n // gt
     cap = _capacity(gt, cfg)
 
-    xg = xf.reshape(g, gt, d)
+    xg = logical(xf.reshape(g, gt, d), "batch", None, None)
     w_g = weights.reshape(g, gt, k)
     # position of each (token, k) pair within its expert, inside the group:
     # an int32 exclusive cumsum over the token-major (token, k) order
@@ -161,10 +165,12 @@ def moe_ffn_grouped(x: torch.Tensor, p, cfg: ArchConfig, *,
     disp = oh_e.transpose(-1, -2) @ oh_c
     comb = (oh_e * w_g.to(x.dtype)[..., None]).transpose(-1, -2) @ oh_c
     xin = disp.reshape(g, gt, e * cap).transpose(1, 2) @ xg    # (G, E*C, D)
-    xin = xin.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    xin = logical(xin.reshape(g, e, cap, d), "batch", "experts", None, None)
+    xin = xin.transpose(0, 1).reshape(e, g * cap, d)
     out_e = _experts(xin, p, cfg).reshape(e, g, cap, d).transpose(0, 1)
+    out_e = logical(out_e, "batch", "experts", None, None)
     y = comb.reshape(g, gt, e * cap) @ out_e.reshape(g, e * cap, d)
-    y = y.reshape(n, d)
+    y = logical(y, "batch", None, None).reshape(n, d)
     if cfg.n_shared_experts > 0:
         y = y + _shared(xf, p, cfg)
     return y.reshape(b, s, d), aux

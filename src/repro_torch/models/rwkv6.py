@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
+from ..distributed.sharding import logical
 from ..device import resolve_device
 
 CHUNK = 16
@@ -158,7 +159,8 @@ def time_mix(x, p, cfg: ArchConfig, state=None):
     y, s_fin = wkv_chunked(r, k, v, logw, p["u"].reshape(h, hd), s0)
     y = group_norm_heads(y[:, :s], p["gn_w"].reshape(h, hd),
                          p["gn_b"].reshape(h, hd))
-    return (y.reshape(b, s, d) * g) @ p["w_out"], s_fin
+    return logical((y.reshape(b, s, d) * g) @ p["w_out"],
+                   "batch", "seq", None), s_fin
 
 
 def time_mix_decode(x1, p, cfg: ArchConfig, state: Dict[str, torch.Tensor]):
@@ -190,8 +192,9 @@ def channel_mix(x, p, x_prev=None):
     sx = (_shift(x) if x_prev is None else x_prev) - x
     xk = x + sx * p["mu_ffn_k"]
     xr = x + sx * p["mu_ffn_r"]
-    k = torch.square(F.relu(xk @ p["ffn_k"]))
-    return torch.sigmoid(xr @ p["ffn_r"]) * (k @ p["ffn_v"])
+    k = torch.square(F.relu(logical(xk @ p["ffn_k"], "batch", "seq", "ff")))
+    return torch.sigmoid(xr @ p["ffn_r"]) * logical(k @ p["ffn_v"],
+                                                    "batch", "seq", None)
 
 
 def state_shapes(batch: int, cfg: ArchConfig, dtype=torch.float32):

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
+from ..distributed.sharding import logical
 from ..device import resolve_device
 
 
@@ -98,7 +99,7 @@ def ssm_forward(x: torch.Tensor, p, cfg: ArchConfig,
     state is the last K-1 conv inputs, zero rows in front where the prompt
     is shorter (the reference returns only the rows it has, and its decode
     then fails to broadcast; ROADMAP §3)."""
-    xz = x @ p["in_proj"]                                     # (B, S, 2 Di)
+    xz = logical(x @ p["in_proj"], "batch", "seq", "ff")      # (B, S, 2 Di)
     xs_raw, z = xz.chunk(2, dim=-1)
     xs = F.silu(_conv_causal(xs_raw, p["conv_w"]) + p["conv_b"])
     bmat, cmat, dt = _split_proj(xs, p, cfg)
@@ -111,7 +112,7 @@ def ssm_forward(x: torch.Tensor, p, cfg: ArchConfig,
     y = torch.einsum("bsdn,bsn->bsd", h, cmat.to(torch.float32))
     y = (y + p["d_skip"] * xs.to(torch.float32)).to(x.dtype)
     y = y * F.silu(z)
-    out = y @ p["out_proj"]
+    out = logical(y @ p["out_proj"], "batch", "seq", None)
     if not return_state:
         return out
     k, s = cfg.ssm_conv, x.shape[1]

@@ -91,6 +91,7 @@ from ..core import kv_cache as kvc
 from ..core import segments as seg
 from ..core.quant import n_meta_groups
 from ..device import resolve_device
+from ..distributed.sharding import carry_context, logical
 
 Params = Dict
 
@@ -488,7 +489,9 @@ def _qkv(x, p, cfg: ArchConfig, rope):
     """Project (+ bias), RMS-norm q and k per head (``qk_norm``, the
     ``(1 + w)`` form), rope: q, k, v (B, S, H, hd) post-rope (pre-perm)."""
     b, s, _ = x.shape
-    q = _proj(x, p, "wq", "bq").reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = logical(_proj(x, p, "wq", "bq").reshape(b, s, cfg.n_heads,
+                                                cfg.head_dim),
+                "batch", "seq", "heads", None)
     k = _proj(x, p, "wk", "bk").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = _proj(x, p, "wv", "bv").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
@@ -496,6 +499,12 @@ def _qkv(x, p, cfg: ArchConfig, rope):
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
+
+
+def _attn_out(o, p):
+    """The attention output projection of o (B, S, ...) -> (B, S, d)."""
+    b, s = o.shape[:2]
+    return logical(o.reshape(b, s, -1) @ p["wo_attn"], "batch", "seq", None)
 
 
 def _embed_in(params: Params, cfg: ArchConfig, tokens, embeds):
@@ -578,13 +587,12 @@ def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int,
     (:func:`forward_train`) attends through ``full_attention``, as the
     reference's training forward does, keeps no decode state, and gives
     the layer's MoE aux loss (f32 0 without experts) as ``extra["aux"]``."""
-    b, s, _ = x.shape
     p = _layer_params(params, cfg, i)
     hn = L.norm(x, p["norm1"], cfg)
     q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
     attend = full_attention if train else prefill_block_attention
     attn = attend(q, k, v, cfg, window=_window(cfg, i))
-    attn = attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
+    attn = _attn_out(attn, p["attn"])
     extra = {}
     if "ssm" in p and train:
         attn = _mix_ssm(attn, ssm_lib.ssm_forward(hn, p["ssm"], cfg), p, cfg)
@@ -597,7 +605,7 @@ def _block_full(x, params: Params, cfg: ArchConfig, ropes, i: int,
         qx, kx, vx = _cross_qkv(L.norm(x, p["norm_x"], cfg), enc_out,
                                 p["xattn"], cfg)
         xo = full_attention(qx, kx, vx, cfg, bidirectional=True)
-        x = x + xo.reshape(b, s, -1) @ p["xattn"]["wo_attn"]
+        x = x + _attn_out(xo, p["xattn"])
         extra = {} if train else {"kx": kx, "vx": vx}
     if train:
         f, aux = _ffn_aux(L.norm(x, p["norm2"], cfg), p, cfg)
@@ -643,6 +651,7 @@ def _remat(cfg: ArchConfig, fn):
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    fn = carry_context(fn)
     return lambda x: ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
 
 
@@ -657,7 +666,8 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict
     blocks run under :func:`_remat`.  Returns (logits (B, S, V), the MoE
     aux loss summed over the layers, an f32 scalar)."""
     _check_family(cfg)
-    x = _embed_in(params, cfg, batch.get("tokens"), batch.get("embeds"))
+    x = logical(_embed_in(params, cfg, batch.get("tokens"),
+                          batch.get("embeds")), "batch", "seq", None)
     s = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.attn_free:
@@ -698,14 +708,14 @@ def _encode(params: Params, cfg: ArchConfig, enc_embeds):
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
                          f"enc_embeds (B, S_enc, d_model)")
     x = enc_embeds.to(params["embed"].dtype)
-    b, s, _ = x.shape
+    s = x.shape[1]
     rope = L.rope_table(torch.arange(s, dtype=torch.int32, device=x.device),
                         cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_enc_layers):
         p = _layer(params["enc_layers"], i)
         q, k, v = _qkv(L.norm(x, p["norm1"], cfg), p["attn"], cfg, rope)
         attn = full_attention(q, k, v, cfg, bidirectional=True)
-        x = x + attn.reshape(b, s, -1) @ p["attn"]["wo_attn"]
+        x = x + _attn_out(attn, p["attn"])
         x = x + L.mlp(L.norm(x, p["norm2"], cfg), p["mlp"], cfg)
     return L.norm(x, params["enc_norm"], cfg)
 
@@ -950,7 +960,8 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     x = L.embed(tokens, params["embed"], cfg.embed_scale)
     if dtype is not None:
         x = x.to(dtype)
-    b, c, _ = x.shape
+    x = logical(x, "batch", "seq", None)
+    c = x.shape[1]
     pos, _ = seg.chunk_segment(t0, n_valid, c, device=dev)
     ropes = _rope_tables(cfg, pos)
     for bs, be, pol in bands:
@@ -969,7 +980,7 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             attn = prefill_chunk_attention(q, ws["k"][j], ws["v"][j], pos,
                                            cfg, window=_window(cfg, i),
                                            frontier=t0 + n_valid)
-            x = x + attn.reshape(b, c, -1) @ p["attn"]["wo_attn"]
+            x = x + _attn_out(attn, p["attn"])
             x = x + _ffn(L.norm(x, p["norm2"], cfg), p, cfg)
             append(cache, _apply_perm(k, cal["perm_k"][j]).to(x.dtype),
                    _apply_perm(v, cal["perm_v"][j]).to(x.dtype), pol, t0,
@@ -1063,6 +1074,7 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
     backend = bk.resolve_backend(backend, dev)
     if dtype is not None:
         x = x.to(dtype)
+    x = logical(x, "batch", "seq", None)
     if cfg.attn_free:
         return _decode_rwkv(params, cfg, x, caches)
     b = x.shape[0]
@@ -1111,8 +1123,7 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                     qp, cache, cfg, pol, window=_window(cfg, i),
                     dtype=x.dtype,
                     local_slice=cfg.local_window if local else 0, **lever)
-            attn = _apply_perm(attn, inv_v[j]).reshape(b, 1, -1)
-            attn = attn @ p["attn"]["wo_attn"]
+            attn = _attn_out(_apply_perm(attn, inv_v[j]), p["attn"])
             if "ssm" in p:
                 sout, _ = ssm_lib.ssm_decode(
                     hn, {"conv": layer["ssm_conv"], "h": layer["ssm_h"]},
@@ -1127,8 +1138,7 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                       ).reshape(b, 1, cfg.n_heads, cfg.head_dim)
                 xo = backend.attend(_apply_perm(qx, perm_q[j]), xcache, cfg,
                                     pol.without_window(), dtype=x.dtype)
-                xo = _apply_perm(xo, inv_v[j]).reshape(b, 1, -1)
-                x = x + xo @ p["xattn"]["wo_attn"]
+                x = x + _attn_out(_apply_perm(xo, inv_v[j]), p["xattn"])
             x = x + _ffn(L.norm(x, p["norm2"], cfg), p, cfg)
     x = L.norm(x, params["final_norm"], cfg)
     return L.unembed(x, params, cfg), caches

@@ -41,6 +41,16 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, *rest, _path=()):
+    """:func:`tree_map` with ``fn(path, leaf, *rest_leaves)``: ``path``
+    the tuple of keys from the root down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], *(r[k] for r in rest),
+                                      _path=_path + (k,))
+                for k in sorted(tree)}
+    return fn(_path, tree, *rest)
+
+
 def structure(tree) -> str:
     """The structure as ``str(jax.tree.structure(tree))`` prints it for a
     dict tree: ``PyTreeDef({'a': *, 'b': {'c': *}})``."""

@@ -117,6 +117,23 @@ def test_training_and_rwkv_entry_points_default_to_cuda_and_raise_without_it(
     assert load_latest(str(tmp_path), state, device="cpu")["step"] == 1
 
 
+def test_meshes_default_to_cuda_and_raise_without_it():
+    """``make_mesh``, ``make_production_mesh``, ``make_local_mesh`` and
+    ``init_world`` called with no device ask for CUDA and raise without a
+    card, before any process group is touched, as ``resolve_device``
+    does."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    for call in (lambda: mesh.make_mesh((1, 1), ("data", "model")),
+                 lambda: mesh.make_production_mesh(multi_pod=True),
+                 mesh.make_local_mesh, mesh.init_world):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not dist.is_initialized()
+
+
 def test_pooled_entry_points_raise_without_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
