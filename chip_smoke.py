@@ -298,7 +298,19 @@ not from the 50 MB L2, as each layer of a decode step does.
    sharded step and the pipeline need collectives gloo refuses on CUDA
    tensors (``--gloo-probe``), and NCCL refuses two ranks on one card,
    so (b) leaves them out and names them.
-19. a ``timing`` line of seconds per phase, then the kernel summary line
+19. analytic — the analytic launch path (``launch.op_cost``,
+   ``launch.roofline``, ``launch.dryrun``): (a) one eager llama2-7b decode
+   step at 4 x 2048 on the cuda backend under the op counter, both kernels
+   reporting through their own formula (exactly 32 decode_attn and 32
+   kv_append reports, the launch counts equal), FLOPs and bytes by
+   category, the roofline's t_compute / t_memory on the H100 constants
+   and the share of that bound the replayed step of serve_graph reaches
+   (bound / replayed ms); (b) ``model_flops`` of the step beside the
+   counter's matmul FLOPs; (c) one full-width dry-run cell (llama3.2-1b x
+   decode_32k on 16 x 16 fake ranks) in a subprocess on the CPU, started
+   before the first phase so that it runs beside them (its row, status
+   ok, in ``build/analytic/dryrun.json``).
+20. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
    ``prefill_ms``, ``prefill_bound_ms`` and ``prefill_rows``, and one
@@ -330,8 +342,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
-F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+# the card's HBM rate and f32 peak (H100 SXM data sheet), one source
+# with the port's roofline
+from repro_torch.launch.roofline import (  # noqa: E402
+    F32_PEAK_FLOPS as F32_FLOP_PER_S, HBM_BW as HBM_BYTES_PER_S)
 ATOL, RTOL = 3e-5, 1e-4          # decode_attn kernel vs plain, f32
 LOGIT_REL_TOL = 0.05             # cuda vs reference backend, bf16 model
 SLA_TTFT_MS, SLA_TPOT_MS = 2000.0, 500.0   # the port CLI docstring's SLA
@@ -1525,6 +1539,7 @@ def phase_serve_graph(state):
     eng_p, pooled = _graph_serve(state, cfg, 768)
     vs_eager, vs_pooled, event_ms, prof, per_step = _graph_timings(
         eng_s, eng_p, cfg)
+    state["replay_ms"] = event_ms["mean"]       # the analytic phase's share
     del eng_s, eng_p
     eager = state["eager_profile"]
     if per_step["kernels_per_step"] > 0 and per_step["device_ms_per_step"]:
@@ -5103,6 +5118,129 @@ def phase_distributed(state):
           "launch_delta": delta, "seconds": time.monotonic() - t0})
 
 
+ANALYTIC_CELL = ("llama3p2_1b", "decode_32k")   # the dry-run cell of (c)
+
+
+def _dryrun_cell():
+    """(c) one full-width dry-run cell in its own process on the CPU (its
+    fake process group of 256 ranks never meets this process's groups),
+    started before the first phase so that it runs beside them; its row
+    and output go to ``build/analytic/``.  Returns (process, row file,
+    log file)."""
+    import os
+    out = ROOT / "build" / "analytic" / "dryrun.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    log = out.with_suffix(".log")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    arch, shape = ANALYTIC_CELL
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--force", "--out",
+             str(out)], env=env, stdout=f, stderr=subprocess.STDOUT,
+            text=True)
+    return proc, out, log
+
+
+def _analytic_step(state):
+    """(a), (b): one eager llama2-7b decode step at 4 x STEP_CONTEXT on
+    the cuda backend under ``op_cost``'s counter."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import op_cost as OC
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    cfg = configs.get("llama2_7b")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(2)
+    batch = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (SERVE_SLOTS, STEP_CONTEXT)),
+                            device=dev)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1)),
+                          device=dev)
+    with torch.no_grad():
+        _, caches = T.prefill_model(params, cfg, batch, PAPER_POLICY,
+                                    max_len=MAX_LEN, backend="cuda")
+        T.decode_step(params, cfg, tok, caches, PAPER_POLICY, backend="cuda")
+        torch.cuda.synchronize()
+        reset_launch_counts()                               # the step only
+        with OC.OpCounter() as c:
+            lg, _ = T.decode_step(params, cfg, tok, caches, PAPER_POLICY,
+                                  backend="cuda")
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    del params, caches
+    check(bool(torch.isfinite(lg).all()), "analytic step: logits not finite")
+    n = cfg.n_layers
+    check(counts["decode_attn"]["kernel"] == n
+          and counts["kv_quant"]["append"] == n
+          and counts["decode_attn"]["plain"] == 0
+          and counts["kv_quant"]["append_plain"] == 0,
+          f"analytic step: launches {counts}")
+    for k in ("kernel:decode_attn", "kernel:kv_append"):
+        check(c.counts.get(k, {}).get("ops") == n,
+              f"analytic step: the counter saw {c.counts.get(k)} for {k}, "
+              f"not {n} reports")
+    rl = RL.from_counts(c.totals(), model_flops_per_device=RL.model_flops(
+        cfg, "decode", SERVE_SLOTS, STEP_CONTEXT))
+    replay = state.get("replay_ms")
+    bound_ms = rl.bound_time * 1e3
+    return {"arch": cfg.name, "slots": SERVE_SLOTS,
+            "context": STEP_CONTEXT, "launches": counts,
+            "by_category": c.counts, "totals": c.totals(),
+            "t_compute_ms": rl.t_compute * 1e3,
+            "t_memory_ms": rl.t_memory * 1e3, "bound_ms": bound_ms,
+            "dominant": rl.dominant,
+            "replayed_ms": replay,
+            "roofline_share": bound_ms / replay if replay else None,
+            "model_flops": rl.model_flops,
+            "counter_matmul_flops": c.counts["matmul"]["flops"],
+            "constants": {"bf16_peak": RL.PEAK_FLOPS, "hbm": RL.HBM_BW}}
+
+
+def phase_analytic(state):
+    """The analytic launch path on the card: (a) one eager llama2-7b step
+    at 4 x 2048 counted by ``op_cost`` (both kernels report through their
+    formula: 32 decode_attn and 32 kv_append reports), its roofline terms
+    and the share of that bound the replayed step (serve_graph) reaches;
+    (b) ``model_flops`` of the step beside the counter's matmul FLOPs; (c)
+    one full-width dry-run cell (llama3.2-1b x decode_32k on 16 x 16 fake
+    ranks) in a subprocess on the CPU, started before the first phase
+    (``main``) and read here."""
+    import gc
+    import json as _json
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    proc, out, log = state.pop("dryrun", None) or _dryrun_cell()
+    try:
+        step = _analytic_step(state)
+        step["seconds"] = time.monotonic() - t0
+        proc.wait(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log.read_text()
+    check(proc.returncode == 0, f"analytic dry-run cell failed: "
+          f"rc {proc.returncode}: {text[-2000:]}")
+    row = next(r for r in _json.loads(out.read_text())
+               if (r["arch"], r["shape"]) == ANALYTIC_CELL)
+    check(row["status"] == "ok", f"analytic dry-run cell: {row}")
+    row.pop("trace", None)
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith(ANALYTIC_CELL[0]))
+    emit({"phase": "analytic", "gpu": state["gpu"], "step": step,
+          "dryrun_cell": row, "dryrun_line": line,
+          "seconds": time.monotonic() - t0})
+
+
 def _gloo_probe_rank(rank, world, port, what):
     import torch
     import torch.distributed as dist
@@ -5223,19 +5361,25 @@ def main(argv=None) -> int:
         return gloo_probe()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state = {}
+    state = {"dryrun": _dryrun_cell()}          # beside the phases (CPU)
     seconds = {}
-    for phase in (phase_env, phase_kv_quant, phase_kv_append,
-                  phase_decode_attn, phase_decode_attn_pooled, phase_serve,
-                  phase_serve_pooled, phase_serve_graph,
-                  phase_serve_chunked, phase_calibrate,
-                  phase_serve_schedule, phase_serve_degrade,
-                  phase_serve_families, phase_serve_moe,
-                  phase_serve_hybrid, phase_serve_encdec,
-                  phase_serve_rwkv, phase_train, phase_distributed):
-        t0 = time.monotonic()
-        phase(state)
-        seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
+    try:
+        for phase in (phase_env, phase_kv_quant, phase_kv_append,
+                      phase_decode_attn, phase_decode_attn_pooled,
+                      phase_serve, phase_serve_pooled, phase_serve_graph,
+                      phase_serve_chunked, phase_calibrate,
+                      phase_serve_schedule, phase_serve_degrade,
+                      phase_serve_families, phase_serve_moe,
+                      phase_serve_hybrid, phase_serve_encdec,
+                      phase_serve_rwkv, phase_train, phase_distributed,
+                      phase_analytic):
+            t0 = time.monotonic()
+            phase(state)
+            seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
+    finally:
+        if "dryrun" in state and state["dryrun"][0].poll() is None:
+            state["dryrun"][0].kill()
+            state["dryrun"][0].wait()
     emit({"phase": "timing", "seconds": seconds})
     entries = []
     for name, src, rep in (

@@ -26,7 +26,7 @@ ring and length stay striped.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -470,14 +470,19 @@ def decode_append(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
                   alpha_k: Optional[torch.Tensor] = None,
                   alpha_v: Optional[torch.Tensor] = None,
                   quant_fn: Optional[QuantFn] = None,
-                  valid: Optional[torch.Tensor] = None) -> Cache:
+                  valid: Optional[torch.Tensor] = None,
+                  packed_span: Optional[Tuple[int, int]] = None) -> Cache:
     """In place: append one token (k/v_new: (B, 1, H_kv, D)) per slot and
     quantize the token it evicts from the window (DESIGN.md §1).
 
     Every row advances at its own ``length``.  Rows with ``valid`` False
     (optional (B,) bool) are no-ops and do not advance.  A pooled cache
     (§9) routes the packed write through the slot's block table
-    (:func:`_pool_dest`).  Returns ``cache``."""
+    (:func:`_pool_dest`).  ``packed_span`` ``(offset, total)``: the
+    striped planes hold packed tokens ``[offset, offset + S)`` of a
+    region of ``total`` (a rank's shard of a context-parallel cache): the
+    packed write lands only where its global index falls in the shard.
+    Returns ``cache``."""
     policy = as_layer_policy(policy)
     qf = quant_fn or quantize_groups
     b, _, h, d = k_new.shape
@@ -489,9 +494,16 @@ def decode_append(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
 
     def packed_len():
         s = cache["qk_codes_hi"].shape[1]
+        if packed_span is not None:
+            return packed_span[1]
         return cache["block_tbl"].shape[-1] * s if pooled else s
 
     def put_all(qk, qv, idx, cond):
+        if packed_span is not None:
+            n = cache["qk_codes_hi"].shape[1]
+            idx = idx - packed_span[0]
+            cond = cond & (idx >= 0) & (idx < n)
+            idx = idx.clamp(0, n - 1)
         if pooled:
             dest = _pool_dest(cache["block_tbl"], idx,
                               cache["qk_codes_hi"].shape[1], cond)

@@ -344,25 +344,191 @@ def is_sharded(x) -> bool:
     return _ctx().mesh is not None and is_dtensor(x)
 
 
-def run_local(fn, args, specs, out_spec: P):
-    """``fn`` over the local shards of the DTensors ``args``, each laid
-    out by its spec first, its output taken as the shards of a DTensor
-    laid out by ``out_spec`` (the layout the specs make each rank's output
-    hold).  For an op whose shards need no other rank's data (attention
-    over whole heads of whole sequences): DTensor never propagates its
-    sharding, and both local maps are differentiable."""
-    from torch.distributed.tensor import DTensor
+def spec_of(x) -> P:
+    """The spec of a DTensor's layout (the inverse of
+    :func:`to_placements`): each tensor dim's entry names the mesh axes of
+    the layout dims that shard it, in mesh order."""
+    from torch.distributed.tensor import Shard
+    _, groups = layout_mesh(_ctx().mesh)
+    parts = [() for _ in range(x.ndim)]
+    for grp, pl in zip(groups, x.placements):
+        if isinstance(pl, Shard):
+            parts[pl.dim] = parts[pl.dim] + grp
+    return P(*[None if not a else (a[0] if len(a) == 1 else a)
+               for a in parts])
+
+
+def whole_heads(y: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``y`` (..., n_heads * head_dim) laid out so that splitting its last
+    dim into heads needs no other rank's data: the last dim is gathered
+    over each mesh dim whose shards do not hold whole heads (8 kv heads
+    over a 16-way ``model`` axis; GSPMD pads such a split, DTensor refuses
+    it).  ``y`` itself where nothing needs gathering or outside a
+    context."""
+    if not is_sharded(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    lmesh = layout_mesh(_ctx().mesh)[0]
+    last = y.ndim - 1
+    pls, n = list(y.placements), 1
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard) and pl.dim == last:
+            n *= lmesh.size(i)
+            if n_heads % n:
+                pls[i] = Replicate()
+    if pls == list(y.placements):
+        return y
+    return y.redistribute(lmesh, pls)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """``o`` (..., n_heads, head_dim) -> (..., n_heads * head_dim).  On a
+    mesh, ``o`` is first gathered over any mesh dim that splits its head
+    dim or splits its heads unevenly, and the gradient that comes back to
+    the merged dim (sharded over ``model`` by the next product's weight)
+    is gathered to whole heads (:func:`whole_heads`), so that splitting
+    it back into heads needs no other rank's data."""
+    if not is_sharded(o):
+        return o.reshape(*o.shape[:-2], -1)
+    from torch.distributed.tensor import Replicate, Shard
+    lmesh = layout_mesh(_ctx().mesh)[0]
+    n, last = o.shape[-2], o.ndim - 1
+    # the merge needs the head dim split into whole shards and the head
+    # dim itself whole (DTensor's propagation may have split either)
+    pls = [Replicate() if isinstance(pl, Shard) and lmesh.size(i) > 1 and (
+        pl.dim == last or (pl.dim == last - 1 and n % lmesh.size(i)))
+        else pl for i, pl in enumerate(o.placements)]
+    if pls != list(o.placements):
+        o = o.redistribute(lmesh, pls)
+    y = o.reshape(*o.shape[:-2], -1)
+    return _WholeHeadsGrad.apply(y, n) if torch.is_grad_enabled() else y
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """The identity, whose backward lays its gradient out as
+    :func:`whole_heads` does."""
+
+    @staticmethod
+    def forward(ctx, y, n):
+        ctx.n = n
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_heads(g, ctx.n), None
+
+
+def shard_count(spec: P) -> int:
+    """Distinct shards ``spec`` cuts a tensor into on the current mesh."""
+    mesh, n = _ctx().mesh, 1
+    for entry in spec:
+        n *= axis_size(mesh, entry)
+    return n
+
+
+def local_scale() -> int:
+    """Inside :func:`run_local`'s function, how many distinct shards its
+    output has (each rank computes one of them; 1 elsewhere): an op
+    counter multiplies what it sees there by this to get the global
+    count."""
+    return getattr(_TLS, "local_scale", 1)
+
+
+@contextlib.contextmanager
+def local_scaled(n: int):
+    """Multiply :func:`local_scale` by ``n`` inside (a part of a local
+    function whose work differs across ``n`` more ranks than its output
+    does, such as a context-parallel shard's partial before its
+    merge)."""
+    prev = local_scale()
+    _TLS.local_scale = prev * n
+    try:
+        yield
+    finally:
+        _TLS.local_scale = prev
+
+
+def mesh_group(axes):
+    """The process group of the layout mesh dim that stands for mesh
+    ``axes`` (a name or a tuple), as the functional collectives take it:
+    ``(layout mesh, dim)``."""
+    lmesh, groups = layout_mesh(_ctx().mesh)
+    want = (axes,) if isinstance(axes, str) else tuple(axes)
+    for i, grp in enumerate(groups):
+        if grp == want:
+            return lmesh, i
+    raise ValueError(f"mesh axes {want} are not one layout dim of {groups}")
+
+
+def local_index(axes) -> int:
+    """This rank's shard index along mesh ``axes`` (a name or a tuple,
+    the first major), as a dim split over them is laid out."""
     mesh = _ctx().mesh
-    local = [_ContiguousGrad.apply(redistribute(a, s, mesh).to_local())
-             for a, s in zip(args, specs)]
-    out = fn(*local).contiguous()
-    lmesh = layout_mesh(mesh)[0]
+    shape = mesh_shape(mesh)
+    names = axis_names(mesh)
+    coord = mesh.get_coordinate()
+    idx = 0
+    for a in ((axes,) if isinstance(axes, str) else tuple(axes)):
+        idx = idx * shape[a] + coord[names.index(a)]
+    return idx
+
+
+def _to_dtensor(out, spec: P, mesh):
+    from torch.distributed.tensor import DTensor
+    out = out.contiguous()
     shape = list(out.shape)
-    for d, entry in enumerate(out_spec):
+    for d, entry in enumerate(spec):
         shape[d] *= axis_size(mesh, entry)
-    return DTensor.from_local(out, lmesh, to_placements(out_spec, mesh),
-                              run_check=False, shape=torch.Size(shape),
+    return DTensor.from_local(out, layout_mesh(mesh)[0],
+                              to_placements(spec, mesh), run_check=False,
+                              shape=torch.Size(shape),
                               stride=_contiguous_stride(shape))
+
+
+def run_local(fn, args, specs, out_spec, shards: Optional[int] = None):
+    """``fn`` over the local shards of the DTensors ``args``, each laid
+    out by its spec first (a spec of None passes its argument on as it
+    is: a plain tensor, None, or a DTensor's own local shard, unmoved, so
+    that ``fn`` may write it in place), its output taken as the shards of
+    a DTensor laid out by ``out_spec`` (the layout the specs make each
+    rank's output hold).  An output that is a tuple or a dict of tensors
+    takes a tuple or a dict of specs, or a function of (key, local
+    tensor) giving each one's.  For an op whose shards need no other
+    rank's data (attention over whole heads of whole sequences, a cache's
+    quantization and append): DTensor never propagates its sharding, and
+    with autograd on both local maps are differentiable.  ``shards``: the
+    distinct shards the output has (:func:`local_scale`; by default
+    ``out_spec``'s count, which a tree of specs must then give as its
+    first leaf)."""
+    mesh = _ctx().mesh
+    grad = torch.is_grad_enabled()
+    local = []
+    for a, s in zip(args, specs):
+        if not is_dtensor(a):
+            local.append(a)
+        elif s is None:
+            local.append(a._local_tensor)
+        else:
+            t = redistribute(a, s, mesh).to_local()
+            local.append(_ContiguousGrad.apply(t) if grad else t)
+    if shards is None:
+        first = out_spec
+        while not isinstance(first, P):
+            first = next(iter(first.values() if isinstance(first, dict)
+                              else first))
+        shards = shard_count(first)
+    with local_scaled(shards):
+        out = fn(*local)
+
+    def wrap(key, o, s):
+        return _to_dtensor(o, s(key, o) if callable(s) else s, mesh)
+    if isinstance(out, dict):
+        return {k: wrap(k, o, out_spec if callable(out_spec)
+                        else out_spec[k]) for k, o in out.items()}
+    if isinstance(out, tuple):
+        return tuple(wrap(i, o, out_spec if callable(out_spec)
+                          else out_spec[i]) for i, o in enumerate(out))
+    return wrap(None, out, out_spec)
 
 
 class _ContiguousGrad(torch.autograd.Function):

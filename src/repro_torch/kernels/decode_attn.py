@@ -48,6 +48,7 @@ import torch
 
 from . import _build
 from ..core.kv_cache import gather_blocks
+from ..launch import op_cost
 from ..core.packing import unpack_u8
 from ..core.policy import QuantPolicy
 from ..core.quant import packed_nbytes, plane_layout
@@ -224,11 +225,53 @@ def _plane_args(qt, layout):
     return [len(layout)] + args
 
 
+def live_tokens(mask: torch.Tensor) -> int:
+    """Tokens a mask (B, S_mask) lets a slot attend, summed over the
+    slots (read back to the host); every entry for a tensor without
+    values (fake or meta)."""
+    try:
+        return int((mask > 0).sum())
+    except Exception:            # a fake or meta tensor has no values
+        return mask.numel()
+
+
+def attn_cost(q, mask, policy: QuantPolicy, head_dim: int
+              ) -> Tuple[float, float]:
+    """(f32 operations, bytes) of one launch, from its arguments: each
+    live token's packed K and V rows of every kv head read once, its mask
+    entry, q, and the outputs ``(num, m, l)`` written once; per live token
+    and kv head, dequantizing K and V (2 x 2D) and q.k and p.v for each
+    of the Gq query rows (2 x 2D x Gq) -- PERF.md §6's bound of the
+    kernel."""
+    b, hkv, gq, d = q.shape
+    gsz = min(policy.group_size, head_dim)
+    bits = policy.meta_dtype_bits
+    per_tok = hkv * (packed_nbytes(d, policy.bits_k, gsz, bits)
+                     + packed_nbytes(d, policy.bits_v, gsz, bits))
+    n_live = live_tokens(mask)
+    nbytes = (n_live * (per_tok + 4) + q.numel() * 4
+              + 4 * b * hkv * gq * (d + 2))
+    return n_live * hkv * (4 * d + 4 * d * gq), nbytes
+
+
 def decode_attn(q, k_qt, v_qt, mask, policy: QuantPolicy, head_dim: int,
                 scale: float, block_s: int = BLOCK_S, softcap: float = 0.0,
                 block_bounds: Optional[torch.Tensor] = None,
                 block_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """See :func:`_decode_attn`; reports :func:`attn_cost` to an active
+    ``launch.op_cost`` counter."""
+    with op_cost.kernel_cost("decode_attn", lambda: attn_cost(
+            q, mask, policy, head_dim)):
+        return _decode_attn(q, k_qt, v_qt, mask, policy, head_dim, scale,
+                            block_s, softcap, block_bounds, block_table)
+
+
+def _decode_attn(q, k_qt, v_qt, mask, policy: QuantPolicy, head_dim: int,
+                 scale: float, block_s: int = BLOCK_S, softcap: float = 0.0,
+                 block_bounds: Optional[torch.Tensor] = None,
+                 block_table: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B, Hkv, Gq, D); planes (B, S, Hkv, ...), or pool-major
     (NP, BT, Hkv, ...) with ``block_table`` (B, NB) int32 and S = NB * BT;
     mask (B, S_mask) float, ``S <= S_mask``, ``S_mask % block_s == 0``;

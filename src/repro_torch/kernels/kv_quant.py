@@ -42,7 +42,9 @@ import torch
 from . import _build
 from ..core.kv_cache import decode_append, is_pooled, prefill_chunk_append
 from ..core.policy import QuantPolicy, as_layer_policy
-from ..core.quant import plane_layout, quantize_groups
+from ..core.quant import (n_meta_groups, packed_nbytes, plane_layout,
+                          quantize_groups)
+from ..launch import op_cost
 
 LAUNCHES = {"kernel": 0, "plain": 0, "append": 0, "append_plain": 0,
             "chunk_plain": 0}
@@ -147,9 +149,31 @@ def _lib(name: str):
     return fn
 
 
+def quant_cost(x: torch.Tensor, bits: float, group_size: int,
+               fp8_meta: bool = True) -> Tuple[float, float]:
+    """(f32 operations, bytes) of one bulk launch: the rows read once and
+    their packed codes and scale/zero written once; 7 operations an
+    element (PERF.md §6's bound of the kernel)."""
+    d = x.shape[-1]
+    n = x.numel() // d
+    out = n * packed_nbytes(d, bits, min(group_size, d), 8 if fp8_meta
+                            else 16)
+    return 7.0 * x.numel(), float(x.numel() * x.element_size() + out)
+
+
 def kv_quant(x: torch.Tensor, bits: float, group_size: int,
              alpha: Optional[torch.Tensor] = None,
              fp8_meta: bool = True) -> Dict[str, torch.Tensor]:
+    """See :func:`_kv_quant`; reports :func:`quant_cost` to an active
+    ``launch.op_cost`` counter."""
+    with op_cost.kernel_cost("kv_quant", lambda: quant_cost(
+            x, bits, group_size, fp8_meta)):
+        return _kv_quant(x, bits, group_size, alpha, fp8_meta)
+
+
+def _kv_quant(x: torch.Tensor, bits: float, group_size: int,
+              alpha: Optional[torch.Tensor] = None,
+              fp8_meta: bool = True) -> Dict[str, torch.Tensor]:
     """x (N, D) tokens -> QTensor dict in the ``core.quant`` layout.
 
     ``alpha``: None, (G_total,) shared, or (P, G_total) clip factors with
@@ -310,8 +334,53 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _lengths(t: torch.Tensor):
+    """The values of a small int tensor on the host, or None for one
+    without values (fake or meta)."""
+    try:
+        return t.tolist()
+    except Exception:            # a fake or meta tensor has no values
+        return None
+
+
+def append_cost(cache, k_new: torch.Tensor, policy: QuantPolicy
+                ) -> Tuple[float, float]:
+    """(f32 operations, bytes) of one append launch at the cache's
+    lengths (read back): per slot and head the new K/V rows read and
+    written (ring or sink), and for each slot that evicts the ring rows
+    read and the packed rows written (and its table entry if pooled); the
+    lengths and the clip factors once; 7 operations an element quantized
+    (PERF.md §6's bound of the kernel; every slot evicts where the
+    lengths have no values)."""
+    policy = as_layer_policy(policy)
+    b, _, hkv, d = k_new.shape
+    gsz = min(policy.group_size, d)
+    bits = policy.meta_dtype_bits
+    packed = (packed_nbytes(d, policy.bits_k, gsz, bits)
+              + packed_nbytes(d, policy.bits_v, gsz, bits))
+    row = 2 * d * k_new.element_size()               # K + V rows
+    lens = _lengths(cache["length"])
+    n_ev = b if lens is None else sum(
+        1 for t in lens if t - policy.n_sink - policy.window >= 0)
+    nbytes = (b * hkv * 2 * row + n_ev * hkv * (row + packed)
+              + n_ev * 4 * ("block_tbl" in cache) + 8 * b
+              + 4 * hkv * (n_meta_groups(d, policy.bits_k, gsz)
+                           + n_meta_groups(d, policy.bits_v, gsz)))
+    return 7.0 * 2 * n_ev * hkv * d, float(nbytes)
+
+
 def kv_append(cache, k_new: torch.Tensor, v_new: torch.Tensor,
               policy: QuantPolicy, alpha_k=None, alpha_v=None, valid=None):
+    """See :func:`_kv_append`; reports :func:`append_cost` to an active
+    ``launch.op_cost`` counter."""
+    with op_cost.kernel_cost("kv_append", lambda: append_cost(
+            cache, k_new, policy)):
+        return _kv_append(cache, k_new, v_new, policy, alpha_k, alpha_v,
+                          valid)
+
+
+def _kv_append(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+               policy: QuantPolicy, alpha_k=None, alpha_v=None, valid=None):
     """In place: append one token per slot (k/v_new (B, 1, H, D)) and
     quantize the token it evicts from the window — ``decode_append``'s
     semantics (striped or pooled cache; ``valid`` (B,) bool rows only;
@@ -367,9 +436,44 @@ def chunk_evictions(policy: QuantPolicy, t0: int, n_valid: int
     return max(ns, t0 - w), t0 + n_valid - w
 
 
+def chunk_cost(k: torch.Tensor, policy: QuantPolicy, t0: int, n_valid: int
+               ) -> Tuple[float, float]:
+    """(f32 operations, bytes) of one chunk append: the evicted rows read
+    once (ring or chunk) and their packed rows written, the chunk rows
+    that land in the ring or the sinks read and written, the clip
+    factors; 7 operations an element quantized (PERF.md §6's bound)."""
+    policy = as_layer_policy(policy)
+    hkv, d = k.shape[2], k.shape[3]
+    lo, hi = chunk_evictions(policy, int(t0), int(n_valid))
+    n_ev = max(0, hi - lo)
+    end = int(t0) + int(n_valid)
+    n_fp = max(0, min(policy.n_sink, end) - int(t0)) + max(
+        0, end - max(policy.n_sink, end - policy.window, int(t0)))
+    gsz = min(policy.group_size, d)
+    bits = policy.meta_dtype_bits
+    row = 2 * hkv * d * k.element_size()             # K + V rows
+    packed = hkv * (packed_nbytes(d, policy.bits_k, gsz, bits)
+                    + packed_nbytes(d, policy.bits_v, gsz, bits))
+    nbytes = (n_ev * (row + packed) + 2 * n_fp * row + 4 * hkv
+              * (n_meta_groups(d, policy.bits_k, gsz)
+                 + n_meta_groups(d, policy.bits_v, gsz)))
+    return 7.0 * 2 * n_ev * hkv * d, float(nbytes)
+
+
 def kv_append_chunk(cache, k: torch.Tensor, v: torch.Tensor,
                     policy: QuantPolicy, t0: int, n_valid: int,
                     alpha_k=None, alpha_v=None, quant_fn=None):
+    """See :func:`_kv_append_chunk`; reports :func:`chunk_cost` to an
+    active ``launch.op_cost`` counter."""
+    with op_cost.kernel_cost("kv_append_chunk", lambda: chunk_cost(
+            k, policy, t0, n_valid)):
+        return _kv_append_chunk(cache, k, v, policy, t0, n_valid, alpha_k,
+                                alpha_v, quant_fn)
+
+
+def _kv_append_chunk(cache, k: torch.Tensor, v: torch.Tensor,
+                     policy: QuantPolicy, t0: int, n_valid: int,
+                     alpha_k=None, alpha_v=None, quant_fn=None):
     """In place: append tokens ``[t0, t0 + n_valid)`` of a prefill chunk
     (k/v (1, C, H, D), rows past ``n_valid`` bucket padding) to a batch-1
     striped cache at length ``t0`` — the token loop's result

@@ -117,7 +117,14 @@ def prefill_block_attention(q, k, v, cfg: ArchConfig, *, pos_q=None,
                             block: int = PREFILL_BLOCK):
     """Causal prefill attention over ``block``-wide key tiles with
     online-softmax merging (DESIGN.md §7).  q (B, Sq, Hq, D); k/v
-    (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype."""
+    (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype.  On DTensors each
+    rank runs the loop over its own batch rows and heads, as
+    :func:`full_attention` does."""
+    if is_sharded(q):
+        spec = _head_spec(q, k)
+        return run_local(lambda *t: prefill_block_attention(
+            *t, cfg, pos_q=pos_q, window=window, block=block), (q, k, v),
+            (spec, spec, spec), spec)
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -278,6 +285,24 @@ def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
     (``segments.block_live``) is skipped, whose merge would be an exact
     no-op.  The skip reads the tiles' liveness on the host once a call:
     this is the oracle path, not the served one."""
+    return skvq_parts(q, cache, cfg, policy, window=window, dtype=dtype,
+                      chunk=chunk, local_slice=local_slice,
+                      packed_override=packed_override, extra_kv=extra_kv,
+                      q_pos=q_pos, prune_blocks=prune_blocks)[0]
+
+
+def skvq_parts(q, cache, cfg: ArchConfig, policy: QuantPolicy,
+               window: Optional[int] = None, dtype=torch.bfloat16,
+               chunk: int = 0, local_slice: int = 0, packed_override=None,
+               extra_kv=None, q_pos=None, prune_blocks: bool = True,
+               fp: bool = True):
+    """:func:`decode_attention_skvq`'s work: (the normalized output
+    (B, 1, Hq, D), the flash partials ``[(num, m, l), ...]`` it merged:
+    the packed segment's first where there is one, then the fp
+    segments').  ``fp`` False leaves the fp segments out (the output is
+    then the packed segment's alone): a rank of a context-parallel cache
+    merges its packed partial with the other ranks' before the fp one
+    joins."""
     if kvc.is_pooled(cache):
         cache = kvc.unpool_cache(cache)
     w, ns = policy.window, policy.n_sink
@@ -295,10 +320,10 @@ def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
         ok = seg.attend_ok(pos, pos[None, :] < lens[:, None], t_now, weff)
         kf = logical(cache["k"], "batch", "kv_seq", "kv_heads", None)
         vf = logical(cache["v"], "batch", "kv_seq", "kv_heads", None)
-        num, m, l = seg.partial_attend(qg, kf.to(dtype), vf.to(dtype), ok,
-                                       scale, cfg.attn_softcap)
-        out = num / l.clamp_min(1e-30)[..., None]
-        return out.reshape(b, 1, hq, d).to(q.dtype)
+        part = seg.partial_attend(qg, kf.to(dtype), vf.to(dtype), ok,
+                                  scale, cfg.attn_softcap)
+        out = part[0] / part[2].clamp_min(1e-30)[..., None]
+        return out.reshape(b, 1, hq, d).to(q.dtype), [part]
 
     hkv = (cache["win_k"] if "win_k" in cache else cache["qk_codes_hi"]
            ).shape[2]
@@ -343,10 +368,11 @@ def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
                              "batch", "kv_seq", "kv_heads", None)
             parts.append(seg.partial_attend(qg, keys, values, ok_q, scale,
                                             cfg.attn_softcap))
-    parts.extend(fp_segment_partial(qg, cache, policy, lens, t_now, weff,
-                                    scale, cfg.attn_softcap, dtype,
-                                    extra_kv))
-    return seg.finalize(parts).reshape(b, 1, hq, d).to(q.dtype)
+    if fp:
+        parts.extend(fp_segment_partial(qg, cache, policy, lens, t_now,
+                                        weff, scale, cfg.attn_softcap, dtype,
+                                        extra_kv))
+    return seg.finalize(parts).reshape(b, 1, hq, d).to(q.dtype), parts
 
 
 def fp_segment_partial(qg, cache, policy: QuantPolicy, lens, t_now, weff,

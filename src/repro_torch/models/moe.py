@@ -114,7 +114,8 @@ def moe_ffn_scatter(x: torch.Tensor, p, cfg: ArchConfig, *,
     slot = torch.where(keep, flat_e * cap + pos, e * cap)     # dump row
 
     tok_idx = torch.arange(n, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    # like xf (a DTensor on a mesh, so the write is one DTensor op)
+    buf = xf.new_zeros((e * cap + 1, d))
     buf[slot] = xf[tok_idx]
     buf = logical(buf[:-1].reshape(e, cap, d), "experts", "cap", None)
     out_e = logical(_experts(buf, p, cfg), "experts", "cap", None

@@ -28,7 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from ..distributed.sharding import logical
+from ..distributed.sharding import (P, axis_size, current_mesh, distribute,
+                                    is_dtensor, is_sharded, logical,
+                                    merge_heads, run_local, spec_for,
+                                    whole_heads)
 from ..device import resolve_device
 
 CHUNK = 16
@@ -66,7 +69,10 @@ def _project(x, x_prev, p, cfg: ArchConfig):
 
 
 def _heads(x: torch.Tensor, h: int, hd: int) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], h, hd)
+    """(..., h * hd) -> (..., h, hd); on a mesh whose shards of the last
+    dim do not hold whole heads, gathered over those mesh dims first
+    (``sharding.whole_heads``)."""
+    return whole_heads(x, h).reshape(*x.shape[:-1], h, hd)
 
 
 def wkv_chunked(r, k, v, logw, u, s0):
@@ -107,6 +113,28 @@ def wkv_chunked(r, k, v, logw, u, s0):
     y_inter = torch.stack(ys, dim=2)                  # (B, H, NC, C, hd)
     y = (y_intra + y_inter).permute(0, 2, 3, 1, 4).reshape(b, s, h, d)
     return y.to(r.dtype), state
+
+
+def _wkv(r, k, v, logw, u, s0):
+    """:func:`wkv_chunked`; on DTensors each rank runs it on its own batch
+    rows and heads (``sharding.run_local``): its chunk loop is a Python
+    loop of small ops, and the recurrence needs no other rank's data."""
+    if not is_sharded(r):
+        return wkv_chunked(r, k, v, logw, u, s0)
+    mesh = current_mesh()
+    b_ax, h_ax = spec_for("batch", "heads")
+    if b_ax is not None and r.shape[0] % axis_size(mesh, b_ax):
+        b_ax = None
+    if h_ax is not None and r.shape[2] % axis_size(mesh, h_ax):
+        h_ax = None
+    x_spec, s_spec = P(b_ax, None, h_ax, None), P(b_ax, h_ax, None, None)
+    if not is_dtensor(s0):
+        s0 = distribute(s0, s_spec, mesh)
+    if not is_dtensor(u):
+        u = distribute(u, P(), mesh)
+    return run_local(wkv_chunked, (r, k, v, logw, u, s0),
+                     (x_spec,) * 4 + (P(h_ax, None), s_spec),
+                     (x_spec, s_spec))
 
 
 def wkv_naive(r, k, v, logw, u, s0):
@@ -156,10 +184,10 @@ def time_mix(x, p, cfg: ArchConfig, state=None):
         logw = torch.cat([logw, torch.full((b, pad, h, hd), -1e-4,
                                            dtype=logw.dtype,
                                            device=x.device)], dim=1)
-    y, s_fin = wkv_chunked(r, k, v, logw, p["u"].reshape(h, hd), s0)
+    y, s_fin = _wkv(r, k, v, logw, p["u"].reshape(h, hd), s0)
     y = group_norm_heads(y[:, :s], p["gn_w"].reshape(h, hd),
                          p["gn_b"].reshape(h, hd))
-    return logical((y.reshape(b, s, d) * g) @ p["w_out"],
+    return logical((merge_heads(y) * g) @ p["w_out"],
                    "batch", "seq", None), s_fin
 
 
@@ -180,7 +208,7 @@ def time_mix_decode(x1, p, cfg: ArchConfig, state: Dict[str, torch.Tensor]):
     s_new = s_prev * torch.exp(logw.float())[..., None] + k32 * v32
     y = group_norm_heads(out[:, None].to(x1.dtype), p["gn_w"].reshape(h, hd),
                          p["gn_b"].reshape(h, hd))
-    y = (y.reshape(b, 1, d) * g) @ p["w_out"]
+    y = (merge_heads(y) * g) @ p["w_out"]
     state["wkv"].copy_(s_new)
     state["x_prev"].copy_(x1)
     return y, state

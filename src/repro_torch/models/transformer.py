@@ -91,7 +91,11 @@ from ..core import kv_cache as kvc
 from ..core import segments as seg
 from ..core.quant import n_meta_groups
 from ..device import resolve_device
-from ..distributed.sharding import carry_context, logical
+from ..distributed.sharding import (P, axis_size, carry_context,
+                                    current_mesh, is_sharded, local_index,
+                                    logical, merge_heads, run_local,
+                                    shard_count, spec_for, spec_of,
+                                    whole_heads)
 
 Params = Dict
 
@@ -485,15 +489,22 @@ def _proj(x, p, w: str, bias: str):
     return y + p[bias] if bias in p else y
 
 
+def _heads(y, n: int, cfg: ArchConfig):
+    """A projection's output (B, S, n * hd) split into (B, S, n, hd); on a
+    mesh whose shards of it do not hold whole heads it is gathered over
+    those mesh dims first (``sharding.whole_heads``)."""
+    b, s, _ = y.shape
+    return whole_heads(y, n).reshape(b, s, n, cfg.head_dim)
+
+
 def _qkv(x, p, cfg: ArchConfig, rope):
     """Project (+ bias), RMS-norm q and k per head (``qk_norm``, the
     ``(1 + w)`` form), rope: q, k, v (B, S, H, hd) post-rope (pre-perm)."""
     b, s, _ = x.shape
-    q = logical(_proj(x, p, "wq", "bq").reshape(b, s, cfg.n_heads,
-                                                cfg.head_dim),
+    q = logical(_heads(_proj(x, p, "wq", "bq"), cfg.n_heads, cfg),
                 "batch", "seq", "heads", None)
-    k = _proj(x, p, "wk", "bk").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = _proj(x, p, "wv", "bv").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = _heads(_proj(x, p, "wk", "bk"), cfg.n_kv_heads, cfg)
+    v = _heads(_proj(x, p, "wv", "bv"), cfg.n_kv_heads, cfg)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -503,8 +514,7 @@ def _qkv(x, p, cfg: ArchConfig, rope):
 
 def _attn_out(o, p):
     """The attention output projection of o (B, S, ...) -> (B, S, d)."""
-    b, s = o.shape[:2]
-    return logical(o.reshape(b, s, -1) @ p["wo_attn"], "batch", "seq", None)
+    return logical(merge_heads(o) @ p["wo_attn"], "batch", "seq", None)
 
 
 def _embed_in(params: Params, cfg: ArchConfig, tokens, embeds):
@@ -564,13 +574,9 @@ def _mix_ssm(attn, sout, p, cfg: ArchConfig):
 def _cross_qkv(x_dec, enc_out, p, cfg: ArchConfig):
     """Cross-attention q from the decoder rows, k/v from the encoder
     output, (B, S, H, hd) each, no RoPE (reference ``_cross_qkv``)."""
-    b, s, _ = x_dec.shape
-    se = enc_out.shape[1]
-    q = _proj(x_dec, p, "wq", "bq").reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = _proj(enc_out, p, "wk", "bk").reshape(b, se, cfg.n_kv_heads,
-                                              cfg.head_dim)
-    v = _proj(enc_out, p, "wv", "bv").reshape(b, se, cfg.n_kv_heads,
-                                              cfg.head_dim)
+    q = _heads(_proj(x_dec, p, "wq", "bq"), cfg.n_heads, cfg)
+    k = _heads(_proj(enc_out, p, "wk", "bk"), cfg.n_kv_heads, cfg)
+    v = _heads(_proj(enc_out, p, "wv", "bv"), cfg.n_kv_heads, cfg)
     return q, k, v
 
 
@@ -655,19 +661,25 @@ def _remat(cfg: ArchConfig, fn):
     return lambda x: ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
 
 
-def forward_train(params: Params, cfg: ArchConfig, batch: Dict
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward_train(params: Params, cfg: ArchConfig, batch: Dict,
+                  dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The full causal forward of every family (reference
     ``transformer.forward_train``) in the params' own dtype: ``batch``
     holds ``tokens`` (B, S) (or ``embeds`` (B, S, d) and M-RoPE
     ``positions`` (3, B, S) for a config with ``input_embeds``;
     ``enc_embeds`` for an enc-dec config; other keys, such as ``labels``,
     are ignored).  Attention is ``full_attention`` in full precision; the
-    blocks run under :func:`_remat`.  Returns (logits (B, S, V), the MoE
-    aux loss summed over the layers, an f32 scalar)."""
+    blocks run under :func:`_remat`.  ``dtype`` (the reference's mixed
+    precision): the floating params are cast to it at use (the f32
+    masters get the gradients through the cast) and so are the input
+    rows.  Returns (logits (B, S, V), the MoE aux loss summed over the
+    layers, an f32 scalar)."""
     _check_family(cfg)
-    x = logical(_embed_in(params, cfg, batch.get("tokens"),
-                          batch.get("embeds")), "batch", "seq", None)
+    params = _cast_params(params, dtype)
+    x = _embed_in(params, cfg, batch.get("tokens"), batch.get("embeds"))
+    if dtype is not None:
+        x = x.to(dtype)
+    x = logical(x, "batch", "seq", None)
     s = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.attn_free:
@@ -731,10 +743,59 @@ def _enc_out(params: Params, cfg: ArchConfig, enc_embeds):
     return None
 
 
+def _serve_layout(hkv: int, batch: int) -> Tuple:
+    """(batch axes, head axes) of a layer's cache under the current rules:
+    the rules' ``batch`` and ``kv_heads`` axes, each where it divides, as
+    ``launch.shardings.cache_shardings`` lays a cache out."""
+    mesh = current_mesh()
+    b_ax, h_ax = spec_for("batch", "kv_heads")
+    if b_ax is not None and batch % axis_size(mesh, b_ax):
+        b_ax = None
+    if h_ax is not None and hkv % axis_size(mesh, h_ax):
+        h_ax = None
+    return b_ax, h_ax
+
+
+def _local_heads(t, h_ax, n_heads: int):
+    """This rank's heads of a per-head table ``t`` (heads first) when the
+    heads are split over ``h_ax``; ``t`` itself otherwise."""
+    if h_ax is None or t.shape[0] != n_heads:
+        return t
+    n = n_heads // axis_size(current_mesh(), h_ax)
+    return t.narrow(0, local_index(h_ax) * n, n)
+
+
+def _plane_spec(b_ax, h_ax):
+    """The layout of a cache leaf (B, ...) of a layer: planes and fp
+    segments (B, S, H, W) by batch and head axes, ``length`` (B,) by
+    batch."""
+    def spec(key, leaf):
+        if leaf.ndim < 4:
+            return P(b_ax, *([None] * (leaf.ndim - 1)))
+        return P(b_ax, None, h_ax, *([None] * (leaf.ndim - 3)))
+    return spec
+
+
 def _quantize_kv(k, v, cal, cap: int, pol, quant_fn, dtype):
     """One layer's cache of capacity ``cap`` from its K/V: channels
     permuted by the layer's calibration ``cal`` (``perm_k``/``perm_v``
-    (H, D), ``alpha_k``/``alpha_v``), then ``kv_cache.prefill``."""
+    (H, D), ``alpha_k``/``alpha_v``), then ``kv_cache.prefill``.
+
+    On DTensors each rank quantizes its own batch rows and kv heads (its
+    slice of the calibration); the packed planes are then laid out by the
+    rules' ``kv_seq`` axes (context parallelism under
+    ``LONG_SERVE_RULES``)."""
+    if is_sharded(k):
+        hkv = k.shape[2]
+        b_ax, h_ax = _serve_layout(hkv, k.shape[0])
+        spec = P(b_ax, None, h_ax, None)
+        lcal = {n: _local_heads(t, h_ax, hkv) for n, t in cal.items()}
+        out = run_local(lambda kk, vv: _quantize_kv(kk, vv, lcal, cap, pol,
+                                                    quant_fn, dtype),
+                        (k, v), (spec, spec), _plane_spec(b_ax, h_ax),
+                        shards=shard_count(spec))
+        return {n: logical(t, "batch", "kv_seq", "kv_heads", None)
+                if kvc.is_plane_key(n) else t for n, t in out.items()}
     return kvc.prefill(_apply_perm(k, cal["perm_k"]).to(dtype),
                        _apply_perm(v, cal["perm_v"]).to(dtype), cap, pol,
                        cal["alpha_k"], cal["alpha_v"], quant_fn=quant_fn)
@@ -1100,30 +1161,46 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                      if not k.startswith(_EXTRA)}
             hn = L.norm(x, p["norm1"], cfg)
             q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
-            qp = _apply_perm(q, perm_q[j])
-            kp = _apply_perm(k, cal["perm_k"][j])
-            vp = _apply_perm(v, cal["perm_v"][j])
+            lc = {"perm_q": perm_q[j], "perm_k": cal["perm_k"][j],
+                  "perm_v": cal["perm_v"][j], "inv_v": inv_v[j],
+                  "alpha_k": cal["alpha_k"][j], "alpha_v": cal["alpha_v"][j]}
             local = unroll and cfg.layer_is_local(i) and cfg.local_window > 0
+            po = None
             if local and hoist is not None:
-                # pre-append: the slice holds the pre-step cache, so attend
-                # first (the current token as an fp segment), then append
                 po = ({n: a[j] for n, a in hoist[0].items()},
                       {n: a[j] for n, a in hoist[1].items()}, hoist[2])
-                attn = backend.attend(
-                    qp, cache, cfg, pol, window=_window(cfg, i),
-                    dtype=x.dtype, packed_override=po,
-                    extra_kv=(kp.to(x.dtype), vp.to(x.dtype), t), q_pos=t,
-                    **lever)
-                append(cache, kp, vp, pol, cal["alpha_k"][j],
-                       cal["alpha_v"][j])
+
+            def body(q, k, v, cache, lc, pol=pol, append=append, po=po,
+                     local=local, i=i):
+                qp = _apply_perm(q, lc["perm_q"])
+                kp = _apply_perm(k, lc["perm_k"])
+                vp = _apply_perm(v, lc["perm_v"])
+                if po is not None:
+                    # pre-append: the slice holds the pre-step cache, so
+                    # attend first (the current token as an fp segment),
+                    # then append
+                    attn = backend.attend(
+                        qp, cache, cfg, pol, window=_window(cfg, i),
+                        dtype=x.dtype, packed_override=po,
+                        extra_kv=(kp.to(x.dtype), vp.to(x.dtype), t),
+                        q_pos=t, **lever)
+                    append(cache, kp, vp, pol, lc["alpha_k"], lc["alpha_v"])
+                else:
+                    append(cache, kp, vp, pol, lc["alpha_k"], lc["alpha_v"])
+                    attn = backend.attend(
+                        qp, cache, cfg, pol, window=_window(cfg, i),
+                        dtype=x.dtype,
+                        local_slice=cfg.local_window if local else 0, **lever)
+                return _apply_perm(attn, lc["inv_v"])
+            if is_sharded(q):
+                if local:
+                    raise NotImplementedError(
+                        "decode_step(unroll=True) runs on one device only")
+                attn = _sharded_attention(body, q, k, v, cache, lc, cfg, pol,
+                                          backend, _window(cfg, i), x.dtype)
             else:
-                append(cache, kp, vp, pol, cal["alpha_k"][j],
-                       cal["alpha_v"][j])
-                attn = backend.attend(
-                    qp, cache, cfg, pol, window=_window(cfg, i),
-                    dtype=x.dtype,
-                    local_slice=cfg.local_window if local else 0, **lever)
-            attn = _attn_out(_apply_perm(attn, inv_v[j]), p["attn"])
+                attn = body(q, k, v, cache, lc)
+            attn = _attn_out(attn, p["attn"])
             if "ssm" in p:
                 sout, _ = ssm_lib.ssm_decode(
                     hn, {"conv": layer["ssm_conv"], "h": layer["ssm_h"]},
@@ -1134,14 +1211,108 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                 # the cross cache: the packed frames alone, no fp segment
                 xcache = {k[2:]: v for k, v in layer.items()
                           if k.startswith("x_")}
-                qx = (L.norm(x, p["norm_x"], cfg) @ p["xattn"]["wq"]
-                      ).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-                xo = backend.attend(_apply_perm(qx, perm_q[j]), xcache, cfg,
-                                    pol.without_window(), dtype=x.dtype)
-                x = x + _attn_out(_apply_perm(xo, inv_v[j]), p["xattn"])
+                qx = _heads(L.norm(x, p["norm_x"], cfg) @ p["xattn"]["wq"],
+                            cfg.n_heads, cfg)
+
+                def xbody(qx, _k, _v, xcache, lc, pol=pol):
+                    xo = backend.attend(_apply_perm(qx, lc["perm_q"]),
+                                        xcache, cfg, pol.without_window(),
+                                        dtype=x.dtype)
+                    return _apply_perm(xo, lc["inv_v"])
+                if is_sharded(qx):
+                    xo = _sharded_attention(xbody, qx, None, None, xcache, lc,
+                                            cfg, pol, backend, 0, x.dtype,
+                                            append=False)
+                else:
+                    xo = xbody(qx, None, None, xcache, lc)
+                x = x + _attn_out(xo, p["xattn"])
             x = x + _ffn(L.norm(x, p["norm2"], cfg), p, cfg)
     x = L.norm(x, params["final_norm"], cfg)
     return L.unembed(x, params, cfg), caches
+
+
+def _sharded_attention(body, q, k, v, cache, lc, cfg: ArchConfig, pol,
+                       backend, window: int, dtype, append: bool = True):
+    """A decode layer's append and attention on DTensors: ``body`` (the
+    one-device append + attend + inverse permutation) on each rank's own
+    batch rows and kv heads, the layout of the cache itself, which the
+    append writes in place (q/k/v are laid out to match; the calibration
+    is cut to the rank's heads).  Where the packed planes are split along
+    their tokens (``LONG_SERVE_RULES``: batch 1, ``kv_seq`` over the data
+    axes) :func:`_context_parallel_attention` runs instead; ``append``
+    False (an enc-dec layer's cross cache, attended and never appended
+    to) has no such route."""
+    ref = cache["win_k"] if "win_k" in cache else next(
+        cache[n] for n in ("qk_codes_hi", "k") if n in cache)
+    b_ax, _, h_ax, _ = spec_of(ref)
+    hkv, hq = cfg.n_kv_heads, cfg.n_heads
+    lcl = {n: _local_heads(t, h_ax, hq if n in ("perm_q", "inv_v") else hkv)
+           for n, t in lc.items()}
+    keys = sorted(cache)
+    spec = P(b_ax, None, h_ax, None)
+    s_ax = (spec_of(cache["qk_codes_hi"])[1] if "qk_codes_hi" in cache
+            else None)
+    if s_ax is not None:
+        if not append:
+            raise NotImplementedError(
+                "a cross-attention cache split along its frames")
+        fn = _context_parallel_attention(keys, lcl, cfg, pol, backend,
+                                         window, dtype, s_ax)
+    else:
+        def fn(q, k, v, *leaves):
+            return body(q, k, v, dict(zip(keys, leaves)), lcl)
+    return run_local(fn, (q, k, v, *[cache[n] for n in keys]),
+                     (spec, spec, spec) + (None,) * len(keys), spec)
+
+
+def _context_parallel_attention(keys, lc, cfg: ArchConfig, pol, backend,
+                                window: int, dtype, s_ax):
+    """The local function of a context-parallel decode layer (the
+    reference backend): the append writes the evicted token into the rank
+    whose shard of the packed tokens holds its index
+    (``decode_append(packed_span=)``; the fp segments are whole on every
+    rank and written by each); each rank attends over its packed shard,
+    the ``(num, m, l)`` partials merge across the ranks by logsumexp (an
+    all-reduce of the max, then of the rescaled sums: ``merge_splits``'
+    math), and the fp segments' partial joins last."""
+    from torch.distributed import _functional_collectives as funcol
+    from ..distributed.sharding import local_scaled, mesh_group
+    from .attention import _scale, fp_segment_partial, skvq_parts
+    if getattr(backend, "name", None) != "reference":
+        raise NotImplementedError(
+            "a context-parallel cache (LONG_SERVE_RULES) is attended by the "
+            "reference backend")
+    n_sh = axis_size(current_mesh(), s_ax)
+    group = mesh_group(s_ax)
+
+    def fn(q, k, v, *leaves):
+        c = dict(zip(keys, leaves))
+        n_loc = c["qk_codes_hi"].shape[1]
+        off = local_index(s_ax) * n_loc
+        qp = _apply_perm(q, lc["perm_q"])
+        kvc.decode_append(c, _apply_perm(k, lc["perm_k"]),
+                          _apply_perm(v, lc["perm_v"]), pol, lc["alpha_k"],
+                          lc["alpha_v"], packed_span=(off, n_loc * n_sh))
+        b, _, hq, d = qp.shape
+        hkv = c["qk_codes_hi"].shape[2]
+        k_qt, v_qt = packed_planes(c)
+        j = torch.arange(off, off + n_loc, device=q.device)
+        with local_scaled(n_sh):
+            _, parts = skvq_parts(qp, c, cfg, pol, window=window,
+                                  dtype=dtype, packed_override=(k_qt, v_qt, j),
+                                  fp=False)
+        num, m, l = parts[0]
+        m_g = funcol.all_reduce(m, "max", group)
+        w = torch.exp(m - m_g)
+        num = funcol.all_reduce(num * w[..., None], "sum", group)
+        l = funcol.all_reduce(l * w, "sum", group)
+        lens = kvc.slot_lengths(c, b)
+        fp = fp_segment_partial(qp.reshape(b, hkv, hq // hkv, d), c, pol,
+                                lens, lens - 1, seg.effective_window(window),
+                                _scale(cfg), cfg.attn_softcap, dtype)
+        out = seg.finalize([(num, m_g, l)] + fp).reshape(b, 1, hq, d)
+        return _apply_perm(out.to(q.dtype), lc["inv_v"])
+    return fn
 
 
 def _decode_rwkv(params: Params, cfg: ArchConfig, x, caches):

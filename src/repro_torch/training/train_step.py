@@ -102,26 +102,32 @@ def _like_param(g, p):
 
 
 def make_train_step(cfg: ArchConfig, *, lr_fn: Optional[Callable] = None,
-                    grad_compress: bool = False, mesh=None) -> Callable:
+                    compute_dtype=None, grad_compress: bool = False,
+                    mesh=None, rules=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: metrics
     ``loss``, ``nll``, ``lr`` and ``grad_norm`` (0-dim tensors on the
     state's device).  The forward runs in the params' dtype (f32 masters
-    from :func:`init_train_state`); ``lr_fn(step)`` defaults to
+    from :func:`init_train_state`), or in ``compute_dtype`` (the
+    reference's mixed precision: the params cast at use, the gradients
+    back in the masters' dtype); ``lr_fn(step)`` defaults to
     :func:`warmup_cosine`.  With ``mesh``, the state is laid out on it
     (:func:`place_state`), a batch of plain tensors is placed by
-    :func:`place_batch`, and the step runs under ``TRAIN_RULES``."""
+    :func:`place_batch`, and the step runs under ``rules`` (default
+    ``TRAIN_RULES``; the dry-run's sequence-parallel variant gives
+    ``SEQ_PARALLEL_TRAIN_RULES``)."""
     lr_fn = lr_fn or warmup_cosine
 
     def train_step(state: TrainState, batch) -> tuple:
         if mesh is not None and not is_dtensor(batch["labels"]):
             batch = place_batch(batch, mesh)
-        with sharded_region(mesh, TRAIN_RULES):
+        with sharded_region(mesh, rules or TRAIN_RULES):
             flat = [x.detach().requires_grad_()
                     for x in leaves(state["params"])]
             params = unflatten(state["params"], flat)
             if mesh is not None:
                 params = _unshard(params, mesh)
-            logits, aux = T.forward_train(params, cfg, batch)
+            logits, aux = T.forward_train(params, cfg, batch,
+                                          dtype=compute_dtype)
             # whole vocab rows for the loss: DTensor's masked gather of
             # vocab-sharded logits at the labels is not usable here
             logits = logical(logits, "batch", "seq", None)
