@@ -5,10 +5,14 @@
     python3 chip_smoke.py --gloo-probe   # only gloo's refusals on CUDA
 
 Builds both hand-written kernels from ``src/repro_torch/csrc`` and runs
-these phases, each printing one JSON line:
+these phases, each printing one JSON line.  They run in the order 1, 17,
+18, 9b's training, 16, then 2-15 and 19: the phases that launch neither
+kernel use the card while the kernels build (``EARLY``).
 
 1. env — GPU name and power limit, torch/CUDA versions, kernel build time
-   (both sources compiled in parallel).
+   (both sources compiled in parallel, in the background of the EARLY
+   phases; the line is printed once the build is done, with the seconds
+   the phases after it waited for it).
 2. kv_quant — the bulk kernel against its plain PyTorch version at the
    decode shapes (128 rows; and the GQA smoke planes), edge-case rows
    included, and at one layer of the longest prompt's prefill (91,744 rows
@@ -24,7 +28,7 @@ these phases, each printing one JSON line:
    eviction and past the capacity, one row with ``valid`` False on some
    steps: every leaf byte-equal after every step (pool block 0 excluded).
    Kernel µs per launch (L2-cold) against its byte bound, the plain
-   append's device time (profiler) and host wall time per call, and one
+   append's device time (CUDA events) and host wall time per call, and one
    CUDA-graph capture and replay byte-equal to eager launches.
 3. decode_attn — the split kernel against its plain version (f32, atol
    3e-5 / rtol 1e-4 on the normalized output, m and l) at the serve shape,
@@ -56,9 +60,9 @@ not from the 50 MB L2, as each layer of a decode step does.
    time per step by kernel, the port's kernels per launch; then single
    steps at 4 x 2048 alternate ABBA between the kernel append and the
    plain append, timed on the host clock.
-6. serve_pooled — (a) the same 8 requests through a pooled Engine (768
-   blocks of 16 tokens): every token stream identical to the serve
-   phase's; (b) shared-prefix traffic, 8 requests with one 2048-token
+6. serve_pooled — (a) the same 8 requests at 18 new tokens (across one
+   sync) through a pooled Engine (768 blocks of 16 tokens): every token
+   stream the first 18 of the serve phase's; (b) shared-prefix traffic, 8 requests with one 2048-token
    prefix and suffixes of 128..1024 tokens, 512 blocks: every request
    finishes, prefix hit rate > 0, peak resident packed bytes under half
    the striped worst case, a clean pool audit.  Both runs attend through
@@ -75,7 +79,7 @@ not from the 50 MB L2, as each layer of a decode step does.
    window and its device time by kind of kernel (torch.profiler; if it
    shows no kernel under replay, CUDA-event step time against the eager
    profile's kernel sum); (d) an
-   open-loop Poisson trace (16 requests at 2 req/s, prompts 512-3000, half
+   open-loop Poisson trace (8 requests at 2 req/s, prompts 512-3000, half
    sharing a 256-token prefix) through ``run_open_loop`` on a warmed pooled
    Engine with the async host loop: no post-warmup miss, every request
    finished, the launch identities, a clean pool audit; TTFT/TPOT
@@ -95,9 +99,10 @@ not from the 50 MB L2, as each layer of a decode step does.
    to striped, final-chunk logits within relative L2 0.05 of the serve
    phase's whole-prompt logits (top-1 agreement and stream equality
    reported, not gated); the 3000-token prefill timed whole and chunked
-   in ABBA turns; (c) serve_graph (d)'s open-loop trace on warmed pooled
-   async engines, chunked then whole-prompt, with the launch identities of
-   each; TTFT/TPOT percentiles reported, not gated.
+   in ABBA turns; (c) serve_graph (d)'s open-loop trace on a warmed
+   pooled async chunked engine, with the launch identities; TTFT/TPOT
+   percentiles reported beside serve_graph (d)'s whole-prompt ones, not
+   gated.
 9. calibrate — offline calibration (paper Sec. 3.1) at llama2-7b's width
    while its weights are loaded: (a) ``collect_kv`` over 8 prompts of 512
    tokens (``SyntheticCorpus(vocab, seed=0)``, rngs 100-107: 4096
@@ -105,8 +110,8 @@ not from the 50 MB L2, as each layer of a decode step does.
    seconds of collection, of the host's statistics and k-means, and of
    the device's clip search; exactly 2 x 11 x 32 bulk kv_quant launches
    and no other call; layers 0 and 31 through the plain route on the card
-   with equal permutations and bitwise-equal clip factors; the same
-   layers' tables on the CPU and the clip-factor histogram (reported);
+   with equal permutations and bitwise-equal clip factors; layer 0's
+   table on the CPU and the clip-factor histogram (reported);
    one clip-search launch (131,072 rows x 128 f32, one shared clip
    factor) byte-equal to its plain version, L2-cold ms and byte bound;
    (b) the serve phase's 8 requests through warmed striped and pooled
@@ -117,11 +122,29 @@ not from the 50 MB L2, as each layer of a decode step does.
    (``materialize_kv``) against the fp K/V in the same channel order for
    one 2048-token prompt, identity against calibrated, and one decode
    step's logits against FP16_POLICY both ways; (d) replayed steps at
-   4 x 2048, calibrated against identity in ABBA turns, and the port's
-   kernels' device time per launch under each (profiler); (e)
+   4 x 2048, calibrated against identity in ABBA turns; (e)
    ``fuse_v_permutation``: fused weights with an identity perm_v against
    the unfused ones with the calibrated perm_v, prefill logits within
-   relative L2 0.05 (gated), one decode step's (reported).
+   relative L2 0.05 (gated), one decode step's (reported); (f) the
+   quality path's proxy perplexity (``quality.common.forward_with_method``)
+   at full width on the phase's weights and table: one 2048-token
+   ``SyntheticCorpus`` prompt under PAPER_POLICY for fp16, rtn, kivi and
+   skvq, each through the kernel route (2 bulk kv_quant launches a layer
+   for a quantizing method, none for fp16, no plain quantizer call:
+   gated) with logits bitwise equal to the same forward through the plain
+   quantizer on the card (gated); KIVI's 2048-token key rows cut into
+   256-channel rows byte-equal to the plain quantizer in one launch, and a
+   1.5-bit row of that width refused (gated), its L2-cold ms against the
+   byte bound; ppl (random weights), seconds and peak memory reported.
+9b. quality — the paper's accuracy evaluation (``repro_torch.quality``):
+   the studies' stand-in (2 layers, d 128) trained 300 steps on the card
+   into a temporary directory (with the EARLY phases), then Tables 1/5 with the schedule sweep
+   (``quality_ladder``) and Table 3 (``component_ablation``) on the
+   kernel route (the bulk launches worked out from the studies' code, no
+   plain quantizer call: gated), every ppl equal to the same studies
+   through the plain quantizer on the card (gated), ``sched_uniform``
+   within 1e-6 of ``skvq`` (gated); the rows with ``holds=`` and the CPU
+   route's relative ppl gaps from the same checkpoint (reported).
 10. serve_schedule — per-layer policy schedules (DESIGN.md §8): (a) both
    kernels at the widths of the bits ladder, new on the card: the bulk
    kv_quant at K 4-bit and V 2-bit (128 and 91,744 rows; 0 differing
@@ -183,7 +206,11 @@ not from the 50 MB L2, as each layer of a decode step does.
    the eager ones, chunked final logits within relative L2 0.05 of
    whole-prompt (bitwise reported), the launch identities, no plain
    call, no graph miss, blocks visited by the first local and global
-   layer, cuda-vs-reference logits, and (b) the unrolled step at 4 x
+   layer (every family's eager run, here and in the phases below, serves
+   mix (a) at 18 new tokens a request, in one eager chunk of 17 steps a
+   wave, two past the first sync of 16 replayed steps, and the replayed
+   streams must begin with its streams; pooled streams equal the replayed striped
+   ones in full), cuda-vs-reference logits, and (b) the unrolled step at 4 x
    2048 against the default step (relative L2 gated at 0.05, top-1, one
    step's launches, eager step ms in ABBA turns); (qwen2_vl)
    qwen2-vl-7b on mix (a) eager and warmed striped (equal streams, the
@@ -234,9 +261,8 @@ not from the 50 MB L2, as each layer of a decode step does.
    identities, no plain call, no graph miss; cuda-vs-reference logits at
    4 x 2048 (gated at 0.05); the 3000-token prefill's ms and its profile
    by kind with the SSM scan's kernels as a kind of their own; the
-   replayed step at 4 x 2048 (CUDA events) with its profile by kind, and
-   an eager step's with the SSM kernels apart; the pool and chunked
-   prefill refusing the family; peak memory.
+   replayed step at 4 x 2048 (CUDA events) with its profile by kind; the
+   pool and chunked prefill refusing the family; peak memory.
 15. serve_encdec — seamless-m4t-large-v2 at full width (seed 0,
    PAPER_POLICY, 4 slots), one JSON line a part: (kernels) decode_attn
    over the decoder's self cache (Hkv 16 / Gq 1 / D 64, 4096 packed) and
@@ -266,9 +292,8 @@ not from the 50 MB L2, as each layer of a decode step does.
    graph miss, replays == decode steps; the replayed step at 4 x 2048
    (CUDA events) with its profile by kind and kernel count; the state
    bytes a slot (the Engine's caches = 4 x that, and the same shapes at
-   max_len 131205); the 3000-token prefill's ms and its device profile
-   by kind; the pool and chunked prefill refusing the family; peak
-   memory; seconds by part.
+   max_len 131205); the 3000-token prefill's ms; the pool and chunked
+   prefill refusing the family; peak memory; seconds by part.
 17. train — the single-device training path (``training.make_train_step``
    on ``forward_train``, f32 params, grads and AdamW moments, f32
    matmuls with TF32 off) at llama3.2-1b's full width (16 layers, d
@@ -317,13 +342,14 @@ not from the 50 MB L2, as each layer of a decode step does.
    chunk append's ``chunk_ms``, ``chunk_bound_ms``, ``chunk_plain_ms``
    and ``chunk_rows``, and the clip search's ``calib_ms``,
    ``calib_bound_ms``, ``calib_plain_ms``, ``calib_rows`` and
-   ``calib_launches``; decode_attn and kv_append the calibrate phase's
-   ``calib_us_per_call``; every entry the ``widths`` of serve_schedule
+   ``calib_launches``, and the quality path's ``quality_ms``,
+   ``quality_bound_ms``, ``quality_rows`` and ``quality_launches``; every
+   entry the ``widths`` of serve_schedule
    (a) and (e); decode_attn, kv_append and kv_quant the ``families``
    rows of serve_families, the ``moe`` rows of serve_moe, the ``hybrid``
    rows of serve_hybrid and the ``encdec`` rows of serve_encdec; launches
    count the serve, serve_pooled (b), serve_chunked (b), calibrate (a),
-   (b), serve_schedule (b), (e), serve_degrade, serve_families,
+   (b), (f), quality, serve_schedule (b), (e), serve_degrade, serve_families,
    serve_moe and serve_hybrid serve runs and serve_encdec's prefill and
    eager steps), the card line, and the
    last line ``{"ok": true, "device": {...}}``.
@@ -333,6 +359,7 @@ Any failed check exits non-zero.  Imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -360,6 +387,7 @@ LONG_MAX_LEN, LONG_LIVE = 131205, 131000
 # rows (3000 tokens - 5 sinks - 128 window quantized)
 PREFILL_ROWS = 2867 * 32
 APPEND_STEPS = 300               # >= 2 wraps of the 128-token ring
+APPEND_PLAIN_ITERS = 10          # timed calls of the plain append
 L2_COPIES = 4                    # input copies a timing rotates over
 HOLD_CYCLES = 20_000_000         # ~10 ms of sleep while calls are queued
 
@@ -369,8 +397,9 @@ KERNEL_EXTRAS = ("long_ms", "long_bound_ms", "long_library_ms", "prefill_ms",
                  "prefill_bound_ms", "prefill_rows", "plain_wall_ms",
                  "chunk_ms", "chunk_bound_ms", "chunk_plain_ms", "chunk_rows",
                  "widths", "calib_ms", "calib_bound_ms", "calib_plain_ms",
-                 "calib_rows", "calib_launches", "calib_us_per_call",
-                 "families", "moe", "hybrid", "encdec")
+                 "calib_rows", "calib_launches",
+                 "quality_ms", "quality_bound_ms", "quality_rows",
+                 "quality_launches", "families", "moe", "hybrid", "encdec")
 
 
 def emit(obj) -> None:
@@ -387,13 +416,14 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fns, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fns, iters: int = 20, warmup: int = 3,
+            hold: int = HOLD_CYCLES) -> float:
     """Mean CUDA-event device time of ``iters`` back-to-back calls, rotating
     over ``fns`` (one callable, or one per copy of the inputs: copies whose
     sum exceeds the 50 MB L2 make every call read device memory, as each
-    layer of a decode step reads its own cache).  A sleep kernel holds the
-    stream while the host queues the calls, so the time is the device's
-    and not the host's launch rate."""
+    layer of a decode step reads its own cache).  A sleep kernel of
+    ``hold`` cycles holds the stream while the host queues the calls, so
+    the time is the device's and not the host's launch rate."""
     import torch
     fns = [fns] if callable(fns) else list(fns)
     for i in range(warmup):
@@ -401,7 +431,7 @@ def cuda_ms(fns, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
+    torch.cuda._sleep(hold)
     start.record()
     for i in range(iters):
         fns[i % len(fns)]()
@@ -435,21 +465,50 @@ def gpu_line() -> str:
 
 # ------------------------------------------------------------------ phases
 
+# phases that launch neither kernel: they run while the kernels build
+# (serve_rwkv last: its Engine's warmup loads the kernels, so it waits
+# there for the build)
+EARLY = ("train", "distributed", "quality_model", "serve_rwkv")
+
+
 def phase_env(state):
+    """Starts the kernels' build in a thread (its nvcc processes run while
+    the EARLY phases use the card) and reads the card's name and power
+    limit; ``phase_build`` waits for the build and prints the line."""
+    import threading
+    from repro_torch.kernels import _build
+    box = {}
+
+    def build():
+        t0 = time.monotonic()
+        try:
+            _build.build_all()
+        except BaseException as e:              # re-raised by phase_build
+            box["error"] = e
+        box["build_s"] = time.monotonic() - t0
+    box["thread"] = threading.Thread(target=build, daemon=True)
+    box["thread"].start()
+    state["build"] = box
+    state["gpu"] = gpu_line()
+
+
+def phase_build(state):
     import torch
     from repro_torch.kernels import _build
+    box = state.pop("build")
     t0 = time.monotonic()
-    _build.build_all()
-    build_s = time.monotonic() - t0
+    box["thread"].join()
+    wait_s = time.monotonic() - t0
+    check("error" not in box, f"kernel build failed: {box.get('error')}")
     res = {}
     for name, log in _build.BUILD_INFO["ptxas"].items():
         res[name] = [ln.strip() for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln]
-    state["gpu"] = gpu_line()
     emit({"phase": "env", "gpu": state["gpu"], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "build_s": round(build_s, 3), "build_dir": _build.BUILD_INFO["dir"],
-          "ptxas": res})
+          "build_s": round(box["build_s"], 3),
+          "build_wait_s": round(wait_s, 3), "built_beside": list(EARLY),
+          "build_dir": _build.BUILD_INFO["dir"], "ptxas": res})
 
 
 def _edge_rows(gen, d, dev):
@@ -695,10 +754,13 @@ def _append_case(gen, dev, hkv, d, gs, pooled, widths=(2.0, 1.5)):
                   for c in cs])
     wall_ms = _host_ms(lambda: KQ.kv_append(cs[0], kn, vn, pol, ak, av))
     del cs
-    prof = _profile_decode(lambda: KQ.kv_append_plain(pc, kn, vn, pol, ak,
-                                                      av), n=5)
     plain_wall_ms = _host_ms(lambda: KQ.kv_append_plain(pc, kn, vn, pol, ak,
                                                         av))
+    # the plain append is host-bound: hold the stream twice as long as the
+    # host takes to queue the timed calls (~2 GHz: 2e6 cycles a ms)
+    plain_ms = cuda_ms(lambda: KQ.kv_append_plain(pc, kn, vn, pol, ak, av),
+                       iters=APPEND_PLAIN_ITERS, warmup=1,
+                       hold=int(2 * APPEND_PLAIN_ITERS * plain_wall_ms * 2e6))
     # one capture + replays, byte-equal to eager launches from one state
     # (the library is loaded: the launches above came first)
     gc, ec = copies(kc, 3)[1:]
@@ -719,9 +781,8 @@ def _append_case(gen, dev, hkv, d, gs, pooled, widths=(2.0, 1.5)):
             "lengths_end": end, "packed_capacity": cap, "diff_leaves": 0,
             "max_abs_err": err, "ms": ms, "wall_ms": wall_ms,
             "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-            "plain_ms": prof["device_ms_per_step"],
-            "plain_kernels": prof["kernels_per_step"],
-            "plain_wall_ms": plain_wall_ms, "graph_replay_equal": True}
+            "plain_ms": plain_ms, "plain_wall_ms": plain_wall_ms,
+            "graph_replay_equal": True}
 
 
 def phase_kv_append(state):
@@ -735,7 +796,8 @@ def phase_kv_append(state):
             for pooled in (False, True)]
     emit({"phase": "kv_append", "cases": rows,
           "timing": f"kernel: device time, rotating over {L2_COPIES} cache "
-                    f"copies; plain: profiler device time and host wall time "
+                    f"copies; plain: device time (CUDA events, the stream "
+                    f"held while the calls are queued) and host wall time "
                     f"per call"})
     main = rows[0]
     state["kv_append"] = {k: main[k] for k in (
@@ -989,7 +1051,14 @@ def phase_decode_attn_pooled(state):
 
 SERVE_LENS = [1024, 2048, 3000, 512, 1536, 1536, 2500, 1024]  # two waves
 SERVE_NEW, SERVE_SLOTS, SERVE_SPS = 64, 4, 16
-STEP_CONTEXT, TIMED_STEPS = 2048, 32     # single-step timings: 4 x 2048
+STEP_CONTEXT, TIMED_STEPS = 2048, 8      # single-step timings: 4 x 2048
+# the family phases' eager runs: 18 new tokens, so that the replayed
+# streams' tokens 17-18 come from the second graph chunk of SERVE_SPS
+# steps and the state carried across a sync is held to the eager run; the
+# eager Engine syncs every EAGER_SPS steps, one chunk a wave.  The eager
+# pooled run of serve_pooled (a) serves as many, syncing every SERVE_SPS
+EAGER_NEW_FAMILY = SERVE_SPS + 2
+EAGER_SPS = EAGER_NEW_FAMILY - 1
 
 
 def _spread(xs):
@@ -1208,7 +1277,7 @@ def phase_serve(state):
           "abba_append_steps": abba})
 
 
-ABBA_ROUNDS = 8
+ABBA_ROUNDS = 2
 
 
 def _abba_append_steps(params, cfg, tok, base, calib):
@@ -1329,12 +1398,16 @@ def phase_serve_pooled(state):
     from repro_torch import configs
     from repro_torch.serving import Request
     cfg = configs.get("llama2_7b")
-    # (a) the serve phase's traffic: streams identical to the striped run
-    _, reqs = _serve_requests(cfg)
+    # (a) the serve phase's traffic, EAGER_NEW_FAMILY tokens a request
+    # (across one sync): streams the striped run's first tokens; serve_graph
+    # holds the replayed pooled streams to the striped ones in full
+    reqs = _eager_requests(cfg)
     run = _pooled_run(state, cfg, reqs, 768)
     streams = [list(h.tokens) for h in run[1]]
-    same = [a == b for a, b in zip(streams, state["serve_streams"])]
-    check(all(same), f"pooled streams differ from the striped serve phase "
+    same = [b[:EAGER_NEW_FAMILY] == a
+            for a, b in zip(streams, state["serve_streams"])]
+    check(all(same) and all(len(a) == EAGER_NEW_FAMILY for a in streams),
+          f"pooled streams differ from the striped serve phase "
           f"(request equal: {same})")
     rep_a = _pool_report(*run)
     del run
@@ -1359,13 +1432,14 @@ def phase_serve_pooled(state):
     emit({"phase": "serve_pooled", "arch": cfg.name, "max_len": MAX_LEN,
           "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
           "same_traffic": dict(rep_a, prompt_lens=SERVE_LENS,
-                               max_new=SERVE_NEW, streams_equal=True),
+                               max_new=EAGER_NEW_FAMILY,
+                               streams_equal=True),
           "shared_prefix": dict(rep_b, prefix=SHARED_PREFIX,
                                 suffixes=SHARED_SUFFIXES,
                                 max_new=SHARED_NEW)})
 
 
-GRAPH_ABBA_ROUNDS = 4
+GRAPH_ABBA_ROUNDS = 1
 ABBA_NEW = 1024          # budget of the timing requests: 4 x 192 blocks
 
 
@@ -1570,6 +1644,8 @@ def phase_serve_graph(state):
     check(st["used"] == 0 and st["reserved"] == 0, f"pool not drained: {st}")
     eng.close()
     summary = rec.summary(sla_ttft_ms=SLA_TTFT_MS, sla_tpot_ms=SLA_TPOT_MS)
+    state["open_loop_whole"] = _open_loop_summary(
+        summary, handles, trace, makespan, eng.n_decode_steps)
     emit({"phase": "serve_graph", "arch": cfg.name, "max_len": MAX_LEN,
           "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
           "striped": striped, "pooled": pooled,
@@ -1770,28 +1846,23 @@ def _chunked_serve(state, cfg, pool_blocks):
              "buckets_run": list(eng.prefill_shapes), "launches": counts})
 
 
-def _open_loop_run(state, cfg, prefill_chunk):
+def _open_loop_run(state, cfg):
     """(c) serve_graph (d)'s open-loop trace on a warmed pooled async
-    Engine, chunked or whole-prompt: the launch identities, every request
+    Engine with chunked admission: the launch identities, every request
     finished, a clean audit; the SLA summary."""
-    import numpy as np
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import (MetricsRecorder, poisson_trace,
                                      run_open_loop)
     eng, _ = _graph_engine(state, cfg, 768, async_host=True,
-                           prefill_chunk=prefill_chunk)
-    prefills = _counted_prefills(eng)
+                           prefill_chunk=CHUNK)
     trace = poisson_trace(_open_loop_spec(cfg))
     rec = MetricsRecorder()
     reset_launch_counts()                                    # main path only
     handles, makespan = run_open_loop(eng, trace, rec)
     counts = launch_counts()
-    what = f"serve_chunked open loop chunk={prefill_chunk}"
-    if prefill_chunk:
-        _check_chunked_path(cfg, eng, counts, _evicting_chunks(
-            [len(a.request.prompt) for a in trace], prefill_chunk), what)
-    else:
-        _check_graph_path(cfg, eng, counts, prefills, what)
+    what = f"serve_chunked open loop chunk={CHUNK}"
+    _check_chunked_path(cfg, eng, counts, _evicting_chunks(
+        [len(a.request.prompt) for a in trace], CHUNK), what)
     check(all(h.finished and h.finish_reason == "length"
               and len(h.tokens) == a.request.max_new
               for h, a in zip(handles, trace)),
@@ -1799,13 +1870,22 @@ def _open_loop_run(state, cfg, prefill_chunk):
     eng.check_invariants()
     eng.close()
     s = rec.summary(sla_ttft_ms=SLA_TTFT_MS, sla_tpot_ms=SLA_TPOT_MS)
+    return _open_loop_summary(s, handles, trace, makespan,
+                              eng.n_decode_steps)
+
+
+def _open_loop_summary(s, handles, trace, makespan, steps):
+    """The latency percentiles of an open-loop run's SLA summary ``s``,
+    its makespan and decode steps, the mean TTFT of its longest prompts
+    and the SLA attainment."""
+    import numpy as np
     out = {k: s[k] for k in ("ttft_ms", "tpot_ms", "queue_wait_ms",
                              "e2e_ms")}
     longest = [(h.first_token_time - h.submit_time) * 1e3
                for h, a in zip(handles, trace)
                if len(a.request.prompt) == max(len(b.request.prompt)
                                                for b in trace)]
-    out.update(makespan_s=makespan, decode_steps=eng.n_decode_steps,
+    out.update(makespan_s=makespan, decode_steps=steps,
                ttft_ms_longest_prompts=float(np.mean(longest)),
                attainment=s.get("goodput", {}).get("attainment"))
     return out
@@ -1813,7 +1893,7 @@ def _open_loop_run(state, cfg, prefill_chunk):
 
 def _open_loop_spec(cfg):
     from repro_torch.serving import WorkloadSpec
-    return WorkloadSpec(n_requests=16, arrival_rate=2.0,
+    return WorkloadSpec(n_requests=8, arrival_rate=2.0,
                         prompt_lens=(512, 1024, 2048, 3000),
                         max_news=(16, 32, 64), shared_prefix_ratio=0.5,
                         shared_prefix_len=256, vocab=cfg.vocab_size, seed=0)
@@ -1901,12 +1981,8 @@ def phase_serve_chunked(state):
         state["launches"]["decode_attn"] += da["kernel"]
         state["launches"]["decode_attn_pooled"] += da["pooled"]
     prefill = _prefill_ms_both_ways(state, cfg)
-    # (c) the open-loop trace both ways, one run each
-    loops = {"whole": [], "chunked": []}
-    for name in ("chunked", "whole"):
-        loops[name].append(_open_loop_run(state, cfg,
-                                          CHUNK if name == "chunked" else
-                                          None))
+    # (c) the open-loop trace chunked; serve_graph (d) ran it whole-prompt
+    chunked_loop = _open_loop_run(state, cfg)
     tm = state["kv_quant"]
     timed = append["timed"]
     tm.update(chunk_ms=timed["ms"], chunk_bound_ms=timed["bound_ms"],
@@ -1922,9 +1998,9 @@ def phase_serve_chunked(state):
                       "streams_equal_whole": streams_equal},
           "prefill_3000": prefill,
           "open_loop": {"spec": _spec_dict(_open_loop_spec(cfg)),
-                        "order": "chunked, whole",
-                        "chunked": loops["chunked"],
-                        "whole": loops["whole"]}})
+                        "chunked": chunked_loop,
+                        "whole": dict(state.pop("open_loop_whole"),
+                                      run="serve_graph (d)")}})
 
 
 # ------------------------------------------- calibrate (paper Sec. 3.1)
@@ -2016,8 +2092,8 @@ def _calibrate_run(state, cfg):
     """(a) collect_kv over the calibration prompts, then calibrate_model
     on the kernel route: seconds by part, the kv_quant launches (2 x 11
     grid points x layers, no plain call), the plain route on the card
-    equal for CALIB_CHECK_LAYERS (gated), the CPU's tables for the same
-    layers and the clip-factor histogram (reported)."""
+    equal for CALIB_CHECK_LAYERS (gated), the CPU's table for the first
+    of them and the clip-factor histogram (reported)."""
     import numpy as np
     import torch
     from repro_torch.core import calibrate as C
@@ -2064,6 +2140,8 @@ def _calibrate_run(state, cfg):
               f"calibrate: layer {l}: the kernel route's table differs from "
               f"the plain route's on the card")
         gated[str(l)] = "equal"
+        if l != CALIB_CHECK_LAYERS[0]:          # the CPU's table: one layer
+            continue
         t0 = time.monotonic()
         host = C.calibrate_layer(ks[l].cpu(), vs[l].cpu(), PAPER_POLICY,
                                  seed=31 * l)
@@ -2247,8 +2325,8 @@ def phase_calibrate(state):
     width, PAPER_POLICY: (a) calibrate on the kernel route; (b) serve the
     table from warmed striped and pooled engines; (c) reconstruction error
     and distance from fp16, identity against calibrated; (d) replayed
-    steps calibrated against identity in ABBA turns, with the port's
-    kernels' device time per launch; (e) fuse_v_permutation."""
+    steps calibrated against identity in ABBA turns; (e)
+    fuse_v_permutation."""
     import torch
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_POLICY
@@ -2271,9 +2349,6 @@ def phase_calibrate(state):
         _load_slots(eng, cfg)
     turns = _abba({"identity": eng_i._decode_chunk,
                    "calibrated": eng_s._decode_chunk})
-    per_launch = {name: _profile_decode(eng._decode_chunk)["port_kernels"]
-                  for name, eng in (("identity", eng_i),
-                                    ("calibrated", eng_s))}
     del eng_i, eng_s
     fused = _fused_v(state, cfg, table, tok)
     torch.cuda.empty_cache()
@@ -2290,12 +2365,8 @@ def phase_calibrate(state):
         calib_ms=k_launch["ms"], calib_bound_ms=k_launch["bound_ms"],
         calib_plain_ms=k_launch["plain_ms"], calib_rows=k_launch["rows"],
         calib_launches=calib_rep["launches_expected"])
-    for key, tags in (("decode_attn", ("decode_attn_split", "merge_splits")),
-                      ("kv_append", ("kv_append_kernel",))):
-        state[key]["calib_us_per_call"] = {
-            name: {t: per_launch[name].get(t, {}).get("us_per_call")
-                   for t in tags} for name in per_launch}
     same_id = [a == b for a, b in zip(s_streams, state["serve_streams"])]
+    quality = _quality_pass(state, cfg, cal)
     emit({"phase": "calibrate", "arch": cfg.name, "max_len": MAX_LEN,
           "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
           "calibration": calib_rep,
@@ -2305,8 +2376,281 @@ def phase_calibrate(state):
                     "cuda_vs_reference": backends},
           "reconstruction_rel_mse": recon, "distance_from_fp16": fp16,
           "abba_calibrated_vs_identity_4x2048": turns,
-          "port_kernels_per_launch": per_launch,
-          "fuse_v_permutation": fused})
+          "fuse_v_permutation": fused, "proxy_ppl_full_width": quality})
+
+
+# ------------------------------- quality (the paper's accuracy evaluation)
+
+QUALITY_LEN = 2048          # calibrate (f): one prompt of the proxy ppl
+QUALITY_METHODS = ("fp16", "rtn", "kivi", "skvq")
+
+
+@contextlib.contextmanager
+def _plain_quantizer_spy():
+    """Counts the calls of the plain quantizer (``core.quant.
+    quantize_groups``: ``fake_quant``'s default and the CPU route of
+    ``calibrate.resolve_quant_fn``) while installed; ``kv_quant_plain``
+    counts its own (``launch_counts()["kv_quant"]["plain"]``)."""
+    from repro_torch.core import calibrate as CAL
+    from repro_torch.core import quant as Q
+    orig = Q.quantize_groups
+    calls = [0]
+
+    def spy(*args, **kw):
+        calls[0] += 1
+        return orig(*args, **kw)
+    Q.quantize_groups = CAL.quantize_groups = spy
+    try:
+        yield calls
+    finally:
+        Q.quantize_groups = CAL.quantize_groups = orig
+
+
+def _check_quality_launches(counts, plain_calls, want, what):
+    """The quality path's launch identity: exactly ``want`` bulk kv_quant
+    launches, no plain call of either kind, no other kernel."""
+    kq = counts["kv_quant"]
+    check(kq["kernel"] == want and sum(kq.values()) == want
+          and plain_calls == 0
+          and sum(counts["decode_attn"].values()) == 0,
+          f"{what}: launches {counts} (plain quantizer calls {plain_calls}) "
+          f"!= {want} bulk kv_quant launches and nothing else")
+
+
+def _kivi_rows(k):
+    """KIVI's key rows at the full-width pass: one layer's K (1, S, H, D)
+    quantized along the tokens, as ``fake_quant(axis=1)`` hands them to
+    the kernel route: (H x D) rows of S channels, group 128, cut into rows
+    of ``split_width`` channels.  Byte-equal to the plain quantizer on the
+    whole rows (gated), one launch, L2-cold ms against its byte bound; a
+    row of the same width at V's 1.5 bits has no exact cut and must raise
+    (gated)."""
+    import torch
+    from repro_torch.core.policy import PAPER_POLICY as POL
+    from repro_torch.core.quant import quantize_groups
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_kernel_quant_fn, split_width
+    x = k.movedim(1, -1).contiguous()
+    d, gs = x.shape[-1], POL.group_size
+    qf = make_kernel_quant_fn()
+    reset_launch_counts()
+    got = qf(x, POL.bits_k, gs, None, True)
+    launches = launch_counts()["kv_quant"]["kernel"]
+    want = quantize_groups(x, POL.bits_k, gs, None, True)
+    diff = sum(int((got[n].view(torch.uint8) != want[n].view(torch.uint8)
+                    ).sum()) for n in want)
+    check(diff == 0 and launches == 1,
+          f"calibrate (f): KIVI's {d}-token key rows through the kernel "
+          f"route: {diff} bytes differ from the plain quantizer, "
+          f"{launches} launches")
+    try:
+        qf(x, 1.5, gs, None, True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "no exact split" in refused,
+          f"calibrate (f): a {d}-channel row at 1.5 bits was not refused")
+    xs = [x] + [x.clone() for _ in range(L2_COPIES - 1)]
+    ms = cuda_ms([lambda c=c: qf(c, POL.bits_k, gs, None, True) for c in xs])
+    out_b = sum(v.numel() * v.element_size() for v in got.values())
+    in_b = x.numel() * x.element_size()
+    bound_ms, bound_by = bound(in_b + out_b, 7 * x.numel())
+    w = split_width(d, POL.bits_k, gs)
+    del xs, got, want
+    return {"rows": x.numel() // w, "width": w, "row_tokens": d,
+            "dtype": str(x.dtype).replace("torch.", ""),
+            "bits": POL.bits_k, "group": gs, "diff_bytes": diff,
+            "launches": launches, "ms": ms, "bytes": in_b + out_b,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "refused_1.5_bits": refused}
+
+
+def _quality_pass(state, cfg, cal):
+    """(f) The proxy-ppl evaluator (``quality.common.forward_with_method``)
+    at llama2-7b's full width with the phase's weights and table: one
+    QUALITY_LEN-token ``SyntheticCorpus`` prompt under PAPER_POLICY for
+    QUALITY_METHODS, each through the kernel route (exactly 2 bulk
+    launches a layer for a quantizing method, none for fp16, no plain
+    quantizer call: gated) and through the plain quantizer on the card:
+    logits bitwise equal (gated).  KIVI's key rows: :func:`_kivi_rows`.
+    Reported: ppl (random weights: meaningless as quality), seconds, the
+    peak memory above the weights."""
+    import numpy as np
+    import torch
+    from repro_torch.core.baselines import METHODS
+    from repro_torch.core.policy import PAPER_POLICY as POL
+    from repro_torch.core.quant import quantize_groups
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.quality import common as QC
+    params = state["params"]
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    tok = torch.as_tensor(corpus.sample(QUALITY_LEN, np.random.default_rng(
+        200))[None].astype(np.int64), device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_all = time.monotonic()
+    rows, stash, launches = {}, {}, 0
+    for name in QUALITY_METHODS:
+        method = METHODS[name]
+        if name == "kivi":
+            def method(k, v, ctx, kivi=method):
+                stash.setdefault("k", k)
+                return kivi(k, v, ctx)
+        want = 0 if name == "fp16" else 2 * cfg.n_layers
+        reset_launch_counts()
+        t0 = time.monotonic()
+        with _plain_quantizer_spy() as plain_calls:
+            lk = QC.forward_with_method(params, cfg, tok, method, cal.layers,
+                                        POL)
+            torch.cuda.synchronize()
+        kern_s = time.monotonic() - t0
+        _check_quality_launches(launch_counts(), plain_calls[0], want,
+                                f"calibrate (f) {name}")
+        launches += want
+        t0 = time.monotonic()
+        lp = QC.forward_with_method(params, cfg, tok, METHODS[name],
+                                    cal.layers, POL, quantize_groups)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t0
+        same = bool(torch.equal(lk, lp))
+        check(same and bool(torch.isfinite(lk).all()),
+              f"calibrate (f) {name}: the kernel route's logits differ from "
+              f"the plain quantizer's on the card (max abs "
+              f"{float((lk.float() - lp.float()).abs().max()):.3g})")
+        rows[name] = {"ppl_random_weights": QC._ppl(lk, tok),
+                      "logits_bitwise_plain": same, "launches": want,
+                      "kernel_s": kern_s, "plain_s": plain_s}
+        del lk, lp
+    peak = torch.cuda.max_memory_allocated() - base
+    kivi = _kivi_rows(stash.pop("k"))
+    launches += kivi["launches"]
+    state["launches"]["kv_quant"] += launches
+    state["kv_quant"].update(quality_ms=kivi["ms"],
+                             quality_bound_ms=kivi["bound_ms"],
+                             quality_rows=kivi["rows"],
+                             quality_launches=launches)
+    torch.cuda.empty_cache()
+    return {"prompt_tokens": QUALITY_LEN, "policy": "PAPER_POLICY",
+            "calibration": "the phase's table", "methods": rows,
+            "note": "ppl of random weights: no quality meaning",
+            "launches": launches, "peak_bytes_above_weights": peak,
+            "kivi_key_rows": kivi, "seconds": time.monotonic() - t_all}
+
+
+def _quality_expected(n: int) -> dict:
+    """Bulk kv_quant launches of ``quality_ladder.run`` and
+    ``component_ablation.run`` on an ``n``-layer model, worked out from the
+    studies' code: a calibration clips K and V of every quantized layer at
+    each of the 11 grid points (an fp16 guard layer: none); a quantizing
+    method or stage quantizes K and V once a layer (fp16: none)."""
+    from repro_torch.core.calibrate import ALPHA_GRID
+    from repro_torch.quality.component_ablation import STAGES
+    clip = 2 * len(ALPHA_GRID)
+    table1 = (clip * n                       # calibrate(pol)
+              + 5 * 2 * n                    # rtn smoothquant rptq kivi skvq
+              + 2 * n                        # sched_uniform (same table)
+              + clip * (n - 1) + 2 * (n - 1)   # sched_guard_first_fp16
+              + clip * n + 2 * n)            # sched_ladder_k4_first
+    table3 = clip * n + len(STAGES) * 2 * n + 2 * (n - 1)   # + fp16_guard
+    return {"table1": table1, "table3": table3}
+
+
+def phase_quality_model(state):
+    """The studies' stand-in model trained TRAIN_STEPS on the card into a
+    temporary directory (no kernel may launch: it runs while the kernels
+    build); ``phase_quality`` evaluates it and removes the directory."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.quality import common as QC
+    tmp = tempfile.mkdtemp(prefix="quality_")
+    state["quality"] = {"tmp": tmp,
+                        "cache": os.path.join(tmp, "bench_model_torch")}
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    cfg, _, _ = QC.bench_model(state["quality"]["cache"], "cuda")
+    torch.cuda.synchronize()
+    state["quality"].update(cfg=cfg, train_s=time.monotonic() - t0)
+    _no_kernel_launch(before, "quality: training")
+
+
+def _quality_cleanup(q):
+    import shutil
+    from repro_torch.quality import common as QC
+    QC._bench_model.cache_clear()
+    shutil.rmtree(q["tmp"], ignore_errors=True)
+
+
+def phase_quality(state):
+    """The paper's accuracy evaluation on the card: the studies' stand-in
+    model (``phase_quality_model``), then
+    ``quality_ladder.run`` (Tables 1/5, the schedule sweep) and
+    ``component_ablation.run`` (Table 3) on the kernel route (the expected
+    bulk launches, no plain quantizer call: gated) and through the plain
+    quantizer on the card (every method's, stage's and schedule's ppl
+    equal: gated); ``sched_uniform`` within 1e-6 of ``skvq`` (gated); the
+    rows with their ``holds=`` (reported, not gated: the port trains its
+    own weights); the same studies on the CPU from the same checkpoint,
+    relative ppl gaps (reported)."""
+    import torch
+    from repro_torch.core.quant import quantize_groups
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.quality import common as QC
+    from repro_torch.quality import component_ablation, quality_ladder
+    q = state.pop("quality")
+    cfg, cache = q["cfg"], q["cache"]
+    studies = (("table1", quality_ladder.run),
+               ("table3", component_ablation.run))
+    try:
+        want = _quality_expected(cfg.n_layers)
+        kern, lines, secs = {}, {}, {"train": q["train_s"]}
+        for name, run in studies:
+            lines[name] = []
+            reset_launch_counts()
+            t0 = time.monotonic()
+            with _plain_quantizer_spy() as plain_calls:
+                kern[name] = run(lines[name].append, cache_dir=cache,
+                                 device="cuda")
+                torch.cuda.synchronize()
+            secs[f"{name}_kernel"] = time.monotonic() - t0
+            _check_quality_launches(launch_counts(), plain_calls[0],
+                                    want[name], f"quality {name}")
+        plain, cpu = {}, {}
+        for name, run in studies:
+            t0 = time.monotonic()
+            plain[name] = run(lambda r: None, cache_dir=cache, device="cuda",
+                              quant_fn=quantize_groups)
+            secs[f"{name}_plain"] = time.monotonic() - t0
+            check(plain[name] == kern[name],
+                  f"quality {name}: the kernel route's ppl {kern[name]} != "
+                  f"the plain quantizer's {plain[name]} on the card")
+            t0 = time.monotonic()
+            cpu[name] = run(lambda r: None, cache_dir=cache, device="cpu")
+            secs[f"{name}_cpu"] = time.monotonic() - t0
+        gap = abs(kern["table1"]["sched_uniform"] - kern["table1"]["skvq"])
+        check(gap < 1e-6, f"quality: sched_uniform - skvq = {gap} >= 1e-6")
+        launches = sum(want.values())
+        state["launches"]["kv_quant"] += launches
+        kq = state["kv_quant"]
+        kq["quality_launches"] = kq.get("quality_launches", 0) + launches
+        emit({"phase": "quality", "model": {
+                  "arch": cfg.name, "layers": cfg.n_layers,
+                  "d_model": cfg.d_model, "heads": cfg.n_heads,
+                  "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                  "vocab": cfg.vocab_size, "train_steps": QC.TRAIN_STEPS},
+              "rows": lines, "launches": want,
+              "kernel_equals_plain_on_card": True,
+              "sched_uniform_minus_skvq": gap,
+              "cpu_rel_gap": {n: {k: (kern[n][k] - cpu[n][k]) / cpu[n][k]
+                                  for k in kern[n]} for n in kern},
+              "seconds": secs})
+    finally:
+        _quality_cleanup(q)
 
 
 # ------------------------------------------------ serve_schedule (DESIGN.md §8)
@@ -3242,12 +3586,12 @@ GEMMA2_LENS, GEMMA2_NEW = [1024, 3000, 5000, 6000], 32
 GEMMA2_MAX_LEN = 8325            # 5 sinks + 128 window + 8192 packed tokens
 FAMILY_LIVE = [500, 1500, 2900, 3900]          # packed tokens of the rows
 GEMMA2_LIVE = [900, 2800, 4800, 5800]
-UNROLL_ROUNDS = 4
+UNROLL_ROUNDS = 1
 PATCH_GRID, TEXT_LEN, EMBED_STEPS = 16, 32, 8   # qwen2-vl's embeds run
 
 
 def _family_engine(params, cfg, warm, max_len=MAX_LEN, pool_blocks=None,
-                   prefill_chunk=None):
+                   prefill_chunk=None, steps_per_sync=SERVE_SPS):
     """An Engine of the serve shape for one of the new families (eager, or
     warmed with one captured decode step)."""
     import gc
@@ -3257,8 +3601,9 @@ def _family_engine(params, cfg, warm, max_len=MAX_LEN, pool_blocks=None,
     gc.collect()
     torch.cuda.empty_cache()
     eng = Engine(params, cfg, PAPER_POLICY, batch_slots=SERVE_SLOTS,
-                 max_len=max_len, steps_per_sync=SERVE_SPS, backend="cuda",
-                 pool_blocks=pool_blocks, pool_block_tokens=POOL_BT,
+                 max_len=max_len, steps_per_sync=steps_per_sync,
+                 backend="cuda", pool_blocks=pool_blocks,
+                 pool_block_tokens=POOL_BT,
                  prefill_chunk=prefill_chunk, device=torch.device("cuda"))
     rep = None
     if warm:
@@ -3405,19 +3750,31 @@ def _leaves(tree):
     return [x for v in tree.values() for x in _leaves(v)]
 
 
+def _eager_requests(cfg):
+    """Mix (a)'s 8 requests at EAGER_NEW_FAMILY new tokens each (both
+    waves, across one sync a wave): the eager run that the replayed ones
+    are held to."""
+    import dataclasses
+    return [dataclasses.replace(r, max_new=EAGER_NEW_FAMILY)
+            for r in _serve_requests(cfg)[1]]
+
+
 def _mix_a(state, cfg, params, what, chunked=True, pooled=True):
-    """Mix (a) through an eager striped Engine, then warmed striped, pooled
-    (768 blocks) and chunked (512) Engines: replayed and pooled streams
-    equal the eager ones, final-chunk logits within relative L2 0.05 of
-    whole-prompt."""
+    """Mix (a) through an eager striped Engine (EAGER_NEW_FAMILY new tokens
+    a request), then warmed striped, pooled (768 blocks) and chunked (512)
+    Engines (SERVE_NEW): the replayed streams begin with the eager ones,
+    pooled streams equal the replayed striped ones, final-chunk logits
+    within relative L2 0.05 of whole-prompt."""
     import gc
     import torch
-    eng, _ = _family_engine(params, cfg, False)
+    eng, _ = _family_engine(params, cfg, False, steps_per_sync=EAGER_SPS)
     probe = _block_probe(eng, cfg)
     streams, whole, eager = _family_serve(
-        state, cfg, eng, _serve_requests(cfg)[1], f"{what} eager striped")
+        state, cfg, eng, _eager_requests(cfg), f"{what} eager striped")
     del eng
-    runs = {"eager_striped": dict(eager, blocks=probe)}
+    runs = {"eager_striped": dict(eager, blocks=probe,
+                                  new_tokens=EAGER_NEW_FAMILY)}
+    striped = None
     modes = [("graph_striped", {})]
     if pooled:
         modes.append(("graph_pooled", {"pool_blocks": 768}))
@@ -3429,8 +3786,10 @@ def _mix_a(state, cfg, params, what, chunked=True, pooled=True):
             state, cfg, eng, _serve_requests(cfg)[1], f"{what} {name}")
         del eng
         gc.collect()
-        same = [a == b for a, b in zip(got, streams)]
+        same = [a[:EAGER_NEW_FAMILY] == b for a, b in zip(got, streams)]
         rep.update(warmup=warm, streams_equal_eager=same)
+        if name == "graph_striped":
+            striped = got
         if name == "graph_chunked":
             rel = [float((final[i] - whole[i]).norm() / whole[i].norm())
                    for i in range(len(SERVE_LENS))]
@@ -3445,6 +3804,11 @@ def _mix_a(state, cfg, params, what, chunked=True, pooled=True):
         else:
             check(all(same), f"{what} {name}: streams differ from the "
                   f"eager striped streams (request equal: {same})")
+        if name == "graph_pooled":
+            same = [a == b for a, b in zip(got, striped)]
+            rep["streams_equal_graph_striped"] = same
+            check(all(same), f"{what} {name}: streams differ from the "
+                  f"replayed striped streams (request equal: {same})")
         runs[name] = rep
     return runs
 
@@ -3756,7 +4120,7 @@ def phase_serve_families(state):
 # ------------------------------------------ serve_moe (deepseek, granite-moe)
 
 MOE_PREFILL = 3000               # the longest serve prompt, timed alone
-PREFILL_TURNS = 3
+PREFILL_TURNS = 1
 
 
 def _moe_kernels():
@@ -4054,8 +4418,7 @@ def _hybrid_model(state):
     equal, the launch identities, no plain call, no graph miss), cuda
     against reference logits, the 3000-token prefill's ms and its profile
     by kind with the SSM scan apart, the replayed step at 4 x 2048 with its
-    profile by kind (and an eager step's with the SSM kernels apart), the
-    refusals, the decode state's bytes, peak memory."""
+    profile by kind, the refusals, the decode state's bytes, peak memory."""
     import gc
     import numpy as np
     import torch
@@ -4079,15 +4442,11 @@ def _hybrid_model(state):
         "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
     by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
                for k, e in prof["by_kind"].items()}
-    tok = torch.as_tensor(eng._tok, device=eng.device)
-    cs = iter([_clone(eng._caches) for _ in range(2)])
-    eager_prof = _ssm_profile(lambda: T.decode_step(
-        params, cfg, tok, next(cs), eng.schedule, backend="cuda"))
     state_bytes = sum(int(np.prod(shape)) * torch.empty((), dtype=dt)
                       .element_size() for shape, dt in S.state_shapes(
                           SERVE_SLOTS, cfg, torch.bfloat16).values()
                       ) * cfg.n_layers
-    del eng, cs
+    del eng
     gc.collect()
     refusals = _refusals(params, cfg)
     peak = torch.cuda.max_memory_allocated()
@@ -4101,7 +4460,6 @@ def _hybrid_model(state):
                 replay_profile=dict(per_step=per_step, by_kind=by_kind,
                                     busy_share=prof["device_busy_share"],
                                     port_kernels=prof["port_kernels"]),
-                eager_step_profile=eager_prof,
                 ssm_state_bytes_4_slots=state_bytes, refusals=refusals,
                 peak_mem_bytes=peak)
 
@@ -4133,7 +4491,7 @@ def phase_serve_hybrid(state):
 
 ENC_FRAMES = 4096                # the config's enc_seq_len: stub frames
 ENCDEC_PROMPT, ENCDEC_STEPS = 1024, 32
-ENCODER_TURNS = 3
+ENCODER_TURNS = 1
 
 
 def _cross_case(gen, dev, b, hkv, d, frames):
@@ -4498,7 +4856,7 @@ def _rwkv_serve(eng, reqs, what):
 def _rwkv_model(state):
     """rwkv6-3b at full width (random bf16 weights from seed 0): mix (a)
     eager and warmed (streams equal, no graph miss, replays == steps), the
-    3000-token prefill's ms and its profile by kind, the replayed step at
+    3000-token prefill's ms, the replayed step at
     4 x 2048 with its kernel count, the state bytes a slot (equal at any
     max_len), the refusals, peak memory."""
     import gc
@@ -4511,16 +4869,15 @@ def _rwkv_model(state):
     marks = [("start", time.monotonic())]
     mark = lambda name: marks.append((name, time.monotonic()))
     params, init = _family_init(cfg)
-    reqs = _serve_requests(cfg)[1]
-    eng, _ = _family_engine(params, cfg, False)
-    eager, eager_rep = _rwkv_serve(eng, reqs, "rwkv eager")
+    eng, _ = _family_engine(params, cfg, False, steps_per_sync=EAGER_SPS)
+    eager, eager_rep = _rwkv_serve(eng, _eager_requests(cfg), "rwkv eager")
     del eng
     mark("eager")
     eng, warm = _family_engine(params, cfg, True)
     got, rep = _rwkv_serve(eng, _serve_requests(cfg)[1], "rwkv graph")
     mark("graph")
     wr = eng.warmup_report()
-    same = [a == b for a, b in zip(got, eager)]
+    same = [a[:EAGER_NEW_FAMILY] == b for a, b in zip(got, eager)]
     check(all(same) and wr["post_warmup_misses"] == 0
           and wr["replays"] == eng.n_decode_steps,
           f"rwkv: replayed streams equal eager {same}, warmup {wr}, "
@@ -4547,22 +4904,15 @@ def _rwkv_model(state):
           f"or the state grows with max_len")
     prefill = _prefill_ms(params, cfg)
     mark("prefill")
-    toks = torch.as_tensor(np.random.default_rng(14).integers(
-        0, cfg.vocab_size, (1, MOE_PREFILL)), device=torch.device("cuda"))
-    pre_prof = _profile_decode(lambda: T.prefill_model(
-        params, cfg, toks, PAPER_POLICY, max_len=MAX_LEN), n=1, cpu=False)
-    mark("prefill_profile")
     refusals = _refusals(params, cfg)
     peak = torch.cuda.max_memory_allocated()
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(init, arch=cfg.name, runs={"eager_striped": eager_rep,
-                                           "graph_striped": rep},
+    return dict(init, arch=cfg.name, runs={"eager_striped": dict(
+                    eager_rep, new_tokens=EAGER_NEW_FAMILY),
+                "graph_striped": rep},
                 warmup=warm, prefill_ms=dict(prefill, tokens=MOE_PREFILL),
-                prefill_profile={k: pre_prof[k] for k in (
-                    "device_ms_per_step", "device_busy_share",
-                    "kernels_per_step", "by_kind", "top")},
                 replayed_step_ms_4x2048=replayed,
                 replay_profile=dict(per_step=per_step, by_kind=by_kind,
                                     busy_share=prof["device_busy_share"]),
@@ -5292,17 +5642,16 @@ def _kind(name: str) -> str:
                                                         tags)), "other")
 
 
-def _profile_decode(step, n: int = 2, cpu: bool = True):
-    """Device time by kernel over ``n`` decode steps (torch.profiler):
-    busy share of the wall time, launches per step, top kernels.  ``cpu``
-    False records the device's kernels alone (no host op events: cheaper
-    to collect over tens of thousands of launches)."""
+def _profile_decode(step, n: int = 1):
+    """Device time by kernel over ``n`` calls of ``step`` (torch.profiler,
+    the device's kernels alone: no host op events, which cost more to
+    collect than the kernels and are not read): busy share of the wall
+    time, launches per call, top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(n):
             step()
@@ -5364,14 +5713,14 @@ def main(argv=None) -> int:
     state = {"dryrun": _dryrun_cell()}          # beside the phases (CPU)
     seconds = {}
     try:
-        for phase in (phase_env, phase_kv_quant, phase_kv_append,
+        for phase in (phase_env, *(globals()[f"phase_{n}"] for n in EARLY),
+                      phase_build, phase_kv_quant, phase_kv_append,
                       phase_decode_attn, phase_decode_attn_pooled,
                       phase_serve, phase_serve_pooled, phase_serve_graph,
-                      phase_serve_chunked, phase_calibrate,
+                      phase_serve_chunked, phase_calibrate, phase_quality,
                       phase_serve_schedule, phase_serve_degrade,
                       phase_serve_families, phase_serve_moe,
                       phase_serve_hybrid, phase_serve_encdec,
-                      phase_serve_rwkv, phase_train, phase_distributed,
                       phase_analytic):
             t0 = time.monotonic()
             phase(state)
@@ -5380,6 +5729,10 @@ def main(argv=None) -> int:
         if "dryrun" in state and state["dryrun"][0].poll() is None:
             state["dryrun"][0].kill()
             state["dryrun"][0].wait()
+        if "build" in state:                     # a failed EARLY phase
+            state["build"]["thread"].join()
+        if "quality" in state:
+            _quality_cleanup(state.pop("quality"))
     emit({"phase": "timing", "seconds": seconds})
     entries = []
     for name, src, rep in (

@@ -12,15 +12,15 @@ fake-quant quality path (port of ``repro.core.baselines``; DESIGN.md §2).
 
 Each method is ``(k, v, ctx) -> (k_hat, v_hat)`` with k/v (B, S, H, D) and
 ``ctx`` carrying the calibration; the window is applied by position (the
-last ``window`` tokens pass through).  The quantizer is chosen by the
-tensors' device, as calibration chooses it
+last ``window`` tokens pass through).  The quantizer is ``ctx.quant_fn``
+when set, else chosen by the tensors' device, as calibration chooses it
 (``calibrate.resolve_quant_fn``): the bulk ``kv_quant`` kernel on CUDA
 tensors, the plain ``quantize_groups`` on CPU ones.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -32,16 +32,20 @@ from .reorder import invert_permutation, on_device
 
 @dataclasses.dataclass
 class MethodCtx:
-    """What a method needs besides K/V: the policy and the layer's
-    calibration (perms, clip factors, smoothing factors)."""
+    """What a method needs besides K/V: the policy, the layer's
+    calibration (perms, clip factors, smoothing factors) and the quantizer
+    (``None``: :func:`~.calibrate.resolve_quant_fn`'s choice for the
+    tensors' device)."""
     policy: QuantPolicy
     calib: Optional[LayerCalibration] = None
+    quant_fn: Optional[Callable] = None
 
 
 def _fq(x, bits, ctx: MethodCtx, alpha=None, axis: int = -1):
     p = ctx.policy
     return fake_quant(x, bits, p.group_size, alpha=alpha, fp8_meta=p.fp8_meta,
-                      axis=axis, quant_fn=resolve_quant_fn(None, x.device))
+                      axis=axis, quant_fn=resolve_quant_fn(ctx.quant_fn,
+                                                           x.device))
 
 
 def _window_mix(x, xq, window: int, n_sink: int = 0):

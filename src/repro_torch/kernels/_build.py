@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``lib<name>.so``, loaded with ``ctypes``.
 All sources build at first use, in parallel (one ``nvcc`` per source,
-started together), into ``build/repro_torch_kernels/<hash>/`` at the root
-of the checkout; the hash covers the sources and the flags, so an edited
+started together; a second caller waits for a build in progress), into
+``build/repro_torch_kernels/<hash>/`` at the root of the checkout; the hash covers the sources and the flags, so an edited
 source rebuilds and an unchanged one is reused.  ``REPRO_TORCH_BUILD_DIR``
 overrides the directory.  Nothing is downloaded.
 
@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -28,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BUILDING = threading.Lock()     # one build at a time in a process
 BUILD_INFO: Dict[str, object] = {"dir": None, "ptxas": {}}
 
 
@@ -60,7 +62,13 @@ def build_dir() -> Path:
 
 def build_all() -> Path:
     """Compile every source missing from the build directory, all ``nvcc``
-    processes started together; returns the directory."""
+    processes started together; returns the directory.  A call made while
+    another thread builds waits for that build and reuses it."""
+    with _BUILDING:
+        return _build_missing()
+
+
+def _build_missing() -> Path:
     out = build_dir()
     todo = [n for n in SOURCES if not (out / f"lib{n}.so").is_file()]
     BUILD_INFO["dir"] = str(out)

@@ -50,6 +50,7 @@ LAUNCHES = {"kernel": 0, "plain": 0, "append": 0, "append_plain": 0,
             "chunk_plain": 0}
 _C = ctypes
 _FP_DTYPES = (torch.float32, torch.bfloat16)
+ROW_MAX = 256  # the widest row the kernel takes (``make_layout``)
 
 
 def _alpha_rows(alpha, n: int):
@@ -79,15 +80,15 @@ def lane_channels(d: int) -> int:
 def kernel_layout(d: int, bits: float, group_size: int
                   ) -> List[Tuple[int, int, int, int]]:
     """``plane_layout`` of a row the kernel takes, or ValueError: D up to
-    256 with a power-of-two count of lanes (``lane_channels``) per row;
-    planes of 1/2/4/8-bit codes in whole lanes (whole bytes at 1 bit);
+    ``ROW_MAX`` with a power-of-two count of lanes (``lane_channels``) per
+    row; planes of 1/2/4/8-bit codes in whole lanes (whole bytes at 1 bit);
     each group a power-of-two run of lanes starting at a multiple of its
     length.  Mirrors ``make_layout`` in the source."""
     cpl = lane_channels(d)
     lanes = d // cpl
-    if d <= 0 or d > 256 or d % cpl or lanes & (lanes - 1):
+    if d <= 0 or d > ROW_MAX or d % cpl or lanes & (lanes - 1):
         raise ValueError(f"kv_quant kernel: head dim {d} is not a power-of-"
-                         f"two multiple of {cpl} channels up to 256")
+                         f"two multiple of {cpl} channels up to {ROW_MAX}")
     layout = plane_layout(d, bits, group_size)
     for start, width, b, gs in layout:
         gl = gs // cpl

@@ -32,12 +32,12 @@ from __future__ import annotations
 import torch
 
 from ..core.policy import QuantPolicy
-from ..core.quant import n_meta_groups, packed_nbytes
+from ..core.quant import n_meta_groups, packed_nbytes, plane_layout
 from ..core import segments as seg
 from ..core import kv_cache as kvc
 from ..core.kv_cache import is_pooled, slot_lengths
 from .decode_attn import BLOCK_S, decode_attn
-from .kv_quant import kv_quant
+from .kv_quant import ROW_MAX, kernel_layout, kv_quant
 
 _FAR = 2 ** 30  # position of padded packed slots (always masked out)
 FP16_CALLS = {"attend": 0, "append": 0, "chunk_append": 0}
@@ -106,27 +106,62 @@ def _padded_j(s_q: int, s_pad: int, device) -> torch.Tensor:
     return _pad_j(torch.arange(s_q, dtype=torch.int32, device=device), s_pad)
 
 
+def split_width(d: int, bits: float, group_size: int) -> int:
+    """Width of the rows a ``d``-channel row wider than the kernel takes
+    (``ROW_MAX``) is cut into, exactly: the widest ``w`` up to the
+    limit that divides ``d`` into whole groups of one plane the kernel
+    lays out (``kv_quant.kernel_layout``).  The codes, scale and zero of
+    the ``d // w`` rows, side by side, are then the row's own bytes.  A
+    row of two planes (a fractional width) or of groups wider than the
+    limit has no such cut: ValueError (KIVI's per-channel keys at a long
+    context are the rows this serves)."""
+    gs = min(group_size, d)
+    if len(plane_layout(d, bits, gs)) == 1:
+        for w in range(ROW_MAX - ROW_MAX % gs, 0, -gs):
+            if d % w == 0:
+                try:
+                    kernel_layout(w, bits, gs)
+                except ValueError:
+                    continue
+                return w
+    raise ValueError(
+        f"kv_quant kernel: a {d}-channel row at {bits} bits, group {gs}, has "
+        f"no exact split into rows of at most {ROW_MAX} channels "
+        f"(one plane, whole groups, a width the kernel lays out)")
+
+
 def make_kernel_quant_fn():
     """A ``quant_fn`` for ``kv_cache.prefill``/``decode_append``: flattens
     the leading axes to kernel rows and calls the ``kv_quant`` kernel
     (plain version on CPU).  Per-head clip factors (H, G) pass through
     as they are — rows flattened from (..., H, D) read them by row % H —
-    and only other shapes are tiled onto the rows."""
+    and only other shapes are tiled onto the rows.  A row wider than
+    ``ROW_MAX`` is cut into rows of :func:`split_width` channels
+    (its clip factors with it) on either device, or refused."""
     def quant_fn(x, bits, group_size, alpha, fp8_meta):
         *lead, d = x.shape
         n = 1
         for s in lead:
             n *= s
+        gs = min(group_size, d)
         if alpha is not None:
             alpha = torch.as_tensor(alpha, dtype=torch.float32,
                                     device=x.device)
             per_head = alpha.ndim == 2 and lead and alpha.shape[0] == lead[-1]
             if alpha.ndim > 1 and not per_head:
-                g_total = n_meta_groups(d, bits, min(group_size, d))
+                g_total = n_meta_groups(d, bits, gs)
                 alpha = alpha.expand(*lead, g_total).reshape(n, g_total)
-        qt = kv_quant(x.reshape(n, d), bits, min(group_size, d),
-                      alpha=alpha, fp8_meta=fp8_meta)
-        return {k: v.reshape(*lead, v.shape[-1]) for k, v in qt.items()}
+        rows, c = x.reshape(n, d), 1
+        if d > ROW_MAX:
+            w = split_width(d, bits, gs)
+            c = d // w
+            rows = rows.reshape(n * c, w)
+            if alpha is not None and alpha.numel() > 1:
+                # row r's groups j*w/gs.. go with its piece j: (P, G) ->
+                # (P * c, w / gs), read by piece index % (P * c)
+                alpha = alpha.reshape(-1, w // gs)
+        qt = kv_quant(rows, bits, gs, alpha=alpha, fp8_meta=fp8_meta)
+        return {k: v.reshape(*lead, c * v.shape[-1]) for k, v in qt.items()}
     return quant_fn
 
 

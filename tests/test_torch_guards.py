@@ -185,6 +185,37 @@ def test_build_dir_is_keyed_by_sources_and_ignored(monkeypatch, tmp_path):
     assert _build.build_dir().parent == tmp_path
 
 
+def test_concurrent_builds_run_nvcc_once_per_source(tmp_path, monkeypatch):
+    """A build started while another thread builds waits for it and reuses
+    its libraries: one nvcc run per source in all."""
+    import threading
+    log = tmp_path / "calls"
+    fake = tmp_path / "cuda" / "bin"
+    fake.mkdir(parents=True)
+    nvcc = fake / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {log}\n"
+        "sleep 0.3\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then shift; echo lib > \"$1\"; fi\n"
+        "  shift\n"
+        "done\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    outs = []
+    threads = [threading.Thread(target=lambda: outs.append(_build.build_all()))
+               for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(outs) == 3 and len(set(outs)) == 1
+    assert log.read_text().split() == ["run"] * len(_build.SOURCES)
+    assert all((outs[0] / f"lib{n}.so").is_file() for n in _build.SOURCES)
+
+
 def test_calibration_runs_with_jax_blocked_and_defaults_to_cuda():
     """Calibration, the baselines and the filters import and run with jax
     blocked; the stacked table goes to the card unless asked for the CPU,

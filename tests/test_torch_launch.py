@@ -455,6 +455,9 @@ EXAMPLES = [
       "compression")),
     ("torch_train_end_to_end.py", ["--steps", "4"],
      ("done. straggler events:", "served (4, 24) tokens")),
+    ("torch_method_comparison.py", ["--steps", "8"],
+     ("8 training steps, cpu", "fp16 ", "rtn ", "smoothquant ", "rptq ",
+      "kivi ", "skvq ")),
 ]
 
 
@@ -467,6 +470,8 @@ def test_torch_examples_run_on_the_cpu(name, extra, want, tmp_path):
                PYTHONPATH=str(ROOT / "src"))
     if name == "torch_train_end_to_end.py":
         extra = extra + ["--ckpt-dir", str(tmp_path / "ckpt")]
+    if name == "torch_method_comparison.py":
+        extra = extra + ["--cache-dir", str(tmp_path / "bench")]
     r = subprocess.run([sys.executable, str(ROOT / "examples" / name),
                         "--device", "cpu", *extra], env=env,
                        capture_output=True, text=True, timeout=300,
