@@ -56,10 +56,7 @@ not from the 50 MB L2, as each layer of a decode step does.
    prefill, zero plain-version calls, and cuda-vs-reference backend logits
    on one step.  Decode step time comes from the Engine's own decode
    chunks (each one ends in a host copy) and from CUDA-event times of
-   single steps, each with its spread; a torch.profiler pass gives device
-   time per step by kernel, the port's kernels per launch; then single
-   steps at 4 x 2048 alternate ABBA between the kernel append and the
-   plain append, timed on the host clock.
+   single steps, each with its spread.
 6. serve_pooled — (a) the same 8 requests at 18 new tokens (across one
    sync) through a pooled Engine (768 blocks of 16 tokens): every token
    stream the first 18 of the serve phase's; (b) shared-prefix traffic, 8 requests with one 2048-token
@@ -73,12 +70,11 @@ not from the 50 MB L2, as each layer of a decode step does.
    (768 blocks), each decode step a replay of the CUDA graph warmup
    captured: every stream bitwise equal to the eager serve phase's, the
    launch identities with graphs on, no post-warmup graph miss; (b) ms per
-   step from the warmed Engine's own chunks; at 4 x 2048, chunks replayed
-   and eager in ABBA turns, then whole Engine chunks striped and pooled,
-   both replayed, in ABBA turns; (c) the device busy share of a replay
-   window and its device time by kind of kernel (torch.profiler; if it
-   shows no kernel under replay, CUDA-event step time against the eager
-   profile's kernel sum); (d) an
+   step from the warmed Engine's own chunks; at 4 x 2048, whole Engine
+   chunks striped and pooled, both replayed, in ABBA turns; (c) the
+   device busy share of a replay window and its device time by kind of
+   kernel (torch.profiler; if it shows no kernel under replay, the busy
+   share is not measured); (d) an
    open-loop Poisson trace (8 requests at 2 req/s, prompts 512-3000, half
    sharing a 256-token prefix) through ``run_open_loop`` on a warmed pooled
    Engine with the async host loop: no post-warmup miss, every request
@@ -189,6 +185,33 @@ not from the 50 MB L2, as each layer of a decode step does.
    after its tick, one trip, no shed), and a real-clock watchdog below a
    chunk's time shedding everything after two chunks; the replayed step
    with the guard input against the step without it, ABBA at 4 x 2048.
+11b. table6 — paper Table 6 measured (``repro_torch.speed.memory_latency``)
+   at llama2-7b's full width and depth with serve_degrade's weights,
+   batch 1, caches filled by the bulk kv_quant kernel in 65536-token
+   chunks (``fill_caches``) and decode steps eager and replayed as one
+   CUDA graph: (a) the kernel suite's gates at its own sizes: block
+   pruning >= 4x fewer blocks at 25% occupancy (``kernel_bench``'s ragged
+   sweep at cap 2048) and ``decode_step`` through every backend within
+   2e-2 of the reference backend; (b) the filler's first 65536-token chunk
+   of layer 0 through the kernel byte-equal to ``kv_quant_plain`` (0
+   bytes); (c) kv2, kv4 and fp16 (the port's route and SDPA) at 32768 and
+   131072 tokens: replayed and eager ms with spreads, peak memory, the
+   op_cost bound and its share, or ``fits=false`` with the bytes needed
+   (kv2 and kv4 must fit), finite logits, and the launches: kv_append and
+   decode_attn once a layer a step, the bulk quantizer twice a layer a
+   filled chunk, no plain call (the fp16 rows: the fp16 route, no
+   kernel); the kv2 and kv4 rows' memory: the fill leaves its planes and
+   at most 16 MiB more allocated, peaks at most 3 GiB above them, and
+   the decode steps hold at most 128 MiB above the filled cache (one
+   layer's kv2 planes are 262e6 B at 131072 tokens: a copy of them in the
+   step fails); (d) the headline, 1,048,576 tokens at PAPER_POLICY: it
+   must fit, with peak memory under the card's total, finite logits and
+   the same launch and memory gates; its first chunk's packed rows
+   byte-equal to (b)'s plain planes, and layer 0's decode_attn over every
+   kv head and over a slice of 4 heads against ``decode_attn_plain`` on
+   that slice (f32 tolerance), run between the fill's launch counts and
+   the steps' and reported with its own launches; replayed and eager ms,
+   peak memory and the bound's share printed.
 12. serve_families — the gemma local/global family and qwen2-vl's M-RoPE
    decoder at full width (random bf16 weights from seed 0, PAPER_POLICY,
    identity calibration, 4 slots; every earlier model freed first, the
@@ -212,7 +235,7 @@ not from the 50 MB L2, as each layer of a decode step does.
    streams must begin with its streams; pooled streams equal the replayed striped
    ones in full), cuda-vs-reference logits, and (b) the unrolled step at 4 x
    2048 against the default step (relative L2 gated at 0.05, top-1, one
-   step's launches, eager step ms in ABBA turns); (qwen2_vl)
+   step's launches); (qwen2_vl)
    qwen2-vl-7b on mix (a) eager and warmed striped (equal streams, the
    identities), cuda-vs-reference logits, and one prefill from patch
    embeddings (32 text + 16 x 16 patches + 32 text, distinct (t, h, w)
@@ -239,7 +262,7 @@ not from the 50 MB L2, as each layer of a decode step does.
    replayed streams equal the eager ones, the launch identities, no plain
    call, no graph miss; cuda-vs-reference logits at 4 x 2048 (gated at
    0.05); the 3000-token prefill's ms; the replayed step at 4 x 2048
-   (CUDA events) with its profile by kind of kernel, beside the bytes of
+   (CUDA events), beside the bytes of
    the weights a step reads over the HBM rate with every expert, with at
    most 4 x top_k experts a layer, and with the experts that step's
    router picked (counted in one eager step); the pool and chunked
@@ -259,10 +282,9 @@ not from the 50 MB L2, as each layer of a decode step does.
    Engine's caches, updated in place inside the captured step): every
    request finished, replayed streams equal the eager ones, the launch
    identities, no plain call, no graph miss; cuda-vs-reference logits at
-   4 x 2048 (gated at 0.05); the 3000-token prefill's ms and its profile
-   by kind with the SSM scan's kernels as a kind of their own; the
-   replayed step at 4 x 2048 (CUDA events) with its profile by kind; the
-   pool and chunked prefill refusing the family; peak memory.
+   4 x 2048 (gated at 0.05); the 3000-token prefill's ms; the replayed
+   step at 4 x 2048 (CUDA events); the pool and chunked prefill refusing
+   the family; peak memory.
 15. serve_encdec — seamless-m4t-large-v2 at full width (seed 0,
    PAPER_POLICY, 4 slots), one JSON line a part: (kernels) decode_attn
    over the decoder's self cache (Hkv 16 / Gq 1 / D 64, 4096 packed) and
@@ -278,7 +300,7 @@ not from the 50 MB L2, as each layer of a decode step does.
    and the same 32 from the same prefill replaying one captured step
    (streams equal); cuda-vs-reference logits (gated at 0.05); the
    encoder's ms at 4 x 4096 frames; the replayed step at 4 x 2048 (CUDA
-   events) with its profile by kind; peak memory.
+   events); peak memory.
 16. serve_rwkv — rwkv6-3b (RWKV6, attention-free: no KV cache, so neither
    kernel may run anywhere in the phase; its launch counters are gated
    to zero deltas) at full width (32 layers, d 2560, 40 heads of 64,
@@ -290,7 +312,7 @@ not from the 50 MB L2, as each layer of a decode step does.
    ``x_prev``, ``x_prev_ffn`` updated in place inside the captured step):
    every request finished, replayed streams equal the eager ones, no
    graph miss, replays == decode steps; the replayed step at 4 x 2048
-   (CUDA events) with its profile by kind and kernel count; the state
+   (CUDA events); the state
    bytes a slot (the Engine's caches = 4 x that, and the same shapes at
    max_len 131205); the 3000-token prefill's ms; the pool and chunked
    prefill refusing the family; peak memory; seconds by part.
@@ -350,8 +372,8 @@ not from the 50 MB L2, as each layer of a decode step does.
    rows of serve_hybrid and the ``encdec`` rows of serve_encdec; launches
    count the serve, serve_pooled (b), serve_chunked (b), calibrate (a),
    (b), (f), quality, serve_schedule (b), (e), serve_degrade, serve_families,
-   serve_moe and serve_hybrid serve runs and serve_encdec's prefill and
-   eager steps), the card line, and the
+   serve_moe and serve_hybrid serve runs, serve_encdec's prefill and
+   eager steps, and table6's fills and steps), the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Imports neither jax nor the JAX package.
@@ -373,6 +395,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # with the port's roofline
 from repro_torch.launch.roofline import (  # noqa: E402
     F32_PEAK_FLOPS as F32_FLOP_PER_S, HBM_BW as HBM_BYTES_PER_S)
+# the CUDA-event timer, the card line and the spread of a sample: one
+# source with the speed suites
+from repro_torch.speed.common import (  # noqa: E402
+    cuda_ms, gpu_line, spread)
 ATOL, RTOL = 3e-5, 1e-4          # decode_attn kernel vs plain, f32
 LOGIT_REL_TOL = 0.05             # cuda vs reference backend, bf16 model
 SLA_TTFT_MS, SLA_TPOT_MS = 2000.0, 500.0   # the port CLI docstring's SLA
@@ -389,7 +415,6 @@ PREFILL_ROWS = 2867 * 32
 APPEND_STEPS = 300               # >= 2 wraps of the 128-token ring
 APPEND_PLAIN_ITERS = 10          # timed calls of the plain append
 L2_COPIES = 4                    # input copies a timing rotates over
-HOLD_CYCLES = 20_000_000         # ~10 ms of sleep while calls are queued
 
 
 # per-kernel numbers beyond the contract's keys that the summary line carries
@@ -416,30 +441,6 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fns, iters: int = 20, warmup: int = 3,
-            hold: int = HOLD_CYCLES) -> float:
-    """Mean CUDA-event device time of ``iters`` back-to-back calls, rotating
-    over ``fns`` (one callable, or one per copy of the inputs: copies whose
-    sum exceeds the 50 MB L2 make every call read device memory, as each
-    layer of a decode step reads its own cache).  A sleep kernel of
-    ``hold`` cycles holds the stream while the host queues the calls, so
-    the time is the device's and not the host's launch rate."""
-    import torch
-    fns = [fns] if callable(fns) else list(fns)
-    for i in range(warmup):
-        fns[i % len(fns)]()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(hold)
-    start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def copies(tree, n: int = L2_COPIES):
     """``n`` copies of a dict of tensors (the first is ``tree`` itself)."""
     return [tree] + [{k: v.clone() for k, v in tree.items()}
@@ -453,14 +454,6 @@ def bound(nbytes: float, flops: float):
     by_ops = flops / F32_FLOP_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
-
-
-def gpu_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------------ phases
@@ -1061,13 +1054,6 @@ EAGER_NEW_FAMILY = SERVE_SPS + 2
 EAGER_SPS = EAGER_NEW_FAMILY - 1
 
 
-def _spread(xs):
-    import numpy as np
-    a = np.asarray(xs, dtype=np.float64)
-    return {"n": int(a.size), "mean": float(a.mean()), "min": float(a.min()),
-            "max": float(a.max()), "std": float(a.std())}
-
-
 def _timed_chunks(eng):
     """Wrap the Engine's decode chunk: every chunk ends in its one
     device->host copy, so its wall time is that of ``steps_per_sync``
@@ -1235,9 +1221,6 @@ def phase_serve(state):
         marks[i + 1].record()
     torch.cuda.synchronize()
     step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    prof = _profile_decode(lambda: T.decode_step(
-        params, cfg, tok, step_caches, PAPER_POLICY, calib=eng.calib,
-        backend="cuda"))
     lc, _ = T.decode_step(params, cfg, tok, clone(base), PAPER_POLICY,
                           calib=eng.calib, backend="cuda")
     lr, _ = T.decode_step(params, cfg, tok, clone(base), PAPER_POLICY,
@@ -1249,11 +1232,9 @@ def phase_serve(state):
     top1 = float((lc.argmax(-1) == lr.argmax(-1)).float().mean())
     check(rel <= LOGIT_REL_TOL, f"cuda vs reference logits: relative L2 "
           f"{rel:.4f} > {LOGIT_REL_TOL}")
-    abba = _abba_append_steps(params, cfg, tok, base, eng.calib)
     tokens = sum(len(h.tokens) for h in handles)
     cache_b = T.cache_bytes(eng._caches)
     bf16_b = T.bf16_cache_bytes(cfg, SERVE_SLOTS, MAX_LEN)
-    state["eager_profile"] = prof
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
           "params_init_s": round(init_s, 3), "requests": len(handles),
           "prompt_lens": SERVE_LENS, "max_new": SERVE_NEW,
@@ -1266,59 +1247,14 @@ def phase_serve(state):
           # the others
           "engine_chunk_ms_per_step": [round(ms, 3) for ms, _ in chunks],
           "engine_chunk_active_slots": [n for _, n in chunks],
-          "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]),
+          "engine_ms_per_step": spread([ms for ms, _ in chunks[1:]]),
           "single_step_context": STEP_CONTEXT,
-          "single_step_ms": _spread(step_ms),
+          "single_step_ms": spread(step_ms),
           "launches": counts, "peak_mem_bytes": peak,
           "cache_bytes": cache_b, "bf16_cache_bytes": bf16_b,
           "cache_ratio": cache_b / bf16_b, "logits_rel_l2": rel,
           "logits_rel_tol": LOGIT_REL_TOL, "top1_agreement": top1,
-          "prefills": len(prefills), "decode_profile": prof,
-          "abba_append_steps": abba})
-
-
-ABBA_ROUNDS = 2
-
-
-def _abba_append_steps(params, cfg, tok, base, calib):
-    """Single decode steps at 4 x STEP_CONTEXT from two copies of one
-    cache, in the order A B B A per round: A appends through the kv_append
-    kernel, B through its plain version (everything else the same cuda
-    backend).  Host wall time of each step, synchronized before and
-    after: the step is host-bound, so only turns within one call compare."""
-    import dataclasses
-    import torch
-    from repro_torch.core.policy import PAPER_POLICY
-    from repro_torch.kernels.kv_quant import kv_append_plain
-    from repro_torch.models import transformer as T
-    from repro_torch.models.backends import CudaBackend
-
-    @dataclasses.dataclass(frozen=True)
-    class PlainAppend(CudaBackend):
-        name: str = "cuda+plain-append"
-
-        def append_fn(self, policy):
-            return kv_append_plain
-
-    runs = {"kernel": (CudaBackend(), {g: {k: v.clone() for k, v in
-                                           d.items()}
-                                       for g, d in base.items()}, []),
-            "plain": (PlainAppend(), {g: {k: v.clone() for k, v in
-                                          d.items()}
-                                      for g, d in base.items()}, [])}
-    for _ in range(ABBA_ROUNDS):
-        for name in ("kernel", "plain", "plain", "kernel"):
-            backend, caches, times = runs[name]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            T.decode_step(params, cfg, tok, caches, PAPER_POLICY,
-                          calib=calib, backend=backend)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-    out = {name: _spread(r[2]) for name, r in runs.items()}
-    out["order"] = "ABBA (A kernel append, B plain append)"
-    out["plain_over_kernel"] = out["plain"]["mean"] / out["kernel"]["mean"]
-    return out
+          "prefills": len(prefills)})
 
 
 SHARED_PREFIX, SHARED_NEW = 2048, 32
@@ -1378,7 +1314,7 @@ def _pool_report(eng, handles, counts, wall, chunks, audit):
             "ttft_ms_p50": float(np.percentile(ttft, 50)),
             "engine_chunk_ms_per_step": [round(ms, 3) for ms, _ in chunks],
             "engine_chunk_active_slots": [n for _, n in chunks],
-            "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]),
+            "engine_ms_per_step": spread([ms for ms, _ in chunks[1:]]),
             "launches": counts,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "pool": {k: st[k] for k in (
@@ -1524,7 +1460,7 @@ def _graph_serve(state, cfg, pool_blocks):
                  "tokens_per_s": tokens / wall,
                  "engine_chunk_ms_per_step": [round(ms, 3)
                                               for ms, _ in chunks],
-                 "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]),
+                 "engine_ms_per_step": spread([ms for ms, _ in chunks[1:]]),
                  "launches": counts, "prefills": len(prefills),
                  "streams_equal_eager": True}
 
@@ -1557,21 +1493,18 @@ def _abba(runs, rounds=GRAPH_ABBA_ROUNDS):
             runs[name]()
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3 / SERVE_SPS)
-    out = {name: _spread(t) for name, t in times.items()}
+    out = {name: spread(t) for name, t in times.items()}
     out["order"] = f"ABBA (A {a}, B {b}), ms per step"
     out[f"{b}_over_{a}"] = out[b]["mean"] / out[a]["mean"]
     return out
 
 
 def _graph_timings(eng_s, eng_p, cfg):
-    """(b) single chunks at SERVE_SLOTS x STEP_CONTEXT: the captured step
-    replayed against the eager multi_decode on the striped engine's caches
-    (decode only), then whole Engine chunks striped against pooled, both
-    replayed; (c) CUDA-event times and the profiler over replayed
-    chunks."""
+    """(b) at SERVE_SLOTS x STEP_CONTEXT, whole Engine chunks striped
+    against pooled, both replayed; (c) CUDA-event times and the profiler
+    over replayed chunks."""
     import numpy as np
     import torch
-    from repro_torch.serving import multi_decode
     for eng in (eng_s, eng_p):
         _load_slots(eng, cfg)
     dev = eng_s.device
@@ -1583,10 +1516,6 @@ def _graph_timings(eng_s, eng_p, cfg):
     gens = [None] * SERVE_SLOTS
     graph = lambda: eng_s._decode_steps(SERVE_SPS, tok, done, temps, eos,
                                         gens, host_t)
-    eager = lambda: multi_decode(
-        eng_s.params, cfg, eng_s.policy, SERVE_SPS, tok, eng_s._caches,
-        done, temps, eos, calib=eng_s.calib, backend=eng_s.backend)
-    vs_eager = _abba({"graph": graph, "eager": eager})
     vs_pooled = _abba({"striped": eng_s._decode_chunk,
                        "pooled": eng_p._decode_chunk})
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -1595,12 +1524,12 @@ def _graph_timings(eng_s, eng_p, cfg):
         graph()
         e.record()
     torch.cuda.synchronize()
-    event_ms = _spread([a.elapsed_time(b) / SERVE_SPS
+    event_ms = spread([a.elapsed_time(b) / SERVE_SPS
                         for a, b in zip(ev, ev[1:])])
     prof = _profile_decode(graph)
     per_step = {k: prof[k] / SERVE_SPS for k in (
         "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
-    return vs_eager, vs_pooled, event_ms, prof, per_step
+    return vs_pooled, event_ms, prof, per_step
 
 
 def phase_serve_graph(state):
@@ -1611,18 +1540,16 @@ def phase_serve_graph(state):
     cfg = configs.get("llama2_7b")
     eng_s, striped = _graph_serve(state, cfg, None)
     eng_p, pooled = _graph_serve(state, cfg, 768)
-    vs_eager, vs_pooled, event_ms, prof, per_step = _graph_timings(
+    vs_pooled, event_ms, prof, per_step = _graph_timings(
         eng_s, eng_p, cfg)
     state["replay_ms"] = event_ms["mean"]       # the analytic phase's share
     del eng_s, eng_p
-    eager = state["eager_profile"]
     if per_step["kernels_per_step"] > 0 and per_step["device_ms_per_step"]:
         busy = {"source": "torch.profiler over replays",
                 "busy_share": prof["device_busy_share"]}
     else:
-        busy = {"source": "eager profile's kernel sum over CUDA-event "
-                          "replay step time",
-                "busy_share": eager["device_ms_per_step"] / event_ms["mean"]}
+        busy = {"source": "not measured: the profiler saw no kernel under "
+                          "replay", "busy_share": None}
     # (d) open-loop Poisson traffic, warmed pooled Engine, async host loop
     eng, warm = _graph_engine(state, cfg, 768, async_host=True)
     chunks = _timed_chunks(eng)
@@ -1649,7 +1576,6 @@ def phase_serve_graph(state):
     emit({"phase": "serve_graph", "arch": cfg.name, "max_len": MAX_LEN,
           "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
           "striped": striped, "pooled": pooled,
-          "abba_graph_vs_eager": vs_eager,
           "abba_striped_vs_pooled": vs_pooled,
           "replay_event_ms_per_step": event_ms,
           "replay_profile": dict(prof, per_step=per_step),
@@ -1658,7 +1584,7 @@ def phase_serve_graph(state):
                         "makespan_s": makespan, "warmup": warm,
                         "decode_steps": eng.n_decode_steps,
                         "prefills": len(prefills), "launches": counts,
-                        "engine_ms_per_step": _spread(
+                        "engine_ms_per_step": spread(
                             [ms for ms, _ in chunks[1:]] or [0.0]),
                         "stats": st, "audit": audit, "summary": summary}})
 
@@ -1842,7 +1768,7 @@ def _chunked_serve(state, cfg, pool_blocks):
                                                  for h in handles],
             {"warmup": warm, "wall_s": wall, "tokens": tokens,
              "tokens_per_s": tokens / wall, "decode_steps":
-             eng.n_decode_steps, "ttft_ms": _spread(ttft),
+             eng.n_decode_steps, "ttft_ms": spread(ttft),
              "buckets_run": list(eng.prefill_shapes), "launches": counts})
 
 
@@ -3567,7 +3493,6 @@ def phase_serve_degrade(state):
     guard = _guard_abba(eng_s, cfg)
     eng_s.close()
     del eng_s
-    state.pop("params", None)
     gc.collect()
     torch.cuda.empty_cache()
     chaos = dict(runs[0], streams=None, replay_equal=same,
@@ -3580,13 +3505,236 @@ def phase_serve_degrade(state):
           "watchdog": watchdog, "abba_guard_4x2048": guard})
 
 
+# --------------------------------------------------------------- table6
+
+T6_CONTEXTS = (32768, 131072)        # the batch-1 rows of every policy
+T6_HEADLINE = 1_048_576              # the paper's 1M-token context
+T6_HEADS = 4                         # kv heads of the 1M decode_attn check
+# memory a quantized row may hold beyond what it held when it began and
+# its planes (PERF.md section 2 has the measured values): the allocator's
+# rounding of the filled planes (up to 1 MiB a leaf left unsplit); the
+# fill's transients (a chunk's bf16 draws and the quantizer's, 0.60-2.29e9
+# B); the decode steps' (the mask, the split partials, the capture
+# stream's 32 MiB cuBLAS workspace: 45-78e6 B), under one layer's planes
+# from 131072 tokens on (262e6 B for kv2), so that a copy of a layer's
+# planes in the step fails the row there and at 1M
+T6_PLANES_SLACK = 16 << 20
+T6_FILL_SLACK = 3 << 30
+T6_STEP_SLACK = 128 << 20
+
+
+def _t6_plain_chunk(cfg, dev):
+    """The filler's first chunk of layer 0 (``FILL_CHUNK`` tokens, its
+    packed rows past the sinks) through the filler's quantizer (the bulk
+    kernel) and through ``kv_quant_plain`` on the card: the plain planes,
+    which the 1M cache must hold, and the bytes that differ."""
+    from repro_torch.core.policy import PAPER_POLICY as pol
+    from repro_torch.kernels.kv_quant import kv_quant_plain
+    from repro_torch.kernels.ops import make_kernel_quant_fn
+    from repro_torch.speed import memory_latency as ML
+    k, v = ML.seeded_kv(cfg, 0, dev)(0, 0, ML.FILL_CHUNK)
+    qf = make_kernel_quant_fn()
+    want, diff = {}, 0
+    for name, x, bits in (("qk", k, pol.bits_k), ("qv", v, pol.bits_v)):
+        rows = x[:, pol.n_sink:]
+        got = qf(rows, bits, pol.group_size, None, pol.fp8_meta)
+        plain = kv_quant_plain(rows.reshape(-1, cfg.head_dim), bits,
+                               pol.group_size, None, pol.fp8_meta)
+        for kk, t in plain.items():
+            t = t.reshape(got[kk].shape)
+            diff += int((_u8(t) != _u8(got[kk])).sum())
+            want[f"{name}_{kk}"] = t
+    return want, diff, rows.shape[1] * cfg.n_kv_heads
+
+
+def _t6_probe(cfg, caches, want, dev):
+    """Layer 0 of the filled 1M cache: (a) the packed rows of the first
+    chunk against the plain quantizer's, byte for byte; (b) decode_attn
+    over every kv head (the step's launch) and over a slice of
+    ``T6_HEADS`` heads, each against ``decode_attn_plain`` on that slice
+    (f32 tolerance).  ``_t6_row`` runs it between the fill's launch
+    counts and the steps'."""
+    import torch
+    from repro_torch.core import segments as seg
+    from repro_torch.core.policy import PAPER_POLICY as pol
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attn import (BLOCK_S, decode_attn,
+                                                 decode_attn_plain)
+    layer = {k: t[0] for k, t in caches["scan"].items()}
+    n = next(iter(want.values())).shape[1]
+    diff = sum(int((_u8(t) != _u8(layer[k][:, :n])).sum())
+               for k, t in want.items())
+    k_qt = {kk[3:]: t for kk, t in layer.items() if kk.startswith("qk_")}
+    v_qt = {kk[3:]: t for kk, t in layer.items() if kk.startswith("qv_")}
+    s_q = k_qt["codes_hi"].shape[1]
+    bs, s_pad = ops._block_pad(s_q, BLOCK_S)
+    lens = layer["length"]
+    ok = ops._packed_ok(ops._padded_j(s_q, s_pad, dev), lens, lens - 1,
+                        seg.effective_window(None), pol, 1)
+    bounds = seg.packed_block_bounds(ok, bs)
+    mask = ok.to(torch.float32)
+    g = torch.Generator(device=dev).manual_seed(6)
+    d = cfg.head_dim
+    q = torch.randn((1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, d),
+                    generator=g, device=dev)
+    args = dict(block_s=bs, block_bounds=bounds)
+    full = decode_attn(q, k_qt, v_qt, mask, pol, d, d ** -0.5, **args)
+    h = T6_HEADS
+    ks = {kk: t[:, :, :h].contiguous() for kk, t in k_qt.items()}
+    vs = {kk: t[:, :, :h].contiguous() for kk, t in v_qt.items()}
+    t0 = time.monotonic()
+    plain = decode_attn_plain(q[:, :h], ks, vs, mask, pol, d, d ** -0.5,
+                              **args)
+    plain_s = time.monotonic() - t0
+    sliced = decode_attn(q[:, :h], ks, vs, mask, pol, d, d ** -0.5, **args)
+    err = {"all_heads": _check_attn("table6 1M decode_attn (every head)",
+                                    tuple(t[:, :h] for t in full), plain),
+           "head_slice": _check_attn("table6 1M decode_attn (4 heads)",
+                                     sliced, plain)}
+    return {"chunk_rows_diff_bytes": diff, "chunk_tokens": n,
+            "decode_attn_max_abs_err": err, "heads": h, "packed": s_q,
+            "live_packed": int((mask > 0).sum()), "plain_s": plain_s}
+
+
+def _t6_row(state, params, cfg, label, pol, backend, context, probe=None):
+    """One measured row (``speed.memory_latency.measure``) with its launch
+    counts: the fill's and the steps', each read from 0, added to the
+    script's totals (a ``probe`` runs between them and reports its own
+    launches under ``"launches"``, outside the totals).  A quantized row's
+    launches are gated: ``kv_append`` and ``decode_attn`` once a layer a
+    step, the bulk quantizer twice a layer a filled chunk, no plain call;
+    an fp16 row's steps take the fp16 route and launch neither kernel.  A
+    quantized row's memory is gated too: the fill leaves the planes and
+    nothing else (``T6_PLANES_SLACK``), its peak stays within
+    ``T6_FILL_SLACK`` of them, and the steps hold at most
+    ``T6_STEP_SLACK`` above the filled cache."""
+    from repro_torch.kernels import (launch_count_delta, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.speed import memory_latency as ML
+    fill = {}
+
+    def between(caches):
+        fill.update(launch_counts())
+        out = probe(caches)
+        out["launches"] = launch_count_delta(fill, launch_counts())
+        reset_launch_counts()
+        return out
+    reset_launch_counts()
+    r = ML.measure(params, cfg, pol, context, device=params["embed"].device,
+                   backend=backend, probe=between if probe else None)
+    counts = launch_counts()
+    counts = {k: {c: n + fill.get(k, {}).get(c, 0) for c, n in d.items()}
+              for k, d in counts.items()}
+    _add_launches(state, counts)
+    r["launches"] = counts
+    if not r["fits"]:
+        return r
+    steps = r["length_after"] - context
+    n = cfg.n_layers
+    kq, da, f16 = counts["kv_quant"], counts["decode_attn"], counts["fp16"]
+    what = f"table6 {label} at {context}"
+    check(r["finite"], f"{what}: logits not finite")
+    check(kq["plain"] == kq["append_plain"] == da["plain"] == 0,
+          f"{what}: a plain version ran: {counts}")
+    if pol.is_fp16:
+        check(kq["kernel"] == kq["append"] == da["kernel"] == 0
+              and f16["attend"] == (n * steps if backend == "cuda" else 0)
+              and f16["append"] == n * steps,
+              f"{what}: launches {counts} for {steps} fp16 steps")
+    else:
+        # the filled chunks that hold packed rows: [ns, context - window)
+        chunks = -(-(context - pol.window) // ML.FILL_CHUNK)
+        check(da["kernel"] == kq["append"] == n * steps
+              and kq["kernel"] == 2 * n * chunks,
+              f"{what}: launches {counts} for {steps} steps and {chunks} "
+              f"filled chunks a layer")
+        layer = r["cache_bytes"] // n
+        planes = r["step_base_mem_bytes"] - r["base_mem_bytes"]
+        fill_temp = r["fill_peak_mem_bytes"] - r["step_base_mem_bytes"]
+        step_temp = r["step_peak_mem_bytes"] - r["step_base_mem_bytes"]
+        r["mem_gate"] = {"planes_left": planes, "fill_temp": fill_temp,
+                         "step_temp": step_temp, "layer_planes": layer,
+                         "step_slack": T6_STEP_SLACK,
+                         "fill_slack": T6_FILL_SLACK}
+        check(0 <= planes - r["cache_bytes"] <= T6_PLANES_SLACK,
+              f"{what}: the fill left {planes} B allocated for "
+              f"{r['cache_bytes']} B of planes")
+        check(fill_temp <= T6_FILL_SLACK,
+              f"{what}: the fill peaked {fill_temp} B above its planes "
+              f"(limit {T6_FILL_SLACK})")
+        check(step_temp <= T6_STEP_SLACK,
+              f"{what}: the steps held {step_temp} B above the filled "
+              f"cache (limit {T6_STEP_SLACK}, one layer's planes {layer})")
+    return r
+
+
+def phase_table6(state):
+    """Paper Table 6 on the card (``repro_torch.speed.memory_latency``) at
+    llama2-7b's full width and depth with serve_degrade's weights: the
+    batch-1 rows of kv2, kv4 and fp16 (the route and SDPA) at 32768 and
+    131072 tokens, the 1,048,576-token kv2 headline with its probe, and
+    the kernel suite's ragged and backend-drift gates."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.speed import kernel_bench as KB
+    from repro_torch.speed import memory_latency as ML
+    dev = torch.device("cuda")
+    cfg = configs.get("llama2_7b")
+    params = state["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    before = {"allocated_bytes": torch.cuda.memory_allocated(),
+              "free_bytes": torch.cuda.mem_get_info()[0],
+              "total_bytes": total}
+    suite = []
+    ragged = KB._bench_ragged_occupancy(suite.append, smoke=False, device=dev)
+    drift = KB._bench_decode_step_backends(suite.append, smoke=False,
+                                           device=dev)["drift"]
+    want, diff, rows = _t6_plain_chunk(cfg, dev)
+    check(diff == 0, f"table6: the filler's chunk differs from "
+          f"kv_quant_plain in {diff} bytes")
+    csv, out = [], {}
+    for s in T6_CONTEXTS:
+        for label, pol, bk in ML.POLICIES:
+            r = _t6_row(state, params, cfg, label, pol, bk, s)
+            ML.measured_row(csv.append, label, r, ML.analytic_ms(label, s))
+            out[f"{label}_s{s}"] = r
+            check(r["fits"] or label.startswith("fp16"),
+                  f"table6: {label} at {s} tokens did not fit: {r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    head = _t6_row(state, params, cfg, "kv2", PAPER_POLICY, "cuda",
+                   T6_HEADLINE, probe=lambda c: _t6_probe(cfg, c, want, dev))
+    del want
+    ML.measured_row(csv.append, "kv2", head,
+                    ML.analytic_ms("kv2", T6_HEADLINE))
+    check(head["fits"], f"table6: the {T6_HEADLINE}-token kv2 cache did not "
+          f"fit: {head}")
+    check(head["probe"]["chunk_rows_diff_bytes"] == 0,
+          f"table6: the 1M cache's first chunk differs from kv_quant_plain: "
+          f"{head['probe']}")
+    check(head["peak_mem_bytes"] < total,
+          f"table6: peak {head['peak_mem_bytes']} >= the card's {total}")
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "table6", "arch": cfg.name, "gpu": state["gpu"],
+          "before": before, "chunk_check": {"rows": rows, "diff_bytes": diff},
+          "headline": head, "rows": out, "csv": csv,
+          "kernel_suite": {"ragged": {f"{o}_{k}": v for (o, k), v in
+                                      ragged.items()},
+                           "drift": drift, "rows": suite}})
+
+
 # ------------------------------- serve_families (gemma local/global, M-RoPE)
 
 GEMMA2_LENS, GEMMA2_NEW = [1024, 3000, 5000, 6000], 32
 GEMMA2_MAX_LEN = 8325            # 5 sinks + 128 window + 8192 packed tokens
 FAMILY_LIVE = [500, 1500, 2900, 3900]          # packed tokens of the rows
 GEMMA2_LIVE = [900, 2800, 4800, 5800]
-UNROLL_ROUNDS = 1
 PATCH_GRID, TEXT_LEN, EMBED_STEPS = 16, 32, 8   # qwen2-vl's embeds run
 
 
@@ -3697,7 +3845,7 @@ def _family_serve(state, cfg, eng, reqs, what):
                                                 for h in handles], {
         "decode_steps": steps, "wall_s": wall, "tokens": tokens,
         "tokens_per_s": tokens / wall,
-        "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]
+        "engine_ms_per_step": spread([ms for ms, _ in chunks[1:]]
                                       or [ms for ms, _ in chunks]),
         "launches": counts}
 
@@ -3724,7 +3872,7 @@ def _replayed_step_ms(eng, cfg, chunks: int = 4):
         run()
         e.record()
     torch.cuda.synchronize()
-    return _spread([a.elapsed_time(b) / SERVE_SPS
+    return spread([a.elapsed_time(b) / SERVE_SPS
                     for a, b in zip(ev, ev[1:])]), run
 
 
@@ -3852,25 +4000,11 @@ def _unroll_turns(params, cfg):
     rel = float((lu - ld).norm() / ld.norm())
     check(rel <= LOGIT_REL_TOL, f"unrolled vs default step: relative L2 "
           f"{rel:.4f} > {LOGIT_REL_TOL}")
-    times = {"default": [], "unrolled": []}
-    for _ in range(UNROLL_ROUNDS):
-        for name in ("default", "unrolled", "unrolled", "default"):
-            c = _clone(base)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step[name](c)
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3)
-            del c
-    out = {k: _spread(v) for k, v in times.items()}
     return {"context": STEP_CONTEXT, "local_layers": sum(
         cfg.layer_is_local(i) for i in range(cfg.n_layers)),
         "slice_tokens": cfg.local_window, "logits_rel_l2": rel,
         "top1_agreement": float((lu.argmax(-1) == ld.argmax(-1)).float()
-                                .mean()), "launches_one_step": counts,
-        "eager_step_ms": out, "order": "ABBA (A default, B unrolled)",
-        "unrolled_over_default": out["unrolled"]["mean"]
-        / out["default"]["mean"]}
+                                .mean()), "launches_one_step": counts}
 
 
 def _gemma3(state):
@@ -4227,15 +4361,15 @@ def _prefill_ms(params, cfg):
         torch.cuda.synchronize()
         if i:
             times.append((time.perf_counter() - t0) * 1e3)
-    return _spread(times)
+    return spread(times)
 
 
 def _moe_model(state, arch, seed):
     """One MoE model at full width: mix (a) eager and warmed striped
     (streams equal, the launch identities, no plain call, no graph miss),
     cuda against reference logits, the 3000-token prefill, the replayed
-    step at 4 x 2048 with its profile by kind beside the two weight-read
-    bounds, the refusals, peak memory."""
+    step at 4 x 2048 beside the two weight-read bounds, the refusals,
+    peak memory."""
     import gc
     import torch
     from repro_torch import configs
@@ -4247,11 +4381,6 @@ def _moe_model(state, arch, seed):
     prefill = _prefill_ms(params, cfg)
     eng, warm = _family_engine(params, cfg, True)
     replayed, run = _replayed_step_ms(eng, cfg)
-    prof = _profile_decode(run)
-    per_step = {k: prof[k] / SERVE_SPS for k in (
-        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
-    by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
-               for k, e in prof["by_kind"].items()}
     routed = _routed_experts(params, cfg, eng)
     del eng
     gc.collect()
@@ -4272,9 +4401,6 @@ def _moe_model(state, arch, seed):
     return dict(init, arch=cfg.name, runs=runs, cuda_vs_reference=backends,
                 prefill_ms=dict(prefill, tokens=MOE_PREFILL),
                 warmup=warm, replayed_step_ms_4x2048=replayed,
-                replay_profile=dict(per_step=per_step, by_kind=by_kind,
-                                    busy_share=prof["device_busy_share"],
-                                    port_kernels=prof["port_kernels"]),
                 experts_routed_per_layer=routed,
                 weight_read_bounds=bounds, refusals=refusals,
                 peak_mem_bytes=peak)
@@ -4309,7 +4435,6 @@ def phase_serve_moe(state):
 
 # --------------------------------------------- serve_hybrid (hymba-1.5b)
 
-SSM_FNS = ("_ssm_scan", "ssm_forward", "ssm_decode")
 
 
 def _hybrid_kernels():
@@ -4346,73 +4471,6 @@ def _hybrid_kernels():
     return attn, append, quant
 
 
-def _ssm_profile(fn, n: int = 1):
-    """Device ms of ``fn`` (torch.profiler, after one warm call) by kind of
-    kernel, with the kernels launched inside the port's SSM functions
-    (``models/ssm.py``, each wrapped in a profiler range for the run)
-    counted apart: ``ssm: scan`` (the doubling scan) and ``ssm: rest``
-    (the rest of ssm_forward / ssm_decode)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import ssm as S
-    orig = {k: getattr(S, k) for k in SSM_FNS}
-
-    def wrap(k):
-        def ranged(*args, **kw):
-            with record_function(f"ssm:{k}"):
-                return orig[k](*args, **kw)
-        return ranged
-    for k in SSM_FNS:
-        setattr(S, k, wrap(k))
-    try:
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3 / n
-    finally:
-        for k, f in orig.items():
-            setattr(S, k, f)
-
-    def under(e):                    # kernels launched inside a CPU range
-        out = [(k.name, k.duration) for k in e.kernels]
-        for c in e.cpu_children:
-            out += under(c)
-        return out
-    total = {}
-    for e in prof.key_averages():
-        if (e.device_type != DeviceType.CUDA or e.key.startswith("ssm:")
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        total[_kind(e.key)] = total.get(_kind(e.key), 0.0) + us
-    inside, scan_us = {}, 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CPU:
-            continue
-        if e.name in ("ssm:ssm_forward", "ssm:ssm_decode"):
-            for name, us in under(e):
-                inside[_kind(name)] = inside.get(_kind(name), 0.0) + us
-        elif e.name == "ssm:_ssm_scan":
-            scan_us += sum(us for _, us in under(e))
-    by_kind = {k: (v - inside.get(k, 0.0)) / n / 1e3
-               for k, v in total.items()}
-    by_kind["ssm: scan"] = scan_us / n / 1e3
-    by_kind["ssm: rest"] = (sum(inside.values()) - scan_us) / n / 1e3
-    dev_ms = sum(total.values()) / n / 1e3
-    return {"wall_ms": wall_ms, "device_ms": dev_ms,
-            "busy_share": dev_ms / wall_ms, "by_kind_ms": by_kind,
-            "ssm_share": (by_kind["ssm: scan"] + by_kind["ssm: rest"])
-            / dev_ms, "scan_share": by_kind["ssm: scan"] / dev_ms}
-
-
 def _hybrid_model(state):
     """hymba-1.5b at full width: mix (a) eager and warmed striped (streams
     equal, the launch identities, no plain call, no graph miss), cuda
@@ -4431,17 +4489,8 @@ def _hybrid_model(state):
     runs = _mix_a(state, cfg, params, cfg.name, chunked=False, pooled=False)
     backends = _backend_logits(params, cfg, PAPER_POLICY, seed=18)
     prefill = _prefill_ms(params, cfg)
-    toks = torch.as_tensor(np.random.default_rng(14).integers(
-        0, cfg.vocab_size, (1, MOE_PREFILL)), device=torch.device("cuda"))
-    prefill_prof = _ssm_profile(lambda: T.prefill_model(
-        params, cfg, toks, PAPER_POLICY, max_len=MAX_LEN, backend="cuda"))
     eng, warm = _family_engine(params, cfg, True)
     replayed, run = _replayed_step_ms(eng, cfg)
-    prof = _profile_decode(run)
-    per_step = {k: prof[k] / SERVE_SPS for k in (
-        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
-    by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
-               for k, e in prof["by_kind"].items()}
     state_bytes = sum(int(np.prod(shape)) * torch.empty((), dtype=dt)
                       .element_size() for shape, dt in S.state_shapes(
                           SERVE_SLOTS, cfg, torch.bfloat16).values()
@@ -4455,11 +4504,8 @@ def _hybrid_model(state):
     torch.cuda.empty_cache()
     return dict(init, arch=cfg.name, runs=runs, cuda_vs_reference=backends,
                 prefill_ms=dict(prefill, tokens=MOE_PREFILL),
-                prefill_profile=prefill_prof, warmup=warm,
+                warmup=warm,
                 replayed_step_ms_4x2048=replayed,
-                replay_profile=dict(per_step=per_step, by_kind=by_kind,
-                                    busy_share=prof["device_busy_share"],
-                                    port_kernels=prof["port_kernels"]),
                 ssm_state_bytes_4_slots=state_bytes, refusals=refusals,
                 peak_mem_bytes=peak)
 
@@ -4614,7 +4660,7 @@ def _encdec_model(state):
     layer a step, one kv_append, the cross cache untouched) and the same
     32 from the same prefill through one captured step (streams equal),
     cuda against reference logits, the encoder's ms at 4 x 4096 frames,
-    the replayed step at 4 x 2048 with its profile by kind, peak memory."""
+    the replayed step at 4 x 2048, peak memory."""
     import gc
     import torch
     from repro_torch import configs
@@ -4718,13 +4764,8 @@ def _encdec_model(state):
         run()
         e.record()
     torch.cuda.synchronize()
-    replayed = _spread([a.elapsed_time(b) / SERVE_SPS
+    replayed = spread([a.elapsed_time(b) / SERVE_SPS
                         for a, b in zip(ev, ev[1:])])
-    prof = _profile_decode(run)
-    per_step = {k: prof[k] / SERVE_SPS for k in (
-        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
-    by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
-               for k, e in prof["by_kind"].items()}
     refusal = None
     try:
         check_servable(cfg)
@@ -4742,11 +4783,8 @@ def _encdec_model(state):
                 decode_launches=counts, captured_step_launches=cap,
                 streams_equal_replayed=True, cuda_vs_reference=backends,
                 cross_cache_bytes=cross_bytes,
-                encoder_ms_4x4096=_spread(enc),
+                encoder_ms_4x4096=spread(enc),
                 replayed_step_ms_4x2048=replayed,
-                replay_profile=dict(per_step=per_step, by_kind=by_kind,
-                                    busy_share=prof["device_busy_share"],
-                                    port_kernels=prof["port_kernels"]),
                 engine_refusal=refusal, peak_mem_bytes=peak)
 
 
@@ -4849,7 +4887,7 @@ def _rwkv_serve(eng, reqs, what):
     return [list(h.tokens) for h in handles], {
         "decode_steps": eng.n_decode_steps, "wall_s": wall,
         "tokens": tokens, "tokens_per_s": tokens / wall,
-        "engine_ms_per_step": _spread([ms for ms, _ in chunks[1:]]
+        "engine_ms_per_step": spread([ms for ms, _ in chunks[1:]]
                                       or [ms for ms, _ in chunks])}
 
 
@@ -4885,12 +4923,6 @@ def _rwkv_model(state):
     rep.update(streams_equal_eager=same, replays=wr["replays"])
     replayed, run = _replayed_step_ms(eng, cfg)
     mark("replayed")
-    prof = _profile_decode(run)
-    mark("replay_profile")
-    per_step = {k: prof[k] / SERVE_SPS for k in (
-        "wall_ms_per_step", "device_ms_per_step", "kernels_per_step")}
-    by_kind = {k: {n: v / SERVE_SPS for n, v in e.items()}
-               for k, e in prof["by_kind"].items()}
     cache_bytes = T.cache_bytes(eng._caches)
     del eng
     gc.collect()
@@ -4914,8 +4946,6 @@ def _rwkv_model(state):
                 "graph_striped": rep},
                 warmup=warm, prefill_ms=dict(prefill, tokens=MOE_PREFILL),
                 replayed_step_ms_4x2048=replayed,
-                replay_profile=dict(per_step=per_step, by_kind=by_kind,
-                                    busy_share=prof["device_busy_share"]),
                 state_bytes_per_slot=per_slot,
                 engine_state_bytes=cache_bytes, refusals=refusals,
                 peak_mem_bytes=peak,
@@ -5134,7 +5164,7 @@ def _train_model():
             dl.batch_at(start + i) for i in range(steps)], f"seq {seq}")
         start += steps
         tokens = TRAIN_BATCH * seq
-        ms = _spread([r["ms"] for r in rows[1:]])
+        ms = spread([r["ms"] for r in rows[1:]])
         runs[f"{TRAIN_BATCH}x{seq}"] = {
             "steps": rows, "step_ms": ms, "tokens_per_step": tokens,
             "tokens_per_s": tokens / ms["mean"] * 1e3,
@@ -5321,8 +5351,8 @@ def _dist_world1():
           f"distributed: world-1 params differ: {max(diffs)}")
     out["param_max_abs_diff"] = max(d for d, _ in diffs)
     out["params_bitwise"] = out["param_max_abs_diff"] == 0.0
-    out["step_ms"] = {"sharded": _spread(sharded_ms),
-                      "plain": _spread(plain_ms)}
+    out["step_ms"] = {"sharded": spread(sharded_ms),
+                      "plain": spread(plain_ms)}
     out["sharded_over_plain"] = (out["step_ms"]["sharded"]["mean"]
                                  / out["step_ms"]["plain"]["mean"])
     out["peak_bytes_above_state"] = {"sharded": sharded_peak,
@@ -5719,7 +5749,7 @@ def main(argv=None) -> int:
                       phase_serve, phase_serve_pooled, phase_serve_graph,
                       phase_serve_chunked, phase_calibrate, phase_quality,
                       phase_serve_schedule, phase_serve_degrade,
-                      phase_serve_families, phase_serve_moe,
+                      phase_table6, phase_serve_families, phase_serve_moe,
                       phase_serve_hybrid, phase_serve_encdec,
                       phase_analytic):
             t0 = time.monotonic()

@@ -1,7 +1,7 @@
-"""Structural guards of the port: it never imports jax or the JAX package,
-it runs without jax installed, its entry points default to the GPU and
-refuse to fall back to the CPU quietly, and its kernel build looks for
-nvcc where it should."""
+"""Structural guards of the port: it never imports jax, the JAX package or
+its benchmark harness, it runs without jax installed, its entry points
+default to the GPU and refuse to fall back to the CPU quietly, and its
+kernel build looks for nvcc where it should."""
 import ast
 import os
 import subprocess
@@ -21,7 +21,7 @@ from repro_torch.serving import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-BANNED = {"jax", "jaxlib", "repro"}
+BANNED = {"jax", "jaxlib", "repro", "benchmarks"}
 
 
 def _imports(path: Path):
