@@ -235,7 +235,12 @@ not from the 50 MB L2, as each layer of a decode step does.
    streams must begin with its streams; pooled streams equal the replayed striped
    ones in full), cuda-vs-reference logits, and (b) the unrolled step at 4 x
    2048 against the default step (relative L2 gated at 0.05, top-1, one
-   step's launches); (qwen2_vl)
+   step's launches), then (b') the unrolled step on a 1-rank ``("pod",
+   "data", "model")`` mesh on NCCL under SERVE_RULES (DTensors, the
+   kernels run per rank through ``run_local``), 4 steps against the same
+   steps on plain tensors: every cache leaf byte-equal, logits within
+   relative L2 1e-5, 34 decode_attn and 34 kv_append launches a step, 29
+   of the decode_attn over the local layers' 1024-token slices; (qwen2_vl)
    qwen2-vl-7b on mix (a) eager and warmed striped (equal streams, the
    identities), cuda-vs-reference logits, and one prefill from patch
    embeddings (32 text + 16 x 16 patches + 32 text, distinct (t, h, w)
@@ -336,11 +341,13 @@ not from the 50 MB L2, as each layer of a decode step does.
    ``make_train_step(mesh=)`` from ``place_state`` against 2 plain steps
    from the same seed's state (loss, nll, grad norm and every param
    within 1e-5 relative; expected equal), then 4 steps of each in turns
-   timed with CUDA events and the peak memory a step adds;
-   ``int8_allreduce_pod`` on a pod of one returns x and one-stage
+   timed with CUDA events and the peak memory a step adds; 2
+   sequence-parallel steps (``SEQ_PARALLEL_TRAIN_RULES``) gated the same
+   way; ``int8_allreduce_pod`` on a pod of one returns x and one-stage
    ``pipeline_forward`` equals the microbatches run through the layers,
-   bitwise; (b) 4 ranks spawned on the one card over gloo with CUDA
-   tensors, mesh (2, 1, 2): ``int8_allreduce_pod`` of distinct inputs a
+   and its gradients sequential autograd's, bitwise; (b) 4 ranks spawned
+   on the one card over gloo with CUDA tensors, mesh (2, 1, 2):
+   ``int8_allreduce_pod`` of distinct inputs a
    rank equal to the numpy formula over each pod group, exactly.  The
    sharded step and the pipeline need collectives gloo refuses on CUDA
    tensors (``--gloo-probe``), and NCCL refuses two ranks on one card,
@@ -353,10 +360,12 @@ not from the 50 MB L2, as each layer of a decode step does.
    category, the roofline's t_compute / t_memory on the H100 constants
    and the share of that bound the replayed step of serve_graph reaches
    (bound / replayed ms); (b) ``model_flops`` of the step beside the
-   counter's matmul FLOPs; (c) one full-width dry-run cell (llama3.2-1b x
-   decode_32k on 16 x 16 fake ranks) in a subprocess on the CPU, started
-   before the first phase so that it runs beside them (its row, status
-   ok, in ``build/analytic/dryrun.json``).
+   counter's matmul FLOPs; (c) two full-width dry-run cells (llama3.2-1b
+   x decode_32k, and gemma3-4b x decode_32k x unroll_local: the unrolled
+   step on the 16 x 16 mesh) on 16 x 16 fake ranks, one after the other
+   in a subprocess on the CPU, started before the first phase so that it
+   runs beside them (their rows, status ok, in
+   ``build/analytic/dryrun.json``; their trace seconds reported).
 20. a ``timing`` line of seconds per phase, then the kernel summary line
    (decode_attn entries also carry the long slot's ``long_ms``,
    ``long_bound_ms`` and ``long_library_ms``; kv_quant its prefill-size
@@ -4007,6 +4016,109 @@ def _unroll_turns(params, cfg):
                                 .mean()), "launches_one_step": counts}
 
 
+UNROLL_MESH_STEPS = 4            # unrolled steps on the 1-rank mesh
+UNROLL_MESH_TOL = 1e-5           # logits' relative L2 against one device
+
+
+def _decode_attn_spy():
+    """Wrap ``kernels.ops.decode_attn`` (the wrapper the cuda backend's
+    attention calls) to record the token count of the packed planes each
+    launch walks; returns (the list, a function that unwraps it)."""
+    from repro_torch.kernels import ops
+    real, seen = ops.decode_attn, []
+
+    def spy(qg, k_qt, *a, **kw):
+        seen.append(int(k_qt["codes_hi"].shape[1]))
+        return real(qg, k_qt, *a, **kw)
+    ops.decode_attn = spy
+    return seen, lambda: setattr(ops, "decode_attn", real)
+
+
+def _unroll_mesh(params, cfg):
+    """(b') The unrolled step on a 1-rank ("pod", "data", "model") mesh on
+    NCCL under SERVE_RULES (the cache, params and tokens DTensors laid
+    out by ``launch.shardings``; each layer's append and attention run on
+    the rank's rows and heads through ``run_local``) against the same
+    step on plain tensors, from one 4 x 2048 prefill, for
+    UNROLL_MESH_STEPS steps of seeded tokens: every cache leaf byte-equal
+    after every step, logits within UNROLL_MESH_TOL relative L2, and one
+    sharded step's launches: one decode_attn and one kv_append a layer,
+    the local layers' decode_attn over their local_window-token slice."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.launch.shardings import (cache_shardings,
+                                              params_shardings, place,
+                                              token_sharding)
+    from repro_torch.models import transformer as T
+    t0 = time.monotonic()
+    dev = init_world(init_method=f"tcp://localhost:{_free_port()}",
+                     world_size=1, rank=0)
+    mesh = make_mesh((1, 1, 1), DIST_AXES)
+    rng = np.random.default_rng(9)
+    batch = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (SERVE_SLOTS, STEP_CONTEXT)),
+                            device=dev)
+    with torch.no_grad():
+        _, plain = T.prefill_model(params, cfg, batch, PAPER_POLICY,
+                                   max_len=MAX_LEN, backend="cuda")
+    sharded = place(_clone(plain), cache_shardings(plain, cfg, mesh), mesh)
+    pm = place(params, params_shardings(params, mesh), mesh)
+    n_local = sum(cfg.layer_is_local(i) for i in range(cfg.n_layers))
+    out = {"steps": UNROLL_MESH_STEPS, "mesh": [1, 1, 1], "backend": "nccl",
+           "rules": "SERVE_RULES", "logits_rel_l2": [], "local_layers":
+           n_local, "slice_tokens": cfg.local_window}
+    for i in range(UNROLL_MESH_STEPS):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (SERVE_SLOTS, 1)), device=dev)
+        with torch.no_grad():
+            lp, plain = T.decode_step(params, cfg, tok, plain, PAPER_POLICY,
+                                      backend="cuda", unroll=True)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            seen, unspy = _decode_attn_spy()
+            try:
+                with S.sharded_region(mesh, S.SERVE_RULES):
+                    ls, sharded = T.decode_step(
+                        pm, cfg, S.distribute(tok, token_sharding(tok, mesh),
+                                              mesh),
+                        sharded, PAPER_POLICY, backend="cuda", unroll=True)
+                    ls = ls.full_tensor()
+                torch.cuda.synchronize()
+            finally:
+                unspy()
+        counts = launch_counts()
+        n_slice = sum(n == cfg.local_window for n in seen)
+        check(counts["decode_attn"]["kernel"] == cfg.n_layers
+              and counts["kv_quant"]["append"] == cfg.n_layers
+              and counts["decode_attn"]["plain"] == 0
+              and counts["kv_quant"]["append_plain"] == 0
+              and n_slice == n_local and len(seen) == cfg.n_layers,
+              f"unrolled step on the mesh, step {i}: launches {counts}, "
+              f"{n_slice} of {len(seen)} decode_attn over "
+              f"{cfg.local_window}-token slices")
+        lp, ls = lp.float(), ls.float()
+        rel = float((ls - lp).norm() / lp.norm())
+        out["logits_rel_l2"].append(rel)
+        check(bool(torch.isfinite(ls).all()) and rel <= UNROLL_MESH_TOL,
+              f"unrolled step on the mesh, step {i}: logits relative L2 "
+              f"{rel} > {UNROLL_MESH_TOL}")
+        for k, a in plain["scan"].items():
+            b = sharded["scan"][k].to_local()
+            check(a.shape == b.shape and torch.equal(_u8(a), _u8(b)),
+                  f"unrolled step on the mesh, step {i}: cache leaf {k} "
+                  f"differs from the one-device step's")
+    out.update(launches_one_step=counts, slice_launches_one_step=n_slice,
+               caches_bytewise=True, seconds=time.monotonic() - t0)
+    del pm, plain, sharded
+    dist.destroy_process_group()
+    return out
+
+
 def _gemma3(state):
     """(a) + (b): gemma3-4b at full width."""
     import gc
@@ -4018,6 +4130,7 @@ def _gemma3(state):
     runs = _mix_a(state, cfg, params, "gemma3")
     backends = _backend_logits(params, cfg, PAPER_POLICY, seed=6)
     unroll = _unroll_turns(params, cfg)
+    unroll["mesh"] = _unroll_mesh(params, cfg)
     peak = torch.cuda.max_memory_allocated()
     del params
     gc.collect()
@@ -5294,17 +5407,21 @@ def _dist_world1():
     TRAIN_RULES) against as many plain steps from the same seed's state:
     loss, nll, grad norm and every param within DIST_RTOL (expected
     equal); after each run's gated steps, DIST_TIMED more (CUDA events)
-    and the peak memory a step adds; ``int8_allreduce_pod`` (a pod of one
-    returns x) and ``pipeline_forward`` (one stage: every microbatch
-    through the layers in order) equal to x and the sequential run,
-    bitwise.  One state (~14.8 GB with its moments) lives at a time: two
-    and a step's transients do not fit in 80 GB."""
+    and the peak memory a step adds; DIST_STEPS sequence-parallel steps
+    (SEQ_PARALLEL_TRAIN_RULES) gated the same way; ``int8_allreduce_pod``
+    (a pod of one returns x) and ``pipeline_forward`` (one stage: every
+    microbatch through the layers in order) equal to x and the sequential
+    run, bitwise, and the pipeline's gradients in its params and input
+    equal to sequential autograd's, bitwise.  One state (~14.8 GB with
+    its moments) lives at a time: two and a step's transients do not fit
+    in 80 GB."""
     import gc
     import torch
     import torch.distributed as dist
     from repro_torch.data import DataLoader, SyntheticCorpus
     from repro_torch.distributed.compression import int8_allreduce_pod
     from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.sharding import SEQ_PARALLEL_TRAIN_RULES
     from repro_torch.launch.mesh import init_world, make_mesh
     from repro_torch.training import (init_train_state, make_train_step,
                                       place_state)
@@ -5320,37 +5437,51 @@ def _dist_world1():
            "steps": []}
     fresh = lambda: init_train_state(cfg, seed=0, device=dev)
 
-    def run(fn, st):
-        """DIST_STEPS gated steps, then DIST_TIMED timed ones: (the params
+    def run(fn, st, timed=DIST_TIMED):
+        """DIST_STEPS gated steps, then ``timed`` timed ones: (the params
         after the gated steps, their metrics, ms, peak)."""
         rows = []
         for i in range(DIST_STEPS):
             st, m = fn(st, dl.batch_at(i))
             rows.append({k: float(v) for k, v in m.items()})
         params = st["params"]      # the steps build new tensors
-        st, ms, peak = _dist_timed(fn, st, dl.batch_at(DIST_STEPS),
-                                   DIST_TIMED)
+        st, ms, peak = _dist_timed(fn, st, dl.batch_at(DIST_STEPS), timed)
         del st
         gc.collect()
         torch.cuda.empty_cache()
         return params, rows, ms, peak
 
+    def against_plain(what, rows, params):
+        """Each gated step's metrics and every param within DIST_RTOL of
+        the plain run's: (the rows, the params' largest difference)."""
+        diffs = _dist_params_diff(params, pp)
+        steps = []
+        for i in range(DIST_STEPS):
+            a, b = rows[i], plain_rows[i]
+            rel = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for k in ("loss", "nll", "grad_norm")}
+            steps.append({what: a, "plain": b, "rel": rel})
+            check(max(rel.values()) <= DIST_RTOL,
+                  f"distributed: world-1 {what} step {i} against plain: "
+                  f"{rel}")
+        check(max(r for _, r in diffs) <= DIST_RTOL,
+              f"distributed: world-1 {what} params differ: {max(diffs)}")
+        return steps, max(d for d, _ in diffs)
+
     pp, plain_rows, plain_ms, plain_peak = run(plain, fresh())
     sp, sharded_rows, sharded_ms, sharded_peak = run(
         sharded, place_state(fresh(), mesh))
-    diffs = _dist_params_diff(sp, pp)
-    del pp, sp
-    for i in range(DIST_STEPS):
-        a, b = sharded_rows[i], plain_rows[i]
-        rel = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
-               for k in ("loss", "nll", "grad_norm")}
-        out["steps"].append({"sharded": a, "plain": b, "rel": rel})
-        check(max(rel.values()) <= DIST_RTOL,
-              f"distributed: world-1 sharded step {i} against plain: {rel}")
-    check(max(r for _, r in diffs) <= DIST_RTOL,
-          f"distributed: world-1 params differ: {max(diffs)}")
-    out["param_max_abs_diff"] = max(d for d, _ in diffs)
+    out["steps"], out["param_max_abs_diff"] = against_plain(
+        "sharded", sharded_rows, sp)
+    del sp
     out["params_bitwise"] = out["param_max_abs_diff"] == 0.0
+    # the sequence-parallel step (the sequence over model), gated alone
+    seqpar = make_train_step(cfg, lr_fn=_lr_fn(), mesh=mesh,
+                             rules=SEQ_PARALLEL_TRAIN_RULES)
+    qp, seqpar_rows, _, _ = run(seqpar, place_state(fresh(), mesh), timed=0)
+    steps, diff = against_plain("seqpar", seqpar_rows, qp)
+    out["seqpar"] = {"steps": steps, "param_max_abs_diff": diff}
+    del pp, qp
     out["step_ms"] = {"sharded": spread(sharded_ms),
                       "plain": spread(plain_ms)}
     out["sharded_over_plain"] = (out["step_ms"]["sharded"]["mean"]
@@ -5377,7 +5508,31 @@ def _dist_world1():
     whole = xp
     for i in range(PIPE_L):
         whole = _pipe_block(whole, {"w": params["w"][i], "b": params["b"][i]})
+    # the gradient through the one-stage pipeline: sequential autograd's
+    c = torch.randn(PIPE_B, PIPE_D, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    leaves_ = [params["w"], params["b"], xp]
+
+    def grads(run):
+        ts = [t.clone().requires_grad_() for t in leaves_]
+        loss = (run({"w": ts[0], "b": ts[1]}, ts[2]) * c).sum()
+        return torch.autograd.grad(loss, ts)
+
+    def sequential(p, h):
+        outs = []
+        for mb in h.reshape(PIPE_MB, -1, PIPE_D):
+            for i in range(PIPE_L):
+                mb = _pipe_block(mb, {"w": p["w"][i], "b": p["b"][i]})
+            outs.append(mb)
+        return torch.stack(outs).reshape(PIPE_B, PIPE_D)
+    gp = grads(lambda p, h: pipeline_forward(_pipe_block, p, h, mesh=mesh,
+                                             microbatches=PIPE_MB))
+    gs = grads(sequential)
+    check(all(torch.equal(a, b) for a, b in zip(gp, gs)),
+          "distributed: the one-stage pipeline's gradients are not "
+          "sequential autograd's")
     out.update(int8_pod_of_one_is_x=True, pipeline_bitwise=True,
+               pipeline_grad_bitwise=True,
                pipeline_vs_whole_batch_max_abs=float(
                    (got - whole).abs().max()))
     dist.destroy_process_group()
@@ -5498,26 +5653,35 @@ def phase_distributed(state):
           "launch_delta": delta, "seconds": time.monotonic() - t0})
 
 
-ANALYTIC_CELL = ("llama3p2_1b", "decode_32k")   # the dry-run cell of (c)
+# the dry-run cells of (c): (arch, shape, variant)
+ANALYTIC_CELLS = (("llama3p2_1b", "decode_32k", "base"),
+                  ("gemma3_4b", "decode_32k", "unroll_local"))
+_DRYRUN_CELLS = """
+import sys
+from repro_torch.launch import dryrun
+out = sys.argv[1]
+for i, (arch, shape, variant) in enumerate(%r):
+    dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--variant", variant, "--out", out]
+                + (["--force"] if i == 0 else []))
+"""
 
 
 def _dryrun_cell():
-    """(c) one full-width dry-run cell in its own process on the CPU (its
-    fake process group of 256 ranks never meets this process's groups),
-    started before the first phase so that it runs beside them; its row
-    and output go to ``build/analytic/``.  Returns (process, row file,
-    log file)."""
+    """(c) the full-width dry-run cells of ANALYTIC_CELLS one after the
+    other in one process on the CPU (its fake process group of 256 ranks
+    never meets this process's groups), started before the first phase so
+    that it runs beside them; its rows and output go to
+    ``build/analytic/``.  Returns (process, row file, log file)."""
     import os
     out = ROOT / "build" / "analytic" / "dryrun.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     log = out.with_suffix(".log")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    arch, shape = ANALYTIC_CELL
     with open(log, "w") as f:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "single", "--force", "--out",
+            [sys.executable, "-c", _DRYRUN_CELLS % (ANALYTIC_CELLS,),
              str(out)], env=env, stdout=f, stderr=subprocess.STDOUT,
             text=True)
     return proc, out, log
@@ -5589,9 +5753,9 @@ def phase_analytic(state):
     formula: 32 decode_attn and 32 kv_append reports), its roofline terms
     and the share of that bound the replayed step (serve_graph) reaches;
     (b) ``model_flops`` of the step beside the counter's matmul FLOPs; (c)
-    one full-width dry-run cell (llama3.2-1b x decode_32k on 16 x 16 fake
-    ranks) in a subprocess on the CPU, started before the first phase
-    (``main``) and read here."""
+    two full-width dry-run cells (llama3.2-1b x decode_32k and gemma3-4b x
+    decode_32k x unroll_local on 16 x 16 fake ranks) in a subprocess on
+    the CPU, started before the first phase (``main``) and read here."""
     import gc
     import json as _json
     import torch
@@ -5608,16 +5772,23 @@ def phase_analytic(state):
             proc.kill()
             proc.wait()
     text = log.read_text()
-    check(proc.returncode == 0, f"analytic dry-run cell failed: "
+    check(proc.returncode == 0, f"analytic dry-run cells failed: "
           f"rc {proc.returncode}: {text[-2000:]}")
-    row = next(r for r in _json.loads(out.read_text())
-               if (r["arch"], r["shape"]) == ANALYTIC_CELL)
-    check(row["status"] == "ok", f"analytic dry-run cell: {row}")
-    row.pop("trace", None)
-    line = next(ln for ln in text.splitlines()
-                if ln.startswith(ANALYTIC_CELL[0]))
+    rows, lines = [], []
+    for arch, shape, variant in ANALYTIC_CELLS:
+        row = next(r for r in _json.loads(out.read_text())
+                   if (r["arch"], r["shape"], r["variant"])
+                   == (arch, shape, variant))
+        check(row["status"] == "ok", f"analytic dry-run cell: {row}")
+        row.pop("trace", None)
+        rows.append(row)
+        lines.append(next(ln for ln in text.splitlines()
+                          if ln.startswith(arch) and variant in ln))
     emit({"phase": "analytic", "gpu": state["gpu"], "step": step,
-          "dryrun_cell": row, "dryrun_line": line,
+          "dryrun_cell": rows[0], "dryrun_line": lines[0],
+          "dryrun_unroll_cell": rows[1], "dryrun_unroll_line": lines[1],
+          "dryrun_trace_s": {f"{a} {s} {v}": r["compile_s"]
+                             for (a, s, v), r in zip(ANALYTIC_CELLS, rows)},
           "seconds": time.monotonic() - t0})
 
 

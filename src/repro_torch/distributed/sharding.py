@@ -331,7 +331,60 @@ def logical(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
             else None for i, ax in enumerate(spec)]
     if not is_dtensor(x):
         return x
+    # a mesh axis two names map to (``seq`` and ``heads`` under sequence
+    # parallelism) splits the last of their dims: the heads, the ff or
+    # the vocab shard of a product, whose sequence is whole
+    used = set()
+    for i in reversed(range(len(dims))):
+        axes = () if dims[i] is None else (
+            (dims[i],) if isinstance(dims[i], str) else tuple(dims[i]))
+        if used & set(axes):
+            dims[i] = None
+        used |= set(axes)
     return redistribute(x, P(*dims), ctx.mesh)
+
+
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, S, ...) with its sequence dim whole on every rank: under
+    sequence parallelism (``rules["seq"]`` set) the all-gather before a
+    product with a column-split weight, whose flattened rows DTensor
+    cannot propagate when the batch and the sequence are both split.
+    ``x`` itself where its sequence is not split or outside a context."""
+    if not is_sharded(x) or x.ndim < 3:
+        return x
+    return _seq_unsplit(x)
+
+
+def seq_whole_grad(y: torch.Tensor) -> torch.Tensor:
+    """``y`` (B, S, ...), whose gradient is laid out by :func:`seq_whole`
+    on its way back: the output of a layer that flattens a whole
+    sequence's tokens (the MoE dispatch), met by a sequence-split
+    gradient under sequence parallelism."""
+    if not is_sharded(y) or y.ndim < 3 or not torch.is_grad_enabled():
+        return y
+    return _SeqWholeGrad.apply(y)
+
+
+def _seq_unsplit(x):
+    from torch.distributed.tensor import Replicate, Shard
+    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+           for pl in x.placements]
+    if pls == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pls)
+
+
+class _SeqWholeGrad(torch.autograd.Function):
+    """The identity, whose backward lays its gradient out as
+    :func:`seq_whole` does."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_unsplit(g) if is_dtensor(g) else g
 
 
 def is_dtensor(x) -> bool:

@@ -284,25 +284,39 @@ def decode_attention_skvq(q, cache, cfg: ArchConfig, policy: QuantPolicy,
     the view); with ``prune_blocks`` a tile no slot can attend
     (``segments.block_live``) is skipped, whose merge would be an exact
     no-op.  The skip reads the tiles' liveness on the host once a call:
-    this is the oracle path, not the served one."""
+    this is the oracle path, not the served one.  Where the liveness
+    cannot be read on the host (a fake or meta tensor, a DTensor: a
+    dry-run's trace), every tile is attended and a dead tile's merge is
+    discarded by a select on the device, as the reference's ``lax.cond``
+    discards it."""
     return skvq_parts(q, cache, cfg, policy, window=window, dtype=dtype,
                       chunk=chunk, local_slice=local_slice,
                       packed_override=packed_override, extra_kv=extra_kv,
                       q_pos=q_pos, prune_blocks=prune_blocks)[0]
 
 
+def _host_readable(t: torch.Tensor) -> bool:
+    """Whether ``t``'s values can be read on the host: not a meta or fake
+    tensor (a dry-run's trace) and not a DTensor."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor import DTensor
+    return not (t.is_meta or is_fake(t) or isinstance(t, DTensor))
+
+
 def skvq_parts(q, cache, cfg: ArchConfig, policy: QuantPolicy,
                window: Optional[int] = None, dtype=torch.bfloat16,
                chunk: int = 0, local_slice: int = 0, packed_override=None,
                extra_kv=None, q_pos=None, prune_blocks: bool = True,
-               fp: bool = True):
+               fp: bool = True, packed_keep=None):
     """:func:`decode_attention_skvq`'s work: (the normalized output
     (B, 1, Hq, D), the flash partials ``[(num, m, l), ...]`` it merged:
     the packed segment's first where there is one, then the fp
     segments').  ``fp`` False leaves the fp segments out (the output is
     then the packed segment's alone): a rank of a context-parallel cache
     merges its packed partial with the other ranks' before the fp one
-    joins."""
+    joins.  ``packed_keep`` (B, S_eff) bool narrows the packed walk to
+    the tokens it marks (that rank's part of the unrolled step's local
+    slice)."""
     if kvc.is_pooled(cache):
         cache = kvc.unpool_cache(cache)
     w, ns = policy.window, policy.n_sink
@@ -336,6 +350,8 @@ def skvq_parts(q, cache, cfg: ArchConfig, policy: QuantPolicy,
                                     packed_override)
         pos_q, stored_q = seg.packed_segment(j, lens, ns, w)
         ok_q = seg.bcast_rows(seg.attend_ok(pos_q, stored_q, t_now, weff), b)
+        if packed_keep is not None:
+            ok_q = ok_q & packed_keep
 
         def dq(qt, bits):
             return dequantize_groups(qt, d, bits, gsz, policy.fp8_meta, dtype)
@@ -343,8 +359,11 @@ def skvq_parts(q, cache, cfg: ArchConfig, policy: QuantPolicy,
         sq_eff = k_qt["codes_hi"].shape[1]
         if chunk and sq_eff > chunk and sq_eff % chunk == 0:
             nc = sq_eff // chunk
-            live = (seg.block_live(ok_q, chunk).any(dim=0).tolist()
-                    if prune_blocks else [True] * nc)
+            live = seg.block_live(ok_q, chunk).any(dim=0) if prune_blocks \
+                else None
+            on_host = live is not None and _host_readable(live)
+            if on_host:
+                live = live.tolist()
             part = (torch.zeros((b, hkv, hq // hkv, d), dtype=torch.float32,
                                 device=q.device),
                     torch.full((b, hkv, hq // hkv), _NEG,
@@ -352,14 +371,19 @@ def skvq_parts(q, cache, cfg: ArchConfig, policy: QuantPolicy,
                     torch.zeros((b, hkv, hq // hkv), dtype=torch.float32,
                                 device=q.device))
             for c in range(nc):
-                if not live[c]:
+                if on_host and not live[c]:
                     continue          # a dead tile: an exact no-op merge
                 sl = slice(c * chunk, (c + 1) * chunk)
                 tile = lambda qt: {kk: vv[:, sl] for kk, vv in qt.items()}
-                part = seg.merge_partials(part, seg.partial_attend(
+                new = seg.merge_partials(part, seg.partial_attend(
                     qg, dq(tile(k_qt), policy.bits_k),
                     dq(tile(v_qt), policy.bits_v), ok_q[:, sl], scale,
                     cfg.attn_softcap))
+                if live is not None and not on_host:
+                    # the reference's lax.cond, as a select on the device
+                    new = tuple(torch.where(live[c], a, o)
+                                for a, o in zip(new, part))
+                part = new
             parts.append(part)
         else:
             keys = logical(dq(k_qt, policy.bits_k),

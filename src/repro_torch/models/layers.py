@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from ..distributed.sharding import logical
+from ..distributed.sharding import logical, seq_whole
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -104,6 +104,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 def mlp(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
     """Gated (or plain) MLP: act(x @ wi_gate) * (x @ wi_up) @ wo."""
     a = act_fn(cfg.mlp_act)
+    x = seq_whole(x)
     if cfg.mlp_gated:
         g = logical(x @ p["wi_gate"], "batch", "seq", "ff")
         u = logical(x @ p["wi_up"], "batch", "seq", "ff")
@@ -128,5 +129,5 @@ def embed(tokens: torch.Tensor, emb: torch.Tensor, scale: bool):
 
 def unembed(x: torch.Tensor, params, cfg: ArchConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = logical(x @ w.to(x.dtype), "batch", "seq", "vocab")
+    logits = logical(seq_whole(x) @ w.to(x.dtype), "batch", "seq", "vocab")
     return softcap(logits, cfg.logit_softcap)

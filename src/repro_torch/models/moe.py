@@ -25,7 +25,7 @@ import torch
 
 from .config import ArchConfig
 from .layers import act_fn
-from ..distributed.sharding import logical
+from ..distributed.sharding import logical, seq_whole, seq_whole_grad
 
 
 def _capacity(n_tokens: int, cfg: ArchConfig) -> int:
@@ -65,10 +65,12 @@ GROUP_TOKENS = 4096  # tokens per dispatch group
 
 def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig, *, with_aux: bool = True
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x (B, S, D) -> (out (B, S, D), aux loss) by ``cfg.moe_dispatch``."""
-    if cfg.moe_dispatch == "scatter":
-        return moe_ffn_scatter(x, p, cfg, with_aux=with_aux)
-    return moe_ffn_grouped(x, p, cfg, with_aux=with_aux)
+    """x (B, S, D) -> (out (B, S, D), aux loss) by ``cfg.moe_dispatch``
+    (the tokens flattened from a whole sequence: ``seq_whole``)."""
+    x = seq_whole(x)
+    fn = moe_ffn_scatter if cfg.moe_dispatch == "scatter" else moe_ffn_grouped
+    out, aux = fn(x, p, cfg, with_aux=with_aux)
+    return seq_whole_grad(out), aux
 
 
 def _experts(xin: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from ..distributed.sharding import logical
+from ..distributed.sharding import logical, seq_whole
 from ..device import resolve_device
 
 
@@ -99,8 +99,8 @@ def ssm_forward(x: torch.Tensor, p, cfg: ArchConfig,
     state is the last K-1 conv inputs, zero rows in front where the prompt
     is shorter (the reference returns only the rows it has, and its decode
     then fails to broadcast; ROADMAP §3)."""
-    xz = logical(x @ p["in_proj"], "batch", "seq", "ff")      # (B, S, 2 Di)
-    xs_raw, z = xz.chunk(2, dim=-1)
+    xz = logical(seq_whole(x) @ p["in_proj"], "batch", "seq", "ff")
+    xs_raw, z = xz.chunk(2, dim=-1)                           # (B, S, Di)
     xs = F.silu(_conv_causal(xs_raw, p["conv_w"]) + p["conv_b"])
     bmat, cmat, dt = _split_proj(xs, p, cfg)
     a = -torch.exp(p["a_log"].to(torch.float32))              # (Di, N)

@@ -94,8 +94,8 @@ from ..device import resolve_device
 from ..distributed.sharding import (P, axis_size, carry_context,
                                     current_mesh, is_sharded, local_index,
                                     logical, merge_heads, run_local,
-                                    shard_count, spec_for, spec_of,
-                                    whole_heads)
+                                    seq_whole, shard_count, spec_for,
+                                    spec_of, whole_heads)
 
 Params = Dict
 
@@ -485,7 +485,7 @@ def _layer_rope(cfg: ArchConfig, ropes, i: int):
 
 def _proj(x, p, w: str, bias: str):
     """``x @ p[w]``, plus ``p[bias]`` where the layer has one (qkv_bias)."""
-    y = x @ p[w]
+    y = seq_whole(x) @ p[w]
     return y + p[bias] if bias in p else y
 
 
@@ -1066,27 +1066,53 @@ def _decode_positions(cfg: ArchConfig, t, positions):
     return pos[:, None]
 
 
+def _hoists(cfg: ArchConfig, group, bs: int, be: int) -> bool:
+    """Whether the unrolled step hoists a local slice of this band: it
+    has a local layer and a striped packed region longer than the local
+    window (pool-major planes have no per-slot token axis; a pooled
+    band's local layers take the backend's ``local_slice`` route
+    instead)."""
+    lw = cfg.local_window
+    return (lw > 0 and "block_tbl" not in group and "qk_codes_hi" in group
+            and group["qk_codes_hi"].shape[2] > lw
+            and any(cfg.layer_is_local(i) for i in range(bs, be)))
+
+
 def _local_hoist(cfg: ArchConfig, group, pol: QuantPolicy, t, bs: int,
                  be: int):
     """The unrolled step's hoisted local view of one band: ONE stacked
     gather of each slot's last ``local_window`` packed tokens of every
     layer, ``(k_planes, v_planes, j)`` with planes ``(L_band, B, lw, ...)``
     and ``j`` (B, lw) their packed indices, taken from the pre-step cache
-    (reference ``transformer.py:923-950``).  None when the band has no
-    local layer, no packed region longer than the window, or is pooled
-    (pool-major planes have no per-slot token axis; its local layers take
-    the backend's ``local_slice`` route instead)."""
+    (reference ``transformer.py:923-950``).  None where the band does not
+    hoist (:func:`_hoists`).  On a mesh each rank gathers from its own
+    batch rows and kv heads, so the planes are laid out like the cache
+    they come from; None too where the planes are split along their
+    tokens (``LONG_SERVE_RULES``: each rank's local layers narrow their
+    own shard to the slice instead, :func:`_context_parallel_attention`)."""
+    if not _hoists(cfg, group, bs, be):
+        return None
     lw = cfg.local_window
-    if (lw <= 0 or "block_tbl" in group or "qk_codes_hi" not in group
-            or not any(cfg.layer_is_local(i) for i in range(bs, be))):
-        return None
     s_q = group["qk_codes_hi"].shape[2]
-    if s_q <= lw:
-        return None
-    gidx = slice_indices(t + 1, pol, lw, s_q)                 # (B, lw)
     k_qt, v_qt = packed_planes(group)
-    return ({k: take_tokens(v, gidx) for k, v in k_qt.items()},
-            {k: take_tokens(v, gidx) for k, v in v_qt.items()}, gidx)
+    kn, vn = sorted(k_qt), sorted(v_qt)
+
+    def hoist(t, *planes):
+        gidx = slice_indices(t + 1, pol, lw, s_q)                 # (B, lw)
+        return tuple(take_tokens(a, gidx) for a in planes) + (gidx,)
+    planes = [k_qt[n] for n in kn] + [v_qt[n] for n in vn]
+    if is_sharded(t):
+        _, b_ax, s_ax, h_ax = spec_of(group["qk_codes_hi"])[:4]
+        if s_ax is not None:
+            return None
+        ps = P(None, b_ax, None, h_ax, None)
+        out = run_local(hoist, (t, *planes),
+                        (P(b_ax),) + (None,) * len(planes),
+                        (ps,) * len(planes) + (P(b_ax, None),))
+    else:
+        out = hoist(t, *planes)
+    return (dict(zip(kn, out[:len(kn)])), dict(zip(vn, out[len(kn):-1])),
+            out[-1])
 
 
 def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
@@ -1126,7 +1152,12 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
     in the reference, the two orders differ where the policy window is
     shorter than the local window: the token the append evicts is read in
     fp before it and quantized after, so a pooled band's unrolled step is
-    not the striped one's there."""
+    not the striped one's there.  On a mesh the hoist and each layer run
+    on every rank's own batch rows and kv heads (:func:`_local_hoist`,
+    :func:`_sharded_attention`); where the packed planes are split along
+    their tokens (``LONG_SERVE_RULES``) each rank attends over the part
+    of its shard inside the slice and the partials merge across the
+    ranks (:func:`_context_parallel_attention`)."""
     _check_family(cfg)
     bands = _bands(cfg, policy, calib)
     params = _cast_params(params, dtype)
@@ -1152,7 +1183,9 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
         perm_q = _expand_perm(cal["perm_k"], cfg.n_heads)
         inv_v = _expand_perm(_inverse_perm(cal["perm_v"]), cfg.n_heads)
         group = _band_cache(caches["scan"], bands, bs)
-        hoist = _local_hoist(cfg, group, pol, t, bs, be) if unroll else None
+        pre_band = unroll and _hoists(cfg, group, bs, be)
+        hoist = _local_hoist(cfg, group, pol, t, bs, be) if pre_band \
+            else None
         for i in range(bs, be):
             j = i - bs
             p = _layer_params(params, cfg, i)
@@ -1165,17 +1198,18 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                   "perm_v": cal["perm_v"][j], "inv_v": inv_v[j],
                   "alpha_k": cal["alpha_k"][j], "alpha_v": cal["alpha_v"][j]}
             local = unroll and cfg.layer_is_local(i) and cfg.local_window > 0
+            pre = local and pre_band
             po = None
-            if local and hoist is not None:
+            if pre and hoist is not None:
                 po = ({n: a[j] for n, a in hoist[0].items()},
                       {n: a[j] for n, a in hoist[1].items()}, hoist[2])
 
-            def body(q, k, v, cache, lc, pol=pol, append=append, po=po,
-                     local=local, i=i):
+            def body(q, k, v, cache, lc, t, po, pol=pol, append=append,
+                     pre=pre, local=local, i=i):
                 qp = _apply_perm(q, lc["perm_q"])
                 kp = _apply_perm(k, lc["perm_k"])
                 vp = _apply_perm(v, lc["perm_v"])
-                if po is not None:
+                if pre:
                     # pre-append: the slice holds the pre-step cache, so
                     # attend first (the current token as an fp segment),
                     # then append
@@ -1193,13 +1227,11 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                         local_slice=cfg.local_window if local else 0, **lever)
                 return _apply_perm(attn, lc["inv_v"])
             if is_sharded(q):
-                if local:
-                    raise NotImplementedError(
-                        "decode_step(unroll=True) runs on one device only")
                 attn = _sharded_attention(body, q, k, v, cache, lc, cfg, pol,
-                                          backend, _window(cfg, i), x.dtype)
+                                          backend, _window(cfg, i), x.dtype,
+                                          t=t, po=po, pre=pre)
             else:
-                attn = body(q, k, v, cache, lc)
+                attn = body(q, k, v, cache, lc, t, po)
             attn = _attn_out(attn, p["attn"])
             if "ssm" in p:
                 sout, _ = ssm_lib.ssm_decode(
@@ -1214,7 +1246,8 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
                 qx = _heads(L.norm(x, p["norm_x"], cfg) @ p["xattn"]["wq"],
                             cfg.n_heads, cfg)
 
-                def xbody(qx, _k, _v, xcache, lc, pol=pol):
+                def xbody(qx, _k, _v, xcache, lc, _t=None, _po=None,
+                          pol=pol):
                     xo = backend.attend(_apply_perm(qx, lc["perm_q"]),
                                         xcache, cfg, pol.without_window(),
                                         dtype=x.dtype)
@@ -1232,16 +1265,20 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
 
 
 def _sharded_attention(body, q, k, v, cache, lc, cfg: ArchConfig, pol,
-                       backend, window: int, dtype, append: bool = True):
+                       backend, window: int, dtype, append: bool = True,
+                       t=None, po=None, pre: bool = False):
     """A decode layer's append and attention on DTensors: ``body`` (the
     one-device append + attend + inverse permutation) on each rank's own
     batch rows and kv heads, the layout of the cache itself, which the
     append writes in place (q/k/v are laid out to match; the calibration
-    is cut to the rank's heads).  Where the packed planes are split along
-    their tokens (``LONG_SERVE_RULES``: batch 1, ``kv_seq`` over the data
-    axes) :func:`_context_parallel_attention` runs instead; ``append``
-    False (an enc-dec layer's cross cache, attended and never appended
-    to) has no such route."""
+    is cut to the rank's heads; the slot positions ``t`` and an unrolled
+    local layer's hoisted slice ``po`` are the rank's rows of them).
+    Where the packed planes are split along their tokens
+    (``LONG_SERVE_RULES``: batch 1, ``kv_seq`` over the data axes)
+    :func:`_context_parallel_attention` runs instead (``pre``: the
+    unrolled step's pre-append protocol); ``append`` False (an enc-dec
+    layer's cross cache, attended and never appended to) has no such
+    route."""
     ref = cache["win_k"] if "win_k" in cache else next(
         cache[n] for n in ("qk_codes_hi", "k") if n in cache)
     b_ax, _, h_ax, _ = spec_of(ref)
@@ -1257,16 +1294,37 @@ def _sharded_attention(body, q, k, v, cache, lc, cfg: ArchConfig, pol,
             raise NotImplementedError(
                 "a cross-attention cache split along its frames")
         fn = _context_parallel_attention(keys, lcl, cfg, pol, backend,
-                                         window, dtype, s_ax)
-    else:
-        def fn(q, k, v, *leaves):
-            return body(q, k, v, dict(zip(keys, leaves)), lcl)
-    return run_local(fn, (q, k, v, *[cache[n] for n in keys]),
-                     (spec, spec, spec) + (None,) * len(keys), spec)
+                                         window, dtype, s_ax, pre)
+        return run_local(fn, (q, k, v, *[cache[n] for n in keys]),
+                         (spec, spec, spec) + (None,) * len(keys), spec)
+    # a cache the layer writes in place is passed on as its own shards; a
+    # cross cache (read only) is laid out by rows and heads first (the
+    # cache plan splits an fp16 cross cache's head dim, as the reference's
+    # does: attention needs it whole)
+    leaf_specs = (None,) * len(keys) if append else tuple(
+        P(b_ax, *(None,) * (cache[n].ndim - 1)) if cache[n].ndim < 4 else
+        P(b_ax, None, h_ax, *(None,) * (cache[n].ndim - 3)) for n in keys)
+    # the hoisted slice: planes laid out like the cache, indices by rows
+    pk, pv = (sorted(po[0]), sorted(po[1])) if po is not None else ([], [])
+    po_args = ([po[0][n] for n in pk] + [po[1][n] for n in pv] + [po[2]]
+               if po is not None else [])
+    po_specs = ((spec,) * (len(pk) + len(pv)) + (P(b_ax, None),)
+                if po is not None else ())
+
+    def fn(q, k, v, t, *rest):
+        n = len(po_args)
+        lpo = None
+        if po is not None:
+            lpo = (dict(zip(pk, rest[:len(pk)])),
+                   dict(zip(pv, rest[len(pk):n - 1])), rest[n - 1])
+        return body(q, k, v, dict(zip(keys, rest[n:])), lcl, t, lpo)
+    return run_local(fn, (q, k, v, t, *po_args, *[cache[n] for n in keys]),
+                     (spec, spec, spec, None if t is None else P(b_ax))
+                     + po_specs + leaf_specs, spec)
 
 
 def _context_parallel_attention(keys, lc, cfg: ArchConfig, pol, backend,
-                                window: int, dtype, s_ax):
+                                window: int, dtype, s_ax, pre: bool = False):
     """The local function of a context-parallel decode layer (the
     reference backend): the append writes the evicted token into the rank
     whose shard of the packed tokens holds its index
@@ -1274,7 +1332,15 @@ def _context_parallel_attention(keys, lc, cfg: ArchConfig, pol, backend,
     rank and written by each); each rank attends over its packed shard,
     the ``(num, m, l)`` partials merge across the ranks by logsumexp (an
     all-reduce of the max, then of the rescaled sums: ``merge_splits``'
-    math), and the fp segments' partial joins last."""
+    math), and the fp segments' partial joins last.
+
+    ``pre`` (a local layer of the unrolled step): the layer attends
+    BEFORE its append, as on one device.  The hoisted slice
+    ``[st0, st0 + local_window)`` of the packed tokens may cross ranks:
+    each rank attends over the part of its own shard inside it (a mask
+    where the reference's GSPMD gathers), the partials merge as above,
+    and the fp segments join last with the current token as one more
+    segment."""
     from torch.distributed import _functional_collectives as funcol
     from ..distributed.sharding import local_scaled, mesh_group
     from .attention import _scale, fp_segment_partial, skvq_parts
@@ -1284,33 +1350,47 @@ def _context_parallel_attention(keys, lc, cfg: ArchConfig, pol, backend,
             "reference backend")
     n_sh = axis_size(current_mesh(), s_ax)
     group = mesh_group(s_ax)
+    lw = cfg.local_window
 
     def fn(q, k, v, *leaves):
         c = dict(zip(keys, leaves))
         n_loc = c["qk_codes_hi"].shape[1]
         off = local_index(s_ax) * n_loc
         qp = _apply_perm(q, lc["perm_q"])
-        kvc.decode_append(c, _apply_perm(k, lc["perm_k"]),
-                          _apply_perm(v, lc["perm_v"]), pol, lc["alpha_k"],
-                          lc["alpha_v"], packed_span=(off, n_loc * n_sh))
+        kp = _apply_perm(k, lc["perm_k"])
+        vp = _apply_perm(v, lc["perm_v"])
+
+        def append():
+            kvc.decode_append(c, kp, vp, pol, lc["alpha_k"], lc["alpha_v"],
+                              packed_span=(off, n_loc * n_sh))
+        if not pre:
+            append()
         b, _, hq, d = qp.shape
         hkv = c["qk_codes_hi"].shape[2]
         k_qt, v_qt = packed_planes(c)
         j = torch.arange(off, off + n_loc, device=q.device)
+        lens = kvc.slot_lengths(c, b)
+        t_now, keep, extra = lens - 1, None, None
+        if pre:
+            st0 = slice_indices(lens + 1, pol, lw, n_loc * n_sh)[:, :1]
+            keep = (j[None] >= st0) & (j[None] < st0 + lw)
+            t_now = lens
+            extra = (kp.to(dtype), vp.to(dtype), lens)
         with local_scaled(n_sh):
             _, parts = skvq_parts(qp, c, cfg, pol, window=window,
                                   dtype=dtype, packed_override=(k_qt, v_qt, j),
-                                  fp=False)
+                                  q_pos=t_now, fp=False, packed_keep=keep)
         num, m, l = parts[0]
         m_g = funcol.all_reduce(m, "max", group)
         w = torch.exp(m - m_g)
         num = funcol.all_reduce(num * w[..., None], "sum", group)
         l = funcol.all_reduce(l * w, "sum", group)
-        lens = kvc.slot_lengths(c, b)
         fp = fp_segment_partial(qp.reshape(b, hkv, hq // hkv, d), c, pol,
-                                lens, lens - 1, seg.effective_window(window),
-                                _scale(cfg), cfg.attn_softcap, dtype)
+                                lens, t_now, seg.effective_window(window),
+                                _scale(cfg), cfg.attn_softcap, dtype, extra)
         out = seg.finalize([(num, m_g, l)] + fp).reshape(b, 1, hq, d)
+        if pre:
+            append()
         return _apply_perm(out.to(q.dtype), lc["inv_v"])
     return fn
 

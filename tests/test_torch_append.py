@@ -23,7 +23,6 @@ import torch
 
 import jax.numpy as jnp
 
-from repro.core import kv_cache as jkvc
 from repro.core.policy import QuantPolicy as JPolicy
 from repro.core.quant import quantize_groups as j_quantize
 from repro.kernels.kv_quant import kv_quant_pallas
@@ -37,6 +36,8 @@ from repro_torch.kernels import kv_quant as KQ
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts
 from repro_torch.models import transformer as T
 from test_torch_util import assert_tree_exact
+from test_torch_util import (  # noqa: F401
+    jax_cache_ops, jax_compile_cache, one_torch_thread)
 
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, n_sink=3)
 B, H, D, BT, NB = 4, 2, 32, 4, 6
@@ -94,11 +95,10 @@ def test_kv_append_cpu_equals_jax_decode_append(pooled, window, rng):
         kn = rng.normal(size=(B, 1, H, D)).astype(np.float32)
         vn = rng.normal(size=(B, 1, H, D)).astype(np.float32)
         valid = None if step % 4 == 3 else rng.uniform(size=B) < 0.75
-        cj = jkvc.decode_append(cj, jnp.asarray(kn), jnp.asarray(vn), pol_j,
-                                jnp.asarray(ak), jnp.asarray(av),
-                                quant_fn=qf_j,
-                                valid=None if valid is None
-                                else jnp.asarray(valid))
+        cj = jax_cache_ops().append(
+            cj, jnp.asarray(kn), jnp.asarray(vn), pol_j, jnp.asarray(ak),
+            jnp.asarray(av), quant_fn=qf_j,
+            valid=None if valid is None else jnp.asarray(valid))
         out = KQ.kv_append(ct, torch.from_numpy(kn), torch.from_numpy(vn),
                            pol_t, torch.from_numpy(ak), torch.from_numpy(av),
                            valid=None if valid is None

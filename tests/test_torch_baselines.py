@@ -36,6 +36,8 @@ from repro_torch.core import kv_cache as kvc
 from repro_torch.core.policy import (FP16_POLICY, PAPER_POLICY, QuantPolicy,
                                      fp16_guard)
 from test_torch_util import assert_tree_exact, bits_of, j2t
+from test_torch_util import (  # noqa: F401
+    jax_cache_ops, jax_compile_cache, one_torch_thread)
 
 METHOD_RTOL = 1e-6
 
@@ -224,13 +226,14 @@ def caches():
     b, s, h, d = 3, 30, 2, 32
     k = rng.normal(size=(b, s, h, d)).astype(np.float32)
     v = rng.normal(size=(b, s, h, d)).astype(np.float32)
-    cj = jkvc.prefill(jnp.asarray(k), jnp.asarray(v), MAX_LEN, jp)
+    ops = jax_cache_ops()
+    cj = ops.prefill(jnp.asarray(k), jnp.asarray(v), MAX_LEN, jp)
     for step in range(11):
         kn = rng.normal(size=(b, 1, h, d)).astype(np.float32)
         vn = rng.normal(size=(b, 1, h, d)).astype(np.float32)
         valid = np.asarray([True, step % 3 != 1, step < 4])
-        cj = jkvc.decode_append(cj, jnp.asarray(kn), jnp.asarray(vn), jp,
-                                valid=jnp.asarray(valid))
+        cj = ops.append(cj, jnp.asarray(kn), jnp.asarray(vn), jp,
+                        valid=jnp.asarray(valid))
     return {"striped": cj, "pooled": _pooled(cj)}
 
 

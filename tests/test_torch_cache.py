@@ -21,6 +21,8 @@ from repro_torch.core import segments as seg
 from repro_torch.core.quant import n_meta_groups
 from repro_torch.kernels.ops import make_kernel_quant_fn
 from test_torch_util import assert_tree_exact
+from test_torch_util import (  # noqa: F401
+    jax_cache_ops, jax_compile_cache, one_torch_thread)
 
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)
 
@@ -35,6 +37,7 @@ def _alpha(rng, h, g):
     (dict(KW, window=0, n_sink=2, bits_v=2.0), True)])
 def test_prefill_then_decode_append_exact(kernel_quant, kw, rng):
     pol_j, pol_t = JPolicy(**kw), QuantPolicy(**kw)
+    ops = jax_cache_ops()
     b, s, h, d, max_len = 3, 13, 2, 32, 64
     ak = _alpha(rng, h, n_meta_groups(d, kw["bits_k"], 16))
     av = _alpha(rng, h, n_meta_groups(d, kw["bits_v"], 16))
@@ -42,8 +45,8 @@ def test_prefill_then_decode_append_exact(kernel_quant, kw, rng):
     qf_t = make_kernel_quant_fn() if kernel_quant else None
     k = rng.normal(size=(b, s, h, d)).astype(np.float32)
     v = rng.normal(size=(b, s, h, d)).astype(np.float32)
-    cj = jkvc.prefill(jnp.asarray(k), jnp.asarray(v), max_len, pol_j,
-                      jnp.asarray(ak), jnp.asarray(av), quant_fn=qf_j)
+    cj = ops.prefill(jnp.asarray(k), jnp.asarray(v), max_len, pol_j,
+                     jnp.asarray(ak), jnp.asarray(av), quant_fn=qf_j)
     ct = kvc.prefill(torch.from_numpy(k), torch.from_numpy(v), max_len, pol_t,
                      torch.from_numpy(ak), torch.from_numpy(av),
                      quant_fn=qf_t)
@@ -52,9 +55,9 @@ def test_prefill_then_decode_append_exact(kernel_quant, kw, rng):
         kn = rng.normal(size=(b, 1, h, d)).astype(np.float32)
         vn = rng.normal(size=(b, 1, h, d)).astype(np.float32)
         valid = rng.uniform(size=b) < 0.8
-        cj = jkvc.decode_append(cj, jnp.asarray(kn), jnp.asarray(vn), pol_j,
-                                jnp.asarray(ak), jnp.asarray(av),
-                                quant_fn=qf_j, valid=jnp.asarray(valid))
+        cj = ops.append(cj, jnp.asarray(kn), jnp.asarray(vn), pol_j,
+                        jnp.asarray(ak), jnp.asarray(av), quant_fn=qf_j,
+                        valid=jnp.asarray(valid))
         out = kvc.decode_append(ct, torch.from_numpy(kn),
                                 torch.from_numpy(vn), pol_t,
                                 torch.from_numpy(ak), torch.from_numpy(av),
@@ -68,11 +71,12 @@ def test_prefill_then_decode_append_exact(kernel_quant, kw, rng):
 def test_short_prompts_fill_sinks_first(rng):
     pol_j, pol_t = JPolicy(**KW), QuantPolicy(**KW)
     k = rng.normal(size=(2, 2, 2, 32)).astype(np.float32)
-    cj = jkvc.prefill(jnp.asarray(k), jnp.asarray(k), 40, pol_j)
+    ops = jax_cache_ops()
+    cj = ops.prefill(jnp.asarray(k), jnp.asarray(k), 40, pol_j)
     ct = kvc.prefill(torch.from_numpy(k), torch.from_numpy(k), 40, pol_t)
     for _ in range(20):
         kn = rng.normal(size=(2, 1, 2, 32)).astype(np.float32)
-        cj = jkvc.decode_append(cj, jnp.asarray(kn), jnp.asarray(kn), pol_j)
+        cj = ops.append(cj, jnp.asarray(kn), jnp.asarray(kn), pol_j)
         kvc.decode_append(ct, torch.from_numpy(kn), torch.from_numpy(kn),
                           pol_t)
     assert_tree_exact(ct, cj)
@@ -82,9 +86,10 @@ def test_slot_lifecycle_exact(rng):
     pol_j, pol_t = JPolicy(**KW), QuantPolicy(**KW)
     k = rng.normal(size=(3, 30, 2, 32)).astype(np.float32)
     src = rng.normal(size=(1, 17, 2, 32)).astype(np.float32)
-    cj = jkvc.prefill(jnp.asarray(k), jnp.asarray(k), 48, pol_j)
+    ops = jax_cache_ops()
+    cj = ops.prefill(jnp.asarray(k), jnp.asarray(k), 48, pol_j)
     ct = kvc.prefill(torch.from_numpy(k), torch.from_numpy(k), 48, pol_t)
-    sj = jkvc.prefill(jnp.asarray(src), jnp.asarray(src), 48, pol_j)
+    sj = ops.prefill(jnp.asarray(src), jnp.asarray(src), 48, pol_j)
     st = kvc.prefill(torch.from_numpy(src), torch.from_numpy(src), 48, pol_t)
     cj = jkvc.insert_slot(jkvc.reset_slot(cj, 1), 2, sj)
     kvc.insert_slot(kvc.reset_slot(ct, 1), 2, st)

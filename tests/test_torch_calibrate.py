@@ -48,6 +48,8 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quant import fake_quant, quantize_groups
 from repro_torch.models import transformer as T
 from test_torch_util import assert_tree_exact, bits_of
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 FQ_ATOL = 1e-6
 TIE_REL = 1e-6

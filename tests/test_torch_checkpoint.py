@@ -33,6 +33,8 @@ from repro_torch.convert import train_state_from_numpy, tree_to_numpy
 from repro_torch.training import init_train_state
 from repro_torch.tree import leaves
 from test_torch_util import bits_of
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 CPU = "cpu"
 

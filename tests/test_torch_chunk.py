@@ -51,6 +51,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving import Engine, Request, default_chunk_buckets
 from test_torch_util import assert_tree_exact, t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)
 ATTN_TOL = 1e-5

@@ -97,6 +97,8 @@ from repro_torch.kernels import kv_quant as KQ
 from repro_torch.models import transformer as T
 from test_torch_util import cuda_device  # noqa: F401  (fixture)
 from test_torch_util import stall_until_backpressure
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 pytestmark = pytest.mark.requires_cuda
 ATOL, RTOL = 3e-5, 1e-4

@@ -10,6 +10,8 @@ from repro.launch import serve as jserve
 
 from repro_torch.data import SyntheticCorpus
 from repro_torch.launch import serve as tserve
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 
 @pytest.mark.parametrize("vocab,seed", [(256, 0), (32000, 0), (64, 3)])

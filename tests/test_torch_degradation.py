@@ -50,6 +50,8 @@ from repro_torch.serving import loadgen as tload
 from _torch_degradation import (  # noqa: F401
     SHAPE, KW, JCFG, TCFG, MAX_LEN, BT, COUNTERS, BACKENDS, params, _JEngine,
     _sides, _defaults, _prompt, _drive, _summary, _both)
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 
 def test_reference_chunked_pool_leaves_the_activated_row_masked(params):

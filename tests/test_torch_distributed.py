@@ -33,7 +33,11 @@ run here.  The cases:
 * ``pipeline_forward`` over the 4-rank ``pod`` groups of a (4, 2) mesh on
   the reference test's case (L 8, B 8, D 16, tanh block), microbatches
   2, 4 and 8: within 1e-6 of the reference's and 1e-5 of the sequential
-  run.
+  run; its gradients (params and input) of ``sum(out * c)`` on every
+  rank within 1e-5 of sequential autograd and 1e-6 of ``jax.grad``
+  through the reference's, relative to the gradient's largest value.
+* one llama3.2-1b step under ``SEQ_PARALLEL_TRAIN_RULES`` against the
+  one-device step, at the train tolerances.
 * checkpoints: the sharded state saved is byte-equal to a one-device save
   of its values, and loads onto another layout (TP alone) with equal
   values.
@@ -63,6 +67,8 @@ from repro_torch.distributed.compression import int8_allreduce_pod
 from repro_torch.distributed.sharding import AbstractMesh
 from repro_torch.tree import leaves
 from repro_torch.training import init_train_state, make_train_step
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -120,8 +126,23 @@ def _pipe_case():
     return w, b, x
 
 
+def _pipe_cotangent():
+    """The cotangent the pipeline gradients are taken along: the loss is
+    ``sum(out * c)``."""
+    return np.random.default_rng(1).normal(
+        size=(PIPE["B"], PIPE["D"])).astype(np.float32)
+
+
 def _block(h, p):
     return torch.tanh(h @ p["w"] + p["b"])
+
+
+def _pipe_grads(run, w, b, x):
+    """(dw, db, dx) of ``sum(run(params, x) * c)`` by autograd."""
+    pw, pb, px = (torch.from_numpy(a).requires_grad_() for a in (w, b, x))
+    out = run({"w": pw, "b": pb}, px)
+    loss = (out * torch.from_numpy(_pipe_cotangent())).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, [pw, pb, px])]
 
 
 # ----------------------------------------------------------- the 8 ranks
@@ -133,7 +154,9 @@ def _rank_main(rank, world, port, out):
     from repro_torch.checkpoint import load_latest
     from repro_torch.distributed import compression
     from repro_torch.distributed.pipeline import pipeline_forward
-    from repro_torch.distributed.sharding import P, distribute, to_placements
+    from repro_torch.distributed.sharding import (SEQ_PARALLEL_TRAIN_RULES,
+                                                  P, distribute,
+                                                  to_placements)
     from repro_torch.launch.mesh import init_world, make_mesh
     from repro_torch.launch.shardings import named, state_shardings
     from repro_torch.training import place_state
@@ -191,6 +214,15 @@ def _rank_main(rank, world, port, out):
     stm, m = stepm(stm, _loader(mcfg).batch_at(0))
     res["moe"] = ({k: float(v) for k, v in m.items()}, _np(stm["params"]))
 
+    # llama3.2-1b: one sequence-parallel step (the sequence over model)
+    sts = place_state(train_state_from_numpy(init["llama"], cfg, device=CPU),
+                      mesh)
+    steps = make_train_step(cfg, lr_fn=lambda s: LR, mesh=mesh,
+                            rules=SEQ_PARALLEL_TRAIN_RULES)
+    sts, m = steps(sts, dl.batch_at(0))
+    res["seqpar"] = ({k: float(v) for k, v in m.items()},
+                     _np(sts["params"]))
+
     # int8 wire: replicated input, then distinct inputs a rank
     dtypes = []
     gather = compression.dist.all_gather_into_tensor
@@ -217,6 +249,13 @@ def _rank_main(rank, world, port, out):
     res["pipe"] = {mb: pipeline_forward(_block, params, torch.from_numpy(xp),
                                         mesh=pmesh, microbatches=mb).numpy()
                    for mb in MICROBATCHES}
+    grads = {}
+    for mb in MICROBATCHES:
+        run = lambda p, v: pipeline_forward(_block, p, v, mesh=pmesh,
+                                            microbatches=mb)
+        grads.update({f"{mb}_{n}": g for n, g in
+                      zip("wbx", _pipe_grads(run, w, b, xp))})
+    np.savez(out / f"pipe_grad_{rank}.npz", **grads)
     if rank == 0:
         with open(out / "res.pkl", "wb") as f:
             pickle.dump(res, f)
@@ -272,12 +311,19 @@ _REFERENCE = textwrap.dedent("""
         seq = block(seq, {"w": params["w"][i], "b": params["b"][i]})
     res["pipe_seq"] = np.asarray(seq)
     pmesh = Mesh(np.array(jax.devices()[:4]), ("pod",))
-    res["pipe"] = {}
+    res["pipe"], res["pipe_grad"] = {}, {}
+    cot = jnp.asarray(case["pipe_cot"])
     for mb in case["microbatches"]:
         with pmesh:
             res["pipe"][mb] = np.asarray(jax.jit(lambda v: pipeline_forward(
                 block, params, v, mesh=pmesh, axis="pod",
                 microbatches=mb))(jnp.asarray(xp)))
+            loss = lambda p, v: jnp.sum(pipeline_forward(
+                block, p, v, mesh=pmesh, axis="pod", microbatches=mb) * cot)
+            gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+                params, jnp.asarray(xp))
+        res["pipe_grad"][mb] = [np.asarray(gp["w"]), np.asarray(gp["b"]),
+                                np.asarray(gx)]
     pickle.dump(res, open(os.path.join(out, "reference.pkl"), "wb"))
 """)
 
@@ -300,7 +346,8 @@ def world8(tmp_path_factory):
         pickle.dump(init, f)
     case = {"int8_x": np.random.default_rng(7).normal(size=(16, 33)).astype(
                 np.float32),
-            "pipe": _pipe_case(), "microbatches": MICROBATCHES}
+            "pipe": _pipe_case(), "pipe_cot": _pipe_cotangent(),
+            "microbatches": MICROBATCHES}
     with open(out / "case.pkl", "wb") as f:
         pickle.dump(case, f)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -479,6 +526,46 @@ def test_pipeline_forward_matches_reference_and_sequential(world8,
         assert np.abs(got - ref["pipe"][microbatches]).max() <= 1e-6
         assert np.abs(got - h.numpy()).max() <= 1e-5
         assert np.abs(got - ref["pipe_seq"]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("microbatches", MICROBATCHES)
+def test_pipeline_gradients_match_reference_and_sequential(world8,
+                                                           microbatches):
+    """Every rank's gradients of ``sum(pipeline_forward(...) * c)`` in the
+    params and the input: within 1e-5 of sequential autograd and 1e-6 of
+    ``jax.grad`` through the reference's ``pipeline_forward``, both
+    relative to the gradient's largest magnitude (the weight gradients
+    reach ~3.3, where an f32 ulp is 2.4e-7, and torch and XLA sum the
+    backward products in other orders; the forward test's values are
+    tanh outputs, below 1)."""
+    _, ref, out, _ = world8
+    w, b, xp = _pipe_case()
+
+    def sequential(p, h):
+        for i in range(PIPE["L"]):
+            h = _block(h, {"w": p["w"][i], "b": p["b"][i]})
+        return h
+    seq = _pipe_grads(sequential, w, b, xp)
+    for rank in range(8):
+        got = np.load(out / f"pipe_grad_{rank}.npz")
+        for n, s_, r in zip("wbx", seq, ref["pipe_grad"][microbatches]):
+            g = got[f"{microbatches}_{n}"]
+            scale = np.abs(s_).max()
+            assert np.abs(g - s_).max() <= 1e-5 * scale, (rank, n)
+            assert np.abs(g - r).max() <= 1e-6 * scale, (rank, n)
+
+
+def test_sequence_parallel_step_matches_one_device(world8):
+    """One llama3.2-1b step under ``SEQ_PARALLEL_TRAIN_RULES`` (the
+    sequence over ``model`` between the products) equals the one-device
+    port's step, within the train tolerances."""
+    res, _, _, init = world8
+    cfg = _llama()
+    (m, st), = _port_steps(cfg, train_state_from_numpy(init["llama"], cfg,
+                                                       device=CPU), 1)
+    got_m, got_p = res["seqpar"]
+    _check_metrics(got_m, m, 1, "seqpar")
+    _check_params(got_p, _np(st["params"]), 1, "seqpar")
 
 
 def test_sharded_checkpoint_is_a_one_device_save_and_reshards(world8,

@@ -54,6 +54,8 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from test_torch_util import t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ARCH = "seamless_m4t_large_v2"
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)

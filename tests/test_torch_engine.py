@@ -21,6 +21,8 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.convert import params_from_numpy
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving import Engine, Request, ServeSession
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 SHAPE = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
              n_kv_heads=2, head_dim=32, d_ff=32, vocab_size=64)

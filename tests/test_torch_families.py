@@ -61,6 +61,8 @@ from repro_torch.models import attention as TA
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from test_torch_util import j2t, t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ARCHS = ["gemma2_27b", "gemma3_4b"]
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)
@@ -114,6 +116,16 @@ def _jstep(jcfg, kw: tuple, jb: str, unroll: bool = False):
                                      unroll=unroll))
 
 
+@functools.lru_cache(maxsize=None)
+def _jprefill(jcfg, kw: tuple, jb: str):
+    """The reference's prefill at ``MAX_LEN`` for one (config, policy,
+    backend), jitted once (as :func:`_jstep`); called ``(params, batch,
+    calib)``."""
+    return jax.jit(lambda p, batch, calib: JT.prefill_model(
+        p, jcfg, batch, JPolicy(**dict(kw)), calib=calib, max_len=MAX_LEN,
+        backend=jb))
+
+
 def _jdecode(jp, jcfg, tok, caches, kw, jcal, jb, unroll=False):
     """One reference decode step through :func:`_jstep`."""
     return _jstep(jcfg, tuple(sorted(kw.items())), jb, unroll)(
@@ -142,9 +154,8 @@ def _compare_caches(ct, cj):
 def _prefilled(arch, tb, jb, rng, kw=KW):
     jcfg, tcfg, jp, tp, jcal, tcal = _setup(arch, rng)
     toks = rng.integers(0, jcfg.vocab_size, (2, 37)).astype(np.int32)
-    lj, cj = JT.prefill_model(jp, jcfg, {"tokens": jnp.asarray(toks)},
-                              JPolicy(**kw), calib=jcal, max_len=MAX_LEN,
-                              backend=jb)
+    lj, cj = _jprefill(jcfg, tuple(sorted(kw.items())), jb)(
+        jp, {"tokens": jnp.asarray(toks)}, jcal)
     lt, ct = T.prefill_model(tp, tcfg, torch.from_numpy(toks),
                              QuantPolicy(**kw), calib=tcal, max_len=MAX_LEN,
                              backend=tb)

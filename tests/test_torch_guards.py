@@ -18,6 +18,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import transformer as T
 from repro_torch.serving import Engine
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

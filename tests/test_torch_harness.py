@@ -41,6 +41,8 @@ from repro_torch.serving import (Engine, HostLoop, HostLoopCrash,
                                  MetricsRecorder, Request, TokenDelivery,
                                  loadgen as tload, metrics as tmet)
 from test_torch_util import stall_until_backpressure
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 SHAPE = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
              n_kv_heads=2, head_dim=32, d_ff=32, vocab_size=64)

@@ -49,6 +49,8 @@ from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from test_torch_util import t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ARCH = "hymba_1p5b"
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)

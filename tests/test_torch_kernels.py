@@ -20,13 +20,14 @@ from repro.core import kv_cache as jkvc
 from repro.core.quant import quantize_groups as j_quantize
 from repro.kernels.decode_attn import decode_attn_pallas
 from repro.kernels import ref as R
-from repro.kernels.ops import pallas_decode_attention
 
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core import segments as seg
 from repro_torch.kernels import decode_attn as DA
 from repro_torch.kernels import ops
 from test_torch_util import j2t, t2n
+from test_torch_util import (  # noqa: F401
+    jax_cache_ops, jax_compile_cache, one_torch_thread)
 
 ATOL, RTOL = 3e-5, 1e-4
 
@@ -123,11 +124,12 @@ def _wrapped_caches(rng, pol_j, lens, max_len, h=2, d=32, steps=0):
     for i, n in enumerate(lens):
         k = jnp.asarray(rng.normal(size=(1, n, h, d)), jnp.float32)
         v = jnp.asarray(rng.normal(size=(1, n, h, d)), jnp.float32)
-        cache = jkvc.insert_slot(cache, i, jkvc.prefill(k, v, max_len, pol_j))
+        cache = jkvc.insert_slot(cache, i, jax_cache_ops().prefill(
+            k, v, max_len, pol_j))
     for _ in range(steps):
         kn = jnp.asarray(rng.normal(size=(b, 1, h, d)), jnp.float32)
         vn = jnp.asarray(rng.normal(size=(b, 1, h, d)), jnp.float32)
-        cache = jkvc.decode_append(cache, kn, vn, pol_j)
+        cache = jax_cache_ops().append(cache, kn, vn, pol_j)
     return cache
 
 
@@ -137,9 +139,9 @@ def test_ops_wrapper_matches_pallas_decode_attention(prune, rng):
     pol_j, pol_t = JPolicy(**kw), QuantPolicy(**kw)
     cache = _wrapped_caches(rng, pol_j, [3, 11, 30, 57], max_len=80, steps=13)
     q = jnp.asarray(rng.normal(size=(4, 1, 4, 32)), jnp.float32)
-    want = pallas_decode_attention(q, cache, pol_j, scale=32 ** -0.5,
-                                   dtype=jnp.float32, interpret=True,
-                                   block_s=16, prune_blocks=prune)
+    want = jax_cache_ops().attention(q, cache, pol_j, scale=32 ** -0.5,
+                                     dtype=jnp.float32, interpret=True,
+                                     block_s=16, prune_blocks=prune)
     got = ops.cuda_decode_attention(j2t({"q": q})["q"], j2t(cache), pol_t,
                                     scale=32 ** -0.5, dtype=torch.float32,
                                     block_s=16, prune_blocks=prune)

@@ -59,6 +59,8 @@ from repro_torch.launch import roofline as RL
 from repro_torch.models import transformer as T
 from repro_torch.training import make_train_step
 from repro_torch.tree import leaves
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = configs.ARCHS
@@ -67,14 +69,6 @@ TOTAL_RATIO = 1.5
 BF16_RTOL = 2e-3
 FLIP_SHARE = 1e-2
 LR = 5e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ----------------------------------------------------------- shapes

@@ -19,6 +19,8 @@ Tolerances, and why:
   but a layout or plane error changes most bytes.  fp sink/window values:
   ``atol = rtol = 1e-5``; lengths exact.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,8 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.convert import calib_from_numpy, params_from_numpy
 from repro_torch.models import transformer as T
 from test_torch_util import j2t, t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)
 PAIRS = [("reference", "reference"), ("cuda", "pallas")]
@@ -64,6 +68,20 @@ def _setup(arch, rng):
     return jcfg, tcfg, jp, tp, jcal, tcal
 
 
+@functools.lru_cache(maxsize=None)
+def _jfns(jcfg, jb):
+    """The reference's prefill and decode step for one (config, backend),
+    jitted once and shared by every step (run eagerly, each call
+    dispatched its ops, and the Pallas kernels' interpreter, one by
+    one)."""
+    pol = JPolicy(**KW)
+    prefill = jax.jit(lambda p, t, c: JT.prefill_model(
+        p, jcfg, {"tokens": t}, pol, calib=c, max_len=64, backend=jb))
+    step = jax.jit(lambda p, t, caches, c: JT.decode_step(
+        p, jcfg, t, caches, pol, calib=c, backend=jb))
+    return prefill, step
+
+
 def _compare_caches(ct, cj):
     cj = jax.tree.map(np.asarray, cj)
     for k, want in cj["scan"].items():
@@ -82,10 +100,10 @@ def _compare_caches(ct, cj):
 @pytest.mark.parametrize("tb,jb", PAIRS)
 def test_prefill_and_decode_match_reference(arch, tb, jb, rng):
     jcfg, tcfg, jp, tp, jcal, tcal = _setup(arch, rng)
-    pol_j, pol_t = JPolicy(**KW), QuantPolicy(**KW)
+    pol_t = QuantPolicy(**KW)
     toks = rng.integers(0, jcfg.vocab_size, (2, 37)).astype(np.int32)
-    lj, cj = JT.prefill_model(jp, jcfg, {"tokens": jnp.asarray(toks)}, pol_j,
-                              calib=jcal, max_len=64, backend=jb)
+    jprefill, jstep = _jfns(jcfg, jb)
+    lj, cj = jprefill(jp, jnp.asarray(toks), jcal)
     lt, ct = T.prefill_model(tp, tcfg, torch.from_numpy(toks), pol_t,
                              calib=tcal, max_len=64, backend=tb)
     np.testing.assert_allclose(t2n(lt), np.asarray(lj), atol=LOGIT_TOL,
@@ -96,8 +114,7 @@ def test_prefill_and_decode_match_reference(arch, tb, jb, rng):
     ct = j2t(cj)
     for step in range(5):
         tok = rng.integers(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
-        lj, cj = JT.decode_step(jp, jcfg, jnp.asarray(tok), cj, pol_j,
-                                calib=jcal, backend=jb)
+        lj, cj = jstep(jp, jnp.asarray(tok), cj, jcal)
         lt, ct = T.decode_step(tp, tcfg, torch.from_numpy(tok), ct, pol_t,
                                calib=tcal, backend=tb)
         np.testing.assert_allclose(t2n(lt), np.asarray(lj), atol=LOGIT_TOL,

@@ -53,6 +53,8 @@ from repro_torch.models import moe as TM
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from test_torch_util import t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ARCHS = ["deepseek_moe_16b", "granite_moe_1b_a400m"]
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)

@@ -24,7 +24,6 @@ from repro.core import segments as jseg
 from repro.core.policy import QuantPolicy as JPolicy
 from repro.core.quant import quantize_groups as j_quantize
 from repro.kernels.decode_attn import decode_attn_pallas
-from repro.kernels.ops import pallas_decode_attention
 from repro.models.config import ArchConfig as JArch
 from repro.models import transformer as JT
 from repro.serving import Engine as JEngine, Request as JRequest
@@ -41,6 +40,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models import transformer as T
 from repro_torch.serving import Engine, Request, ServeSession
 from test_torch_util import assert_tree_exact, j2t, t2n
+from test_torch_util import (  # noqa: F401
+    jax_cache_ops, jax_compile_cache, one_torch_thread)
 
 ATOL, RTOL = 3e-5, 1e-4
 SHAPE = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
@@ -255,8 +256,8 @@ def test_pooled_decode_append_bytes_equal_jax(rng):
         k = rng.normal(size=(b, 1, h, d)).astype(np.float32)
         v = rng.normal(size=(b, 1, h, d)).astype(np.float32)
         valid = np.asarray([True, t % 5 != 2])
-        jp_ = jkvc.decode_append(jp_, jnp.asarray(k), jnp.asarray(v), JPOL,
-                                 valid=jnp.asarray(valid))
+        jp_ = jax_cache_ops().append(jp_, jnp.asarray(k), jnp.asarray(v),
+                                     JPOL, valid=jnp.asarray(valid))
         for c in (tp_, ts_):
             kvc.decode_append(c, torch.from_numpy(k), torch.from_numpy(v),
                               TPOL, valid=torch.from_numpy(valid))
@@ -359,7 +360,7 @@ def _pooled_model_cache(rng, b=3, pool_blocks=20):
 def test_pooled_wrapper_matches_pallas_decode_attention(window, rng):
     c = _pooled_model_cache(rng)
     q = rng.normal(size=(3, 1, 4, 16)).astype(np.float32)
-    want = pallas_decode_attention(
+    want = jax_cache_ops().attention(
         jnp.asarray(q), {k: jnp.asarray(v.numpy()) for k, v in c.items()},
         JPOL, scale=0.25, window=window, dtype=jnp.float32, interpret=True,
         block_s=BT)

@@ -63,6 +63,8 @@ from repro_torch.kernels import ops                      # noqa: E402
 from repro_torch.quality import common as TQ             # noqa: E402
 from repro_torch.quality import schedule_quality as TS   # noqa: E402
 from repro_torch.tree import leaves                      # noqa: E402
+from test_torch_util import (  # noqa: F401,E402
+    jax_compile_cache, one_torch_thread)
 
 CPU = "cpu"
 TRAIN = 60
@@ -70,16 +72,6 @@ PPL_RTOL = 1e-4
 FLIP_RATE = 5e-3
 FLIP_STEP = 1e-3
 KW = dict(bits_k=2.0, bits_v=2.0, group_size=16, window=32, n_sink=5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the evaluator's ops are small, and the suite runs
-    files in parallel processes (many threads each only contend)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jcfg():

@@ -68,22 +68,14 @@ from repro_torch.quality import group_window as TG       # noqa: E402
 from repro_torch.quality import needle_proxy as TN       # noqa: E402
 from repro_torch.quality import quality_ladder as TL     # noqa: E402
 from repro_torch.quality import schedule_quality as TS   # noqa: E402
+from test_torch_util import (  # noqa: F401,E402
+    jax_compile_cache, one_torch_thread)
 
 CPU = "cpu"
 TRAIN = 60
 PPL_RTOL = 1e-4
 STUDIES = {"table1": (JL, TL), "table3": (JA, TA), "table4": (JG, TG),
            "fig5": (JN, TN), "schedule": (JS, TS)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the evaluator's ops are small, and the suite runs
-    files in parallel processes (many threads each only contend)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _scaled(mod, **kw):

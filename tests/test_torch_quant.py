@@ -25,6 +25,8 @@ from repro_torch.core import packing as tpack
 from repro_torch.core.quant import quantize_groups as t_quantize
 from repro_torch.kernels import kv_quant as KQ
 from test_torch_util import assert_tree_exact, j2t
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 BITS = [1.0, 1.5, 2.0, 4.0, 8.0]
 

@@ -54,6 +54,8 @@ from repro_torch.models import rwkv6 as TR
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from test_torch_util import t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ARCH = "rwkv6_3b"
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)
@@ -66,16 +68,6 @@ STATE_TOL = 1e-4
 NAIVE_ATOL, NAIVE_RTOL = 2e-4, 1e-3
 SEQ_LENS = [1, 16, 48, 300]        # 1 and 300 are padded to whole chunks
 DECODE_STEPS = 6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The smoke shapes run as fast on one CPU thread, and one thread keeps
-    parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -56,6 +56,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving import Engine, Request
 from test_torch_util import t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 KW = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=4)
 SHAPE = dict(name="t", family="dense", n_layers=4, d_model=64, n_heads=4,
@@ -257,8 +259,9 @@ def test_banded_prefill_and_decode_equal_jax(params, rng, name, tb, jb):
     js, ts = _scheds(name)
     jcal, tcal = _calib_np(rng, ts)
     toks = rng.integers(0, 64, (2, 30)).astype(np.int32)
-    lj, cj = JT.prefill_model(jp, JCFG, {"tokens": jnp.asarray(toks)}, js,
-                              calib=jcal, max_len=48, backend=jb)
+    lj, cj = jax.jit(lambda p, t, c: JT.prefill_model(
+        p, JCFG, {"tokens": t}, js, calib=c, max_len=48, backend=jb))(
+        jp, jnp.asarray(toks), jcal)
     lt, ct = T.prefill_model(tp, TCFG, torch.from_numpy(toks).long(), ts,
                              calib=tcal, max_len=48, backend=tb)
     np.testing.assert_allclose(t2n(lt), np.asarray(lj), atol=LOGIT_TOL,
@@ -651,15 +654,16 @@ def test_granite_8b_smoke_equals_jax(rng):
     jpo, tpo = jpol.QuantPolicy(**KW), QuantPolicy(**KW)
     toks = rng.integers(0, scfg.vocab_size, (2, 24)).astype(np.int32)
     for tb, jb in BACKENDS:
-        lj, cj = JT.prefill_model(jp, sjcfg, {"tokens": jnp.asarray(toks)},
-                                  jpo, max_len=40, backend=jb)
+        lj, cj = jax.jit(lambda p, t: JT.prefill_model(
+            p, sjcfg, {"tokens": t}, jpo, max_len=40, backend=jb))(
+            jp, jnp.asarray(toks))
         lt, ct = T.prefill_model(tp, scfg, torch.from_numpy(toks).long(), tpo,
                                  max_len=40, backend=tb)
         np.testing.assert_allclose(t2n(lt), np.asarray(lj), atol=LOGIT_TOL,
                                    rtol=LOGIT_TOL)
         tok = np.asarray(lj[:, -1].argmax(-1))[:, None].astype(np.int32)
-        lj, _ = JT.decode_step(jp, sjcfg, jnp.asarray(tok), cj, jpo,
-                               backend=jb)
+        lj, _ = jax.jit(lambda p, t, c: JT.decode_step(
+            p, sjcfg, t, c, jpo, backend=jb))(jp, jnp.asarray(tok), cj)
         lt, _ = T.decode_step(tp, scfg, torch.from_numpy(tok).long(), ct, tpo,
                               backend=tb)
         np.testing.assert_allclose(t2n(lt), np.asarray(lj), atol=LOGIT_TOL,

@@ -35,6 +35,8 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.distributed import sharding as tsh
 from repro_torch.launch import shardings as tls
 from repro_torch.models import transformer as T
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 MESHES = [((16, 16), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model")),
@@ -43,14 +45,6 @@ MESH_IDS = ["16x16", "2x16x16", "2x2x2"]
 CACHE_ARCHS = ["llama3p2_1b", "gemma3_4b", "hymba_1p5b", "rwkv6_3b",
                "seamless_m4t_large_v2"]
 POLICY = dict(bits_k=2.0, bits_v=1.5, group_size=16, window=8, n_sink=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _meshes(shape, axes):

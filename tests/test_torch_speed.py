@@ -50,20 +50,12 @@ from repro_torch.speed import common as C                  # noqa: E402
 from repro_torch.speed import kernel_bench as KB           # noqa: E402
 from repro_torch.speed import memory_latency as ML         # noqa: E402
 from test_torch_util import assert_tree_exact              # noqa: E402
+from test_torch_util import (  # noqa: F401,E402
+    jax_compile_cache, one_torch_thread)
 
 CPU = "cpu"
 SDPA_REL_TOL = 2e-2
 J_KV4 = JPolicy(bits_k=4.0, bits_v=4.0, group_size=128, fp8_meta=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the ops are small, and the suite runs files in
-    parallel processes (many threads each only contend)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rows(fn, *args, **kw):

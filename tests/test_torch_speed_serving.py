@@ -47,19 +47,11 @@ from repro_torch.serving import Engine, TickClock          # noqa: E402
 from repro_torch.speed import kernel_bench as KB           # noqa: E402
 from repro_torch.speed import serving_bench as SB          # noqa: E402
 from test_torch_util import t2n                            # noqa: E402
+from test_torch_util import (  # noqa: F401,E402
+    jax_compile_cache, one_torch_thread)
 
 CPU = "cpu"
 LOGIT_TOL = 2e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the ops are small, and the suite runs files in
-    parallel processes (many threads each only contend)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

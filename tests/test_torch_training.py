@@ -81,6 +81,8 @@ from repro_torch.training import (adamw_init, adamw_update, global_norm,
                                   warmup_cosine)
 from repro_torch.tree import leaves, unflatten
 from test_torch_util import t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 FAMILIES = ["llama3p2_1b", "gemma2_27b", "qwen2_vl_7b",
             "granite_moe_1b_a400m", "hymba_1p5b", "rwkv6_3b",
@@ -95,16 +97,6 @@ PARAM_ATOL = {1: 1e-5, 5: 1e-4}   # after n steps, past it: "flipped"
 MOMENT_TOL = {1: 1e-4, 5: 1e-2}
 FLIP_SHARE = 1e-3
 CPU = "cpu"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The smoke shapes run as fast on one CPU thread, and one thread keeps
-    parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(cfg, rng, b=2, s=24):

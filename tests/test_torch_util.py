@@ -1,7 +1,12 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py) —
-moving arrays between the JAX reference and the torch port as numpy — and
-the tests of that carrier (``repro_torch.convert``)."""
+moving arrays between the JAX reference and the torch port as numpy, the
+run-wide JAX compilation cache and the one torch thread every such file
+turns on — and the tests of that carrier (``repro_torch.convert``)."""
+import functools
+import os
+import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -10,6 +15,49 @@ import torch
 from repro_torch.convert import tree_from_numpy, tree_to_numpy
 
 CPU = "cpu"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_compile_cache(tmp_path_factory):
+    """JAX's persistent compilation cache, on while the module's tests run,
+    in one directory the whole test run shares (every xdist worker's): the
+    reference's jitted steps and Engines, built again case after case and
+    file after file from the same programs, compile once a run.  A
+    compiled program is the one a fresh compile gives, so no number
+    changes.  The previous settings come back after the module (the JAX
+    package's own tests run as they did); a no-op where JAX is not
+    imported (the card's runs).  Each port test file imports it."""
+    jax = sys.modules.get("jax")
+    if jax is None:
+        yield
+        return
+    from jax.experimental.compilation_cache import compilation_cache as cc
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    want = {"jax_compilation_cache_dir": str(root / "jax_compile_cache"),
+            "jax_persistent_cache_min_compile_time_secs": 0.0}
+    prev = {k: getattr(jax.config, k) for k in want}
+    for k, v in want.items():
+        jax.config.update(k, v)
+    cc.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            jax.config.update(k, v)
+        cc.reset_cache()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread while the module's tests run: the suite runs its
+    files in parallel processes, where the default threads of each only
+    contend (six workers made tests/test_torch_quality*.py 8x slower with
+    them).  Each port test file imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -21,6 +69,29 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_cache_ops():
+    """The reference's ``kv_cache.prefill`` and ``decode_append`` and its
+    ``pallas_decode_attention``, jitted once a process and shared by every
+    file and case (run eagerly, each call dispatched its ops, and the
+    Pallas kernel's interpreter, one by one): ``.prefill(k, v, max_len,
+    policy, ...)``, ``.append(cache, k, v, policy, ...)``,
+    ``.attention(q, cache, policy, ...)``; the length, the policy, the
+    quantizer and the wrapper's levers are static."""
+    import jax
+    from repro.core import kv_cache as jkvc
+    from repro.kernels.ops import pallas_decode_attention
+    return SimpleNamespace(
+        prefill=jax.jit(jkvc.prefill, static_argnums=(2, 3),
+                        static_argnames=("quant_fn",)),
+        append=jax.jit(jkvc.decode_append, static_argnums=(3,),
+                       static_argnames=("quant_fn",)),
+        attention=jax.jit(pallas_decode_attention, static_argnums=(2,),
+                          static_argnames=("scale", "softcap", "window",
+                                           "dtype", "interpret", "block_s",
+                                           "prune_blocks")))
 
 
 def stall_until_backpressure(eng, timeout: float = 10.0) -> None:

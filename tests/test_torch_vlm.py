@@ -35,8 +35,11 @@ from test_torch_families import (KW, MAX_LEN, PAIRS, _check_cli,
                                  _check_configs, _check_convert,
                                  _check_engine, _check_init_leaves,
                                  _check_prefill_decode, _close,
-                                 _compare_caches, _setup)
+                                 _compare_caches, _jprefill, _jstep,
+                                 _setup)
 from test_torch_util import t2n
+from test_torch_util import (  # noqa: F401
+    jax_compile_cache, one_torch_thread)
 
 ARCH = "qwen2_vl_7b"
 
@@ -97,10 +100,10 @@ def test_embeds_prefill_and_decode_match_reference(tb, jb, rng):
     ww = np.concatenate([np.arange(6), 6 + np.tile(np.arange(6), 4)])
     pos = np.broadcast_to(np.stack([t, hh, ww])[:, None], (3, 2, 30)
                           ).astype(np.int32).copy()
-    lj, cj = JT.prefill_model(jp, jcfg, {"embeds": jnp.asarray(emb),
-                                         "positions": jnp.asarray(pos)},
-                              JPolicy(**KW), calib=jcal, max_len=MAX_LEN,
-                              backend=jb)
+    kw = tuple(sorted(KW.items()))
+    lj, cj = _jprefill(jcfg, kw, jb)(jp, {"embeds": jnp.asarray(emb),
+                                          "positions": jnp.asarray(pos)},
+                                     jcal)
     lt, ct = T.prefill_model(tp, tcfg, None, QuantPolicy(**KW), calib=tcal,
                              max_len=MAX_LEN, backend=tb,
                              embeds=torch.from_numpy(emb),
@@ -111,9 +114,8 @@ def test_embeds_prefill_and_decode_match_reference(tb, jb, rng):
         e = rng.normal(0, 0.5, (2, 1, jcfg.d_model)).astype(np.float32)
         p3 = np.full((3, 2, 1), 12 + step, np.int32)
         p3[1] += 1
-        lj, cj = JT.decode_step(jp, jcfg, jnp.asarray(e), cj, JPolicy(**KW),
-                                calib=jcal, positions=jnp.asarray(p3),
-                                backend=jb)
+        lj, cj = _jstep(jcfg, kw, jb)(jp, token=jnp.asarray(e), caches=cj,
+                                      calib=jcal, positions=jnp.asarray(p3))
         lt, ct = T.decode_step(tp, tcfg, None, ct, QuantPolicy(**KW),
                                calib=tcal, backend=tb,
                                embeds=torch.from_numpy(e),

@@ -9,8 +9,8 @@ on one card: how a cut of the card script is shown to save time.
 Imports ``chip_smoke`` and ``repro_torch`` from the tree given, runs its
 ``phase_env`` and ``phase_build``, then the phases named, in order, on
 one shared state (a phase that reads what another leaves needs that one
-named before it; the ``decode_attn_pooled`` total, which serve_pooled
-starts, starts at 0 here).  Prints one JSON line a phase, then one with
+named before it; the launch totals, which serve and serve_pooled start,
+start at 0 here).  Prints one JSON line a phase, then one with
 the seconds of each and their total; exits non-zero if a phase fails.
 Setting ``REPRO_TORCH_BUILD_DIR`` to one directory for both runs shares
 the kernels' build between two trees whose sources are the same.
@@ -35,12 +35,13 @@ def main(argv=None) -> int:
     import chip_smoke as CS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state, seconds = {}, {}
+    state, seconds = {"launches": {}}, {}
     for name in ("env", "build", *names):
         t0 = time.monotonic()
         getattr(CS, f"phase_{name}")(state)
-        if "launches" in state:
-            state["launches"].setdefault("decode_attn_pooled", 0)
+        for k in ("decode_attn", "decode_attn_pooled", "kv_quant",
+                  "kv_append"):
+            state["launches"].setdefault(k, 0)
         seconds[name] = round(time.monotonic() - t0, 1)
         print(json.dumps({"tree": label, "phase_s": name,
                           "s": seconds[name]}), flush=True)
