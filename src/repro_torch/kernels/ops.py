@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..core.policy import QuantPolicy
 from ..core.quant import n_meta_groups, packed_nbytes, plane_layout
 from ..core import segments as seg
@@ -194,48 +195,58 @@ def cuda_decode_attention(q, cache, policy: QuantPolicy, *, scale: float,
     ``v`` cache with the shared flash partial, no kernel (the JAX
     package's fallback, ``repro.kernels.ops``)."""
     from ..models.attention import fp_segment_partial, packed_view
-    if is_pooled(cache) and (packed_override is not None or local_slice):
-        cache = kvc.unpool_cache(cache)
     b, _, hq, d = q.shape
-    lens = slot_lengths(cache, b)
-    t_now = lens - 1 if q_pos is None else torch.as_tensor(
-        q_pos, device=lens.device).expand(b)
-    weff = seg.effective_window(window)
+    with spans.region("attn.mask"):
+        if is_pooled(cache) and (packed_override is not None or local_slice):
+            cache = kvc.unpool_cache(cache)
+        lens = slot_lengths(cache, b)
+        t_now = lens - 1 if q_pos is None else torch.as_tensor(
+            q_pos, device=lens.device).expand(b)
+        weff = seg.effective_window(window)
     if policy.is_fp16:
         FP16_CALLS["attend"] += 1
-        hkv = cache["k"].shape[2]
-        qg = q.reshape(b, hkv, hq // hkv, d)
-        pos = torch.arange(cache["k"].shape[1], device=q.device)
-        ok = seg.attend_ok(pos, pos[None, :] < lens[:, None], t_now, weff)
-        part = seg.partial_attend(qg, cache["k"].to(dtype),
-                                  cache["v"].to(dtype), ok, scale, softcap)
-        return seg.finalize([part]).reshape(b, 1, hq, d).to(q.dtype)
+        with spans.region("attn.segment"):
+            hkv = cache["k"].shape[2]
+            qg = q.reshape(b, hkv, hq // hkv, d)
+            pos = torch.arange(cache["k"].shape[1], device=q.device)
+            ok = seg.attend_ok(pos, pos[None, :] < lens[:, None], t_now,
+                               weff)
+            part = seg.partial_attend(qg, cache["k"].to(dtype),
+                                      cache["v"].to(dtype), ok, scale,
+                                      softcap)
+            return seg.finalize([part]).reshape(b, 1, hq, d).to(q.dtype)
     hkv = (cache["win_k"] if "win_k" in cache else cache["qk_codes_hi"]
            ).shape[2]
     qg = q.reshape(b, hkv, hq // hkv, d)
     parts = []
     s_q = _packed_capacity(cache)
     if s_q > 0:
-        if packed_override is not None or (local_slice and s_q > local_slice):
-            k_qt, v_qt, j = packed_view(cache, policy, lens, local_slice,
-                                        packed_override)
-        else:       # the whole region; a pooled cache keeps its table
-            k_qt = {kk[3:]: vv for kk, vv in cache.items()
-                    if kk.startswith("qk_")}
-            v_qt = {kk[3:]: vv for kk, vv in cache.items()
-                    if kk.startswith("qv_")}
-            j = torch.arange(s_q, dtype=torch.int32, device=q.device)
-        bs, s_pad = _block_pad(j.shape[-1], block_s)
-        ok = _packed_ok(_pad_j(j, s_pad), lens, t_now, weff, policy, b)
-        bounds = seg.packed_block_bounds(ok, bs) if prune_blocks else None
-        num, m, l = decode_attn(qg, k_qt, v_qt, ok.to(torch.float32), policy,
-                                d, scale, block_s=bs, softcap=softcap,
-                                block_bounds=bounds,
-                                block_table=cache.get("block_tbl"))
+        with spans.region("attn.mask"):
+            if packed_override is not None or (local_slice
+                                               and s_q > local_slice):
+                k_qt, v_qt, j = packed_view(cache, policy, lens, local_slice,
+                                            packed_override)
+            else:       # the whole region; a pooled cache keeps its table
+                k_qt = {kk[3:]: vv for kk, vv in cache.items()
+                        if kk.startswith("qk_")}
+                v_qt = {kk[3:]: vv for kk, vv in cache.items()
+                        if kk.startswith("qv_")}
+                j = torch.arange(s_q, dtype=torch.int32, device=q.device)
+            bs, s_pad = _block_pad(j.shape[-1], block_s)
+            ok = _packed_ok(_pad_j(j, s_pad), lens, t_now, weff, policy, b)
+            bounds = seg.packed_block_bounds(ok, bs) if prune_blocks \
+                else None
+            mask = ok.to(torch.float32)
+        with spans.region("attn.kernel"):
+            num, m, l = decode_attn(qg, k_qt, v_qt, mask, policy, d, scale,
+                                    block_s=bs, softcap=softcap,
+                                    block_bounds=bounds,
+                                    block_table=cache.get("block_tbl"))
         parts.append((num, m[..., 0], l[..., 0]))
-    parts.extend(fp_segment_partial(qg, cache, policy, lens, t_now, weff,
-                                    scale, softcap, dtype, extra_kv))
-    return seg.finalize(parts).reshape(b, 1, hq, d).to(q.dtype)
+    with spans.region("attn.segment"):
+        parts.extend(fp_segment_partial(qg, cache, policy, lens, t_now, weff,
+                                        scale, softcap, dtype, extra_kv))
+        return seg.finalize(parts).reshape(b, 1, hq, d).to(q.dtype)
 
 
 def decode_block_report(cache, policy: QuantPolicy, head_dim: int, *,

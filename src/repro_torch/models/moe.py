@@ -25,6 +25,7 @@ import torch
 
 from .config import ArchConfig
 from .layers import act_fn
+from .. import spans
 from ..distributed.sharding import logical, seq_whole, seq_whole_grad
 
 
@@ -104,31 +105,35 @@ def moe_ffn_scatter(x: torch.Tensor, p, cfg: ArchConfig, *,
     b, s, d = x.shape
     n = b * s
     xf = x.reshape(n, d)
-    weights, ids, aux = route(xf, p["router"], cfg, with_aux=with_aux)
+    with spans.region("moe.route"):
+        weights, ids, aux = route(xf, p["router"], cfg, with_aux=with_aux)
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(n, cfg)
 
-    flat_e = ids.reshape(-1)                                  # (N*k,)
-    onehot = _one_hot(flat_e, e, torch.int32)                 # (N*k, E)
-    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-    pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]         # exclusive
-    keep = pos < cap
-    slot = torch.where(keep, flat_e * cap + pos, e * cap)     # dump row
+    with spans.region("moe.dispatch"):
+        flat_e = ids.reshape(-1)                              # (N*k,)
+        onehot = _one_hot(flat_e, e, torch.int32)             # (N*k, E)
+        pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+        pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]     # exclusive
+        keep = pos < cap
+        slot = torch.where(keep, flat_e * cap + pos, e * cap)  # dump row
 
-    tok_idx = torch.arange(n, device=x.device).repeat_interleave(k)
-    # like xf (a DTensor on a mesh, so the write is one DTensor op)
-    buf = xf.new_zeros((e * cap + 1, d))
-    buf[slot] = xf[tok_idx]
-    buf = logical(buf[:-1].reshape(e, cap, d), "experts", "cap", None)
-    out_e = logical(_experts(buf, p, cfg), "experts", "cap", None
-                    ).reshape(e * cap, d)
-    out_e = torch.cat([out_e, out_e.new_zeros((1, d))])
-
-    y_slots = out_e[slot] * (weights.reshape(-1)[:, None]
-                             * keep[:, None]).to(x.dtype)
-    y = y_slots.reshape(n, k, d).sum(dim=1)
+        tok_idx = torch.arange(n, device=x.device).repeat_interleave(k)
+        # like xf (a DTensor on a mesh, so the write is one DTensor op)
+        buf = xf.new_zeros((e * cap + 1, d))
+        buf[slot] = xf[tok_idx]
+        buf = logical(buf[:-1].reshape(e, cap, d), "experts", "cap", None)
+    with spans.region("moe.experts"):
+        out_e = logical(_experts(buf, p, cfg), "experts", "cap", None
+                        ).reshape(e * cap, d)
+    with spans.region("moe.combine"):
+        out_e = torch.cat([out_e, out_e.new_zeros((1, d))])
+        y_slots = out_e[slot] * (weights.reshape(-1)[:, None]
+                                 * keep[:, None]).to(x.dtype)
+        y = y_slots.reshape(n, k, d).sum(dim=1)
     if cfg.n_shared_experts > 0:
-        y = y + _shared(xf, p, cfg)
+        with spans.region("moe.shared"):
+            y = y + _shared(xf, p, cfg)
     return y.reshape(b, s, d), aux
 
 
@@ -144,7 +149,8 @@ def moe_ffn_grouped(x: torch.Tensor, p, cfg: ArchConfig, *,
     b, s, d = x.shape
     n = b * s
     xf = x.reshape(n, d)
-    weights, ids, aux = route(xf, p["router"], cfg, with_aux=with_aux)
+    with spans.region("moe.route"):
+        weights, ids, aux = route(xf, p["router"], cfg, with_aux=with_aux)
     e, k = cfg.n_experts, cfg.top_k
 
     gt = min(GROUP_TOKENS, n)
@@ -153,27 +159,34 @@ def moe_ffn_grouped(x: torch.Tensor, p, cfg: ArchConfig, *,
     g = n // gt
     cap = _capacity(gt, cfg)
 
-    xg = logical(xf.reshape(g, gt, d), "batch", None, None)
-    w_g = weights.reshape(g, gt, k)
-    # position of each (token, k) pair within its expert, inside the group:
-    # an int32 exclusive cumsum over the token-major (token, k) order
-    oh_i = _one_hot(ids.reshape(g, gt, k), e, torch.int32)     # (G, T, k, E)
-    pos = torch.cumsum(oh_i.reshape(g, gt * k, e), dim=1,
-                       dtype=torch.int32).reshape(g, gt, k, e) - oh_i
-    pos = (pos * oh_i).sum(dim=-1)                             # (G, T, k)
-    oh_e = oh_i.to(x.dtype)
-    oh_c = _one_hot(pos, cap, x.dtype)             # (G, T, k, C); 0 if dropped
+    with spans.region("moe.dispatch"):
+        xg = logical(xf.reshape(g, gt, d), "batch", None, None)
+        w_g = weights.reshape(g, gt, k)
+        # position of each (token, k) pair within its expert, inside the
+        # group: an int32 exclusive cumsum over the token-major (token, k)
+        # order
+        oh_i = _one_hot(ids.reshape(g, gt, k), e, torch.int32)  # (G,T,k,E)
+        pos = torch.cumsum(oh_i.reshape(g, gt * k, e), dim=1,
+                           dtype=torch.int32).reshape(g, gt, k, e) - oh_i
+        pos = (pos * oh_i).sum(dim=-1)                          # (G, T, k)
+        oh_e = oh_i.to(x.dtype)
+        oh_c = _one_hot(pos, cap, x.dtype)     # (G, T, k, C); 0 if dropped
 
-    # dispatch mask and combine weights, (G, T, E, C)
-    disp = oh_e.transpose(-1, -2) @ oh_c
-    comb = (oh_e * w_g.to(x.dtype)[..., None]).transpose(-1, -2) @ oh_c
-    xin = disp.reshape(g, gt, e * cap).transpose(1, 2) @ xg    # (G, E*C, D)
-    xin = logical(xin.reshape(g, e, cap, d), "batch", "experts", None, None)
-    xin = xin.transpose(0, 1).reshape(e, g * cap, d)
-    out_e = _experts(xin, p, cfg).reshape(e, g, cap, d).transpose(0, 1)
-    out_e = logical(out_e, "batch", "experts", None, None)
-    y = comb.reshape(g, gt, e * cap) @ out_e.reshape(g, e * cap, d)
-    y = logical(y, "batch", None, None).reshape(n, d)
+        # dispatch mask and combine weights, (G, T, E, C)
+        disp = oh_e.transpose(-1, -2) @ oh_c
+        comb = (oh_e * w_g.to(x.dtype)[..., None]).transpose(-1, -2) @ oh_c
+        xin = disp.reshape(g, gt, e * cap).transpose(1, 2) @ xg  # (G,E*C,D)
+        xin = logical(xin.reshape(g, e, cap, d), "batch", "experts", None,
+                      None)
+        xin = xin.transpose(0, 1).reshape(e, g * cap, d)
+    with spans.region("moe.experts"):
+        out_e = _experts(xin, p, cfg)
+    with spans.region("moe.combine"):
+        out_e = out_e.reshape(e, g, cap, d).transpose(0, 1)
+        out_e = logical(out_e, "batch", "experts", None, None)
+        y = comb.reshape(g, gt, e * cap) @ out_e.reshape(g, e * cap, d)
+        y = logical(y, "batch", None, None).reshape(n, d)
     if cfg.n_shared_experts > 0:
-        y = y + _shared(xf, p, cfg)
+        with spans.region("moe.shared"):
+            y = y + _shared(xf, p, cfg)
     return y.reshape(b, s, d), aux

@@ -82,6 +82,7 @@ from . import backends as bk
 from . import moe as moe_lib
 from . import rwkv6 as rwkv_lib
 from . import ssm as ssm_lib
+from .. import spans
 from .attention import (full_attention, packed_planes,
                         prefill_block_attention, prefill_chunk_attention,
                         slice_indices, take_tokens)
@@ -562,6 +563,21 @@ def _ffn_aux(x, p, cfg: ArchConfig):
         return moe_lib.moe_ffn(x, p["moe"], cfg)
     return L.mlp(x, p["mlp"], cfg), torch.zeros((), dtype=torch.float32,
                                                  device=x.device)
+
+
+def _ffn_residual(x, p, cfg: ArchConfig):
+    """``x + _ffn(norm2(x))`` of a decode step, under its regions: ``mlp``
+    for a dense layer; for a MoE layer the norm under ``moe.route`` and
+    the residual under ``moe.combine``, around the regions of
+    :func:`moe_lib.moe_ffn`."""
+    if "moe" not in p:
+        with spans.region("mlp"):
+            return x + L.mlp(L.norm(x, p["norm2"], cfg), p["mlp"], cfg)
+    with spans.region("moe.route"):
+        h = L.norm(x, p["norm2"], cfg)
+    y = moe_lib.moe_ffn(h, p["moe"], cfg, with_aux=False)[0]
+    with spans.region("moe.combine"):
+        return x + y
 
 
 def _mix_ssm(attn, sout, p, cfg: ArchConfig):
@@ -1160,108 +1176,135 @@ def decode_step(params: Params, cfg: ArchConfig, token, caches, policy,
     ranks (:func:`_context_parallel_attention`)."""
     _check_family(cfg)
     bands = _bands(cfg, policy, calib)
-    params = _cast_params(params, dtype)
-    x = _embed_in(params, cfg, token, embeds)
-    dev = x.device
-    backend = bk.resolve_backend(backend, dev)
-    if dtype is not None:
-        x = x.to(dtype)
-    x = logical(x, "batch", "seq", None)
+    with spans.region("embed"):
+        params = _cast_params(params, dtype)
+        x = _embed_in(params, cfg, token, embeds)
+        dev = x.device
+        backend = bk.resolve_backend(backend, dev)
+        if dtype is not None:
+            x = x.to(dtype)
+        x = logical(x, "batch", "seq", None)
+        if not cfg.attn_free:
+            b = x.shape[0]
+            # (B,) per-slot position
+            t = _first_stack(caches["scan"])["length"][0]
+            if unroll:
+                # a view of layer 0's length, which its append bumps in
+                # place; the pre-append layers read it after that, so they
+                # take a copy
+                t = t.clone()
+            ropes = _rope_tables(cfg, _decode_positions(cfg, t, positions))
     if cfg.attn_free:
         return _decode_rwkv(params, cfg, x, caches)
-    b = x.shape[0]
-    t = _first_stack(caches["scan"])["length"][0]    # (B,) per-slot position
-    if unroll:
-        # a view of layer 0's length, which its append bumps in place; the
-        # pre-append layers read it after that, so they take a copy
-        t = t.clone()
-    ropes = _rope_tables(cfg, _decode_positions(cfg, t, positions))
     lever = {"chunk": chunk, "prune_blocks": prune_blocks}
     for bs, be, pol in bands:
         append = backend.append_fn(pol)
-        cal = _band_calib(calib, cfg, pol, bs, be, dev)
-        perm_q = _expand_perm(cal["perm_k"], cfg.n_heads)
-        inv_v = _expand_perm(_inverse_perm(cal["perm_v"]), cfg.n_heads)
+        with spans.region("attn.perm"):
+            cal = _band_calib(calib, cfg, pol, bs, be, dev)
+            perm_q = _expand_perm(cal["perm_k"], cfg.n_heads)
+            inv_v = _expand_perm(_inverse_perm(cal["perm_v"]), cfg.n_heads)
         group = _band_cache(caches["scan"], bands, bs)
         pre_band = unroll and _hoists(cfg, group, bs, be)
-        hoist = _local_hoist(cfg, group, pol, t, bs, be) if pre_band \
-            else None
+        with spans.region("attn.mask"):
+            hoist = _local_hoist(cfg, group, pol, t, bs, be) if pre_band \
+                else None
         for i in range(bs, be):
-            j = i - bs
-            p = _layer_params(params, cfg, i)
-            layer = {k: v[j] for k, v in group.items()}
-            cache = {k: v for k, v in layer.items()
-                     if not k.startswith(_EXTRA)}
-            hn = L.norm(x, p["norm1"], cfg)
-            q, k, v = _qkv(hn, p["attn"], cfg, _layer_rope(cfg, ropes, i))
-            lc = {"perm_q": perm_q[j], "perm_k": cal["perm_k"][j],
-                  "perm_v": cal["perm_v"][j], "inv_v": inv_v[j],
-                  "alpha_k": cal["alpha_k"][j], "alpha_v": cal["alpha_v"][j]}
-            local = unroll and cfg.layer_is_local(i) and cfg.local_window > 0
-            pre = local and pre_band
-            po = None
-            if pre and hoist is not None:
-                po = ({n: a[j] for n, a in hoist[0].items()},
-                      {n: a[j] for n, a in hoist[1].items()}, hoist[2])
+            with spans.region(f"layer.{i}"):
+                j = i - bs
+                p = _layer_params(params, cfg, i)
+                layer = {k: v[j] for k, v in group.items()}
+                cache = {k: v for k, v in layer.items()
+                         if not k.startswith(_EXTRA)}
+                with spans.region("attn.qkv"):
+                    hn = L.norm(x, p["norm1"], cfg)
+                    q, k, v = _qkv(hn, p["attn"], cfg,
+                                   _layer_rope(cfg, ropes, i))
+                lc = {"perm_q": perm_q[j], "perm_k": cal["perm_k"][j],
+                      "perm_v": cal["perm_v"][j], "inv_v": inv_v[j],
+                      "alpha_k": cal["alpha_k"][j],
+                      "alpha_v": cal["alpha_v"][j]}
+                local = (unroll and cfg.layer_is_local(i)
+                         and cfg.local_window > 0)
+                pre = local and pre_band
+                po = None
+                if pre and hoist is not None:
+                    po = ({n: a[j] for n, a in hoist[0].items()},
+                          {n: a[j] for n, a in hoist[1].items()}, hoist[2])
 
-            def body(q, k, v, cache, lc, t, po, pol=pol, append=append,
-                     pre=pre, local=local, i=i):
-                qp = _apply_perm(q, lc["perm_q"])
-                kp = _apply_perm(k, lc["perm_k"])
-                vp = _apply_perm(v, lc["perm_v"])
-                if pre:
-                    # pre-append: the slice holds the pre-step cache, so
-                    # attend first (the current token as an fp segment),
-                    # then append
-                    attn = backend.attend(
-                        qp, cache, cfg, pol, window=_window(cfg, i),
-                        dtype=x.dtype, packed_override=po,
-                        extra_kv=(kp.to(x.dtype), vp.to(x.dtype), t),
-                        q_pos=t, **lever)
-                    append(cache, kp, vp, pol, lc["alpha_k"], lc["alpha_v"])
+                def body(q, k, v, cache, lc, t, po, pol=pol, append=append,
+                         pre=pre, local=local, i=i):
+                    with spans.region("attn.perm"):
+                        qp = _apply_perm(q, lc["perm_q"])
+                        kp = _apply_perm(k, lc["perm_k"])
+                        vp = _apply_perm(v, lc["perm_v"])
+                    if pre:
+                        # pre-append: the slice holds the pre-step cache, so
+                        # attend first (the current token as an fp segment),
+                        # then append
+                        attn = backend.attend(
+                            qp, cache, cfg, pol, window=_window(cfg, i),
+                            dtype=x.dtype, packed_override=po,
+                            extra_kv=(kp.to(x.dtype), vp.to(x.dtype), t),
+                            q_pos=t, **lever)
+                        with spans.region("attn.append"):
+                            append(cache, kp, vp, pol, lc["alpha_k"],
+                                   lc["alpha_v"])
+                    else:
+                        with spans.region("attn.append"):
+                            append(cache, kp, vp, pol, lc["alpha_k"],
+                                   lc["alpha_v"])
+                        attn = backend.attend(
+                            qp, cache, cfg, pol, window=_window(cfg, i),
+                            dtype=x.dtype,
+                            local_slice=cfg.local_window if local else 0,
+                            **lever)
+                    with spans.region("attn.perm"):
+                        return _apply_perm(attn, lc["inv_v"])
+                if is_sharded(q):
+                    attn = _sharded_attention(body, q, k, v, cache, lc, cfg,
+                                              pol, backend, _window(cfg, i),
+                                              x.dtype, t=t, po=po, pre=pre)
                 else:
-                    append(cache, kp, vp, pol, lc["alpha_k"], lc["alpha_v"])
-                    attn = backend.attend(
-                        qp, cache, cfg, pol, window=_window(cfg, i),
-                        dtype=x.dtype,
-                        local_slice=cfg.local_window if local else 0, **lever)
-                return _apply_perm(attn, lc["inv_v"])
-            if is_sharded(q):
-                attn = _sharded_attention(body, q, k, v, cache, lc, cfg, pol,
-                                          backend, _window(cfg, i), x.dtype,
-                                          t=t, po=po, pre=pre)
-            else:
-                attn = body(q, k, v, cache, lc, t, po)
-            attn = _attn_out(attn, p["attn"])
-            if "ssm" in p:
-                sout, _ = ssm_lib.ssm_decode(
-                    hn, {"conv": layer["ssm_conv"], "h": layer["ssm_h"]},
-                    p["ssm"], cfg)
-                attn = _mix_ssm(attn, sout, p, cfg)
-            x = x + attn
-            if "xattn" in p:
-                # the cross cache: the packed frames alone, no fp segment
-                xcache = {k[2:]: v for k, v in layer.items()
-                          if k.startswith("x_")}
-                qx = _heads(L.norm(x, p["norm_x"], cfg) @ p["xattn"]["wq"],
-                            cfg.n_heads, cfg)
+                    attn = body(q, k, v, cache, lc, t, po)
+                if "ssm" in p:
+                    with spans.region("ssm"):
+                        sout, _ = ssm_lib.ssm_decode(
+                            hn, {"conv": layer["ssm_conv"],
+                                 "h": layer["ssm_h"]}, p["ssm"], cfg)
+                with spans.region("attn.out"):
+                    attn = _attn_out(attn, p["attn"])
+                    if "ssm" in p:
+                        attn = _mix_ssm(attn, sout, p, cfg)
+                    x = x + attn
+                if "xattn" in p:
+                    # the cross cache: the packed frames alone, no fp segment
+                    xcache = {k[2:]: v for k, v in layer.items()
+                              if k.startswith("x_")}
+                    with spans.region("xattn.q"):
+                        qx = _heads(L.norm(x, p["norm_x"], cfg)
+                                    @ p["xattn"]["wq"], cfg.n_heads, cfg)
 
-                def xbody(qx, _k, _v, xcache, lc, _t=None, _po=None,
-                          pol=pol):
-                    xo = backend.attend(_apply_perm(qx, lc["perm_q"]),
-                                        xcache, cfg, pol.without_window(),
-                                        dtype=x.dtype)
-                    return _apply_perm(xo, lc["inv_v"])
-                if is_sharded(qx):
-                    xo = _sharded_attention(xbody, qx, None, None, xcache, lc,
-                                            cfg, pol, backend, 0, x.dtype,
-                                            append=False)
-                else:
-                    xo = xbody(qx, None, None, xcache, lc)
-                x = x + _attn_out(xo, p["xattn"])
-            x = x + _ffn(L.norm(x, p["norm2"], cfg), p, cfg)
-    x = L.norm(x, params["final_norm"], cfg)
-    return L.unembed(x, params, cfg), caches
+                    def xbody(qx, _k, _v, xcache, lc, _t=None, _po=None,
+                              pol=pol):
+                        with spans.region("attn.perm"):
+                            qp = _apply_perm(qx, lc["perm_q"])
+                        xo = backend.attend(qp, xcache, cfg,
+                                            pol.without_window(),
+                                            dtype=x.dtype)
+                        with spans.region("attn.perm"):
+                            return _apply_perm(xo, lc["inv_v"])
+                    if is_sharded(qx):
+                        xo = _sharded_attention(xbody, qx, None, None, xcache,
+                                                lc, cfg, pol, backend, 0,
+                                                x.dtype, append=False)
+                    else:
+                        xo = xbody(qx, None, None, xcache, lc)
+                    with spans.region("xattn.out"):
+                        x = x + _attn_out(xo, p["xattn"])
+                x = _ffn_residual(x, p, cfg)
+    with spans.region("head"):
+        x = L.norm(x, params["final_norm"], cfg)
+        return L.unembed(x, params, cfg), caches
 
 
 def _sharded_attention(body, q, k, v, cache, lc, cfg: ArchConfig, pol,

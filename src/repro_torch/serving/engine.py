@@ -80,6 +80,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import spans
 from ..core import kv_cache as kvc
 from ..core import segments as seg
 from ..core.block_pool import BlockPool, HostSpillTier, prefix_block_keys
@@ -153,18 +154,19 @@ def decode_one(params, cfg: ArchConfig, policy, token, caches, done, bad,
     bitwise the unguarded one (None leaves the guard out)."""
     logits, _ = T.decode_step(params, cfg, token, caches, policy,
                               calib=calib, backend=backend)
-    row = logits[:, -1].to(torch.float32)
-    if nan_inject is not None:
-        row = torch.where(nan_inject[:, None],
-                          torch.full_like(row, float("nan")), row)
-    bad = bad | ~torch.isfinite(row).all(dim=-1)
-    safe = torch.where(bad[:, None], torch.zeros_like(row), row)
-    nxt = sample_per_slot(safe, temps, uniforms)
-    has = eos >= 0
-    nxt = torch.where(done & has, eos.to(nxt.dtype), nxt)
-    live = live + torch.where(done | bad, 0, 1).to(torch.int32)
-    done = done | (has & (nxt == eos)) | bad
-    return nxt, done, bad, live
+    with spans.region("head"):
+        row = logits[:, -1].to(torch.float32)
+        if nan_inject is not None:
+            row = torch.where(nan_inject[:, None],
+                              torch.full_like(row, float("nan")), row)
+        bad = bad | ~torch.isfinite(row).all(dim=-1)
+        safe = torch.where(bad[:, None], torch.zeros_like(row), row)
+        nxt = sample_per_slot(safe, temps, uniforms)
+        has = eos >= 0
+        nxt = torch.where(done & has, eos.to(nxt.dtype), nxt)
+        live = live + torch.where(done | bad, 0, 1).to(torch.int32)
+        done = done | (has & (nxt == eos)) | bad
+        return nxt, done, bad, live
 
 
 def multi_decode(params, cfg: ArchConfig, policy, n_tokens: int, token,

@@ -20,6 +20,15 @@ graph.  :class:`GraphCache` keys graphs by ``(name, shape_signature)``:
   reference's ``post_warmup_compiles`` (work that reached traffic
   without having been prepared), whose contract is that it stays 0.
 
+Each capture also records its region map (:mod:`repro_torch.spans`): the
+empty ``repro_replay_begin`` / ``repro_replay_end`` kernels open and
+close the graph, and every :func:`spans.region` inside ``fn`` becomes a
+row of the graph's map, kept in its entry, in :meth:`GraphCache.report`
+and in ``spans.op_maps()``.  While the profiler runs, :meth:`call` opens
+the host spans ``graph.call:<name>`` and, inside it, ``graph.copy_in:<name>``
+around the static-input copy and ``graph.launch:<name>`` around the
+replay.
+
 A replay launches the captured kernels without running the Python
 wrappers that count them (``repro_torch.kernels.launch_counts``), so a
 capture records the counters' delta, takes it back off (the capture
@@ -32,11 +41,13 @@ params and cache buffers).  None of them may be reallocated afterwards.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import spans
 from ..kernels import add_launch_counts, launch_count_delta, launch_counts
 
 __all__ = ["shape_signature", "GraphCache"]
@@ -66,6 +77,7 @@ class _Entry:
     static_in: List[Any]
     static_out: Any
     delta: Optional[dict]
+    op_map: Optional[spans.OpMap]
 
 
 class GraphCache:
@@ -107,7 +119,7 @@ class GraphCache:
         if key in self._entries:
             return 0.0
         t0 = self._clock()
-        graph = out = delta = None
+        graph = out = delta = op_map = None
         if self.device.type == "cuda":
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -117,16 +129,30 @@ class GraphCache:
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             before = launch_counts()
-            with torch.cuda.graph(graph):
-                out = fn(*static_args)
+            # no cyclic collection inside the capture: it could free a dead
+            # object's CUDA resources (pinned host buffers query their
+            # events), which a capture in progress refuses
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    with spans.capture(name) as regions:
+                        out = fn(*static_args)
+            finally:
+                if collecting:
+                    gc.enable()
+            op_map = regions.map
             delta = launch_count_delta(before, launch_counts())
             add_launch_counts(delta, -1)    # the capture launched nothing
             torch.cuda.synchronize(self.device)
         dt = self._clock() - t0
-        self._entries[key] = _Entry(graph, _leaves(static_args), out, delta)
+        self._entries[key] = _Entry(graph, _leaves(static_args), out, delta,
+                                    op_map)
         self.entries.append({"name": name, "seconds": dt,
                              "n_leaves": len(key[1]),
-                             "captured": graph is not None})
+                             "captured": graph is not None,
+                             "ops": op_map.total if op_map else 0,
+                             "regions": op_map.as_rows() if op_map else []})
         return dt
 
     def call(self, name: str, fn: Callable, *args):
@@ -142,20 +168,25 @@ class GraphCache:
             return fn(*args)
         if e.graph is None:                 # CPU: bookkeeping only
             return fn(*args)
-        for dst, src in zip(e.static_in, _leaves(args)):
-            if torch.is_tensor(dst) and not (
-                    src.data_ptr() == dst.data_ptr()
-                    and src.stride() == dst.stride()):
-                dst.copy_(src)
-        e.graph.replay()
-        add_launch_counts(e.delta)
+        with spans.span(f"graph.call:{name}"):
+            with spans.span(f"graph.copy_in:{name}"):
+                for dst, src in zip(e.static_in, _leaves(args)):
+                    if torch.is_tensor(dst) and not (
+                            src.data_ptr() == dst.data_ptr()
+                            and src.stride() == dst.stride()):
+                        dst.copy_(src)
+            with spans.span(f"graph.launch:{name}"):
+                e.graph.replay()
+            add_launch_counts(e.delta)
         self.replays += 1
         return e.static_out
 
     def report(self) -> dict:
         """Warmup accounting for ``Engine.warmup_report()`` (DESIGN.md
-        §10): graph count, capture seconds, per-signature rows, replays,
-        and the post-warmup miss counter the smoke run gates on."""
+        §10): graph count, capture seconds, per-signature rows (each with
+        its captured device operations and its region map's ``[path,
+        first, count]`` rows), replays, and the post-warmup miss counter
+        the smoke run gates on."""
         return {
             "warmed": self.warmed,
             "n_graphs": self.n_graphs,

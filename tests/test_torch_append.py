@@ -83,7 +83,9 @@ def test_kv_append_cpu_equals_jax_decode_append(pooled, window, rng):
     lengths = [0, 2, kw["n_sink"] + window + 2, max_len - 6]
     _random_cache(rng, ct, lengths, None if tbl is None else
                   tbl.astype(np.int32))
-    cj = {k: jnp.asarray(v.numpy()) for k, v in ct.items()}
+    # a copy: jnp.asarray would alias the torch buffers that kv_append
+    # then writes in place, racing the reference's asynchronous append
+    cj = {k: jnp.array(v.numpy()) for k, v in ct.items()}
     ak = rng.uniform(0.75, 1.0, (H, n_meta_groups(D, 2.0, 16))
                      ).astype(np.float32)
     av = rng.uniform(0.75, 1.0, (H, n_meta_groups(D, 1.5, 16))

@@ -41,9 +41,10 @@ runs on a machine with only torch:
   cache untouched, and a captured step BYTE-equal to eager steps.
 * the serving harness (DESIGN.md §10): a CUDA-graph replay of one decode
   step BYTE-equal to an eager step in every cache leaf and the logits,
-  striped and pooled; the launch counters after N replays; every cache
-  leaf and static buffer at the same address across admissions and
-  chunks; warmed and async streams equal to eager sync ones; the pinned
+  striped and pooled; the launch counters after N replays; traced
+  replays matching the capture's region map (``repro_torch.spans``);
+  every cache leaf and static buffer at the same address across
+  admissions and chunks; warmed and async streams equal to eager sync ones; the pinned
   delivery ring never handing the consumer overwritten tokens.
 * chunked prefill (DESIGN.md §7): the chunk append's bulk route BYTE-equal
   to its plain token loop and to a loop of ``kv_append`` after every
@@ -894,6 +895,61 @@ def test_launch_counts_after_replays(cuda_device):
     assert c["decode_attn"] == {"kernel": 7 * n_l, "pooled": 0, "plain": 0}
     assert c["kv_quant"] == {"kernel": 0, "plain": 0, "append": 7 * n_l,
                              "append_plain": 0, "chunk_plain": 0}
+
+
+def test_replays_match_the_captured_region_map(cuda_device):
+    """A captured smoke ``decode_one`` replayed under the profiler: every
+    whole replay between the ``repro_replay_begin`` / ``_end`` markers
+    holds the map's device operations, every region of a dense step takes
+    device time, nothing falls under ``other``, and every call opens its
+    three host spans."""
+    import json
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import spans
+    from repro_torch.serving import GraphCache, decode_one
+    cfg, eng = _harness_engine(cuda_device)
+    eng.submit(_harness_traffic(cfg)[0])
+    eng.step()
+    b = eng.batch_slots
+    ins = (torch.as_tensor(eng._tok, device=cuda_device),
+           torch.zeros(b, dtype=torch.bool, device=cuda_device),
+           torch.zeros(b, dtype=torch.bool, device=cuda_device),
+           torch.zeros(b, dtype=torch.int32, device=cuda_device),
+           torch.zeros(b, dtype=torch.float32, device=cuda_device),
+           torch.full((b,), -1, dtype=torch.int64, device=cuda_device))
+
+    def fn(token, *rest):
+        return decode_one(eng.params, cfg, HARNESS_POL, token, eng._caches,
+                          *rest, backend="cuda")
+    gc = GraphCache(cuda_device)
+    gc.warm("spans_step", fn, ins)
+    op_map = spans.op_maps()["spans_step"]
+    assert gc.report()["graphs"][0]["ops"] == op_map.total > 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            gc.call("spans_step", fn, *ins)
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as g:
+            events = json.load(g)["traceEvents"]
+    ops = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
+           for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    got = spans.attribute(ops, op_map)
+    assert got is not None, (op_map.total, [n for n, _, _ in ops][:80])
+    assert got.replays == 5
+    assert got.seconds.get(spans.OTHER, 0.0) == 0.0, got.seconds
+    by = got.by_name()
+    for name in ("embed", "attn.qkv", "attn.perm", "attn.append",
+                 "attn.mask", "attn.kernel", "attn.segment", "attn.out",
+                 "mlp", "head"):
+        assert by.get(name, 0.0) > 0.0, (name, by)
+    host = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    for kind in ("call", "copy_in", "launch"):
+        assert host.count(f"graph.{kind}:spans_step") == 5, kind
 
 
 @pytest.mark.parametrize("pool", [None, 40])
